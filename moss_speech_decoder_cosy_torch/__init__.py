@@ -1,0 +1,23 @@
+"""moss_speech_decoder_cosy_torch — the PyTorch / CUDA (H100) port of
+``moss_speech_decoder_cosy_tpu``.
+
+The JAX package stays the reference; this package mirrors its layout and
+class names so each counterpart is easy to find, and imports nothing of it.
+Public functions keep the JAX layouts: activations (B, T, C), attention
+(B, H, T, dk).  Plain tensor code is PyTorch; each Pallas kernel of the JAX
+package becomes a hand-written Hopper kernel under ``csrc/``, built with
+``nvcc`` at first use and bound with ``ctypes``.
+
+Layout
+------
+- ``ops``       masks, activations, norms, convs, embeddings, STFT/iSTFT,
+                attention, and the flash chunk-attention kernel wrapper.
+- ``models``    ``flow`` (tokens -> mel, conditional flow matching) and
+                ``hift`` (mel -> waveform vocoder).
+- ``pipeline``  ``AudioDecoder``: offline ``token2wav`` and the windowed
+                ``StreamSession``.
+- ``weights``   JAX param trees -> this package's state dicts.
+- ``csrc``      CUDA C++ kernels (``sm_90a``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,119 @@
+"""Where the time of a full-width decode goes, on one CUDA card.
+
+    python -m moss_speech_decoder_cosy_torch.bin.profile_decode \
+        [--tokens 250] [--stream-tokens 40] [--out prof.json]
+
+Builds the MOSS presets with flash attention and seeded weights in bf16,
+warms up, then for ``token2wav`` and for one windowed ``stream_inference``:
+
+- stage wall times with a synchronize after each stage (flow mel, HiFT);
+- a ``torch.profiler`` trace: device time by kernel (top 12), kernel
+  launches, total device time, host wall, and the device's busy share of
+  the wall (the profiler's own host cost lowers that share).
+
+Prints one JSON object per measurement and writes them all to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..pipeline import AudioDecoder
+from ..utils import config as C
+from ..utils.device import card_line
+from ..weights import seeded_states
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _trace(fn, top: int = 12) -> dict:
+    """Device time by kernel over one call of ``fn``: kernels are the
+    profiler's device-side events (the host-side ops that launch them are
+    not counted again)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    return dict(
+        wall_s=wall, device_s=device_s, busy_share=device_s / wall,
+        kernel_launches=int(sum(e.count for e in kernels)),
+        top=[dict(name=e.key[:80], calls=e.count,
+                  device_ms=e.self_device_time_total / 1e3)
+             for e in kernels[:top]])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tokens", type=int, default=250)
+    ap.add_argument("--stream-tokens", type=int, default=40)
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    flow_cfg = C.moss_flow_config()
+    flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
+        flow_cfg.estimator, use_flash_attention=True))
+    hift_cfg = C.moss_hift_config()
+    dec = AudioDecoder(flow_cfg, hift_cfg,
+                       *seeded_states(flow_cfg, hift_cfg),
+                       compute_dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, flow_cfg.vocab_size, (1, args.tokens))
+    none = dec._defaults(None, None, None)
+    results = dict(card=card_line(), torch=torch.__version__,
+                   cuda=torch.version.cuda, tokens=args.tokens)
+
+    dec.token2wav(tokens)                                  # warm-up
+    flow_s, mel = _wall(lambda: dec._flow_mel(tokens, *none, False, True))
+    hift_s, _ = _wall(lambda: dec._hift(mel, np.zeros((1, 0, 1),
+                                                      np.float32)))
+    results["token2wav_stages_s"] = dict(flow=flow_s, hift=hift_s)
+    results["token2wav_trace"] = _trace(lambda: dec.token2wav(tokens))
+    print(json.dumps({"token2wav_stages_s": results["token2wav_stages_s"]}))
+    print(json.dumps({"token2wav_trace": results["token2wav_trace"]}))
+
+    stream = rng.randint(0, flow_cfg.vocab_size, (1, args.stream_tokens))
+    dec.stream_inference(stream)                           # warm-up
+    window = stream[:, -dec.pipe_cfg.max_token_len:]
+    flow_s, mel = _wall(lambda: dec._flow_mel(window, *none, True, False))
+    hift_s, _ = _wall(lambda: dec._hift(mel, np.zeros((1, 0, 1),
+                                                      np.float32)))
+    results["window_stages_s"] = dict(window_tokens=window.shape[1],
+                                      flow=flow_s, hift=hift_s)
+    results["stream_trace"] = _trace(lambda: dec.stream_inference(stream))
+    print(json.dumps({"window_stages_s": results["window_stages_s"]}))
+    print(json.dumps({"stream_trace": results["stream_trace"]}))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,166 @@
+"""Upsample conformer encoder: speech tokens -> mel-rate features, after the
+JAX package's ``models/flow/encoder.py`` (reference
+cosyvoice/transformer/upsample_encoder.py:105-321):
+
+    linear embed (x sqrt(d)) -> PreLookaheadLayer -> N conformer blocks ->
+    nearest x`stride` upsample + causal conv -> re-embed -> M conformer
+    blocks -> LayerNorm
+
+Only the configuration the presets use is ported: no macaron feed-forward,
+no conv module.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.activations import get_activation
+from ...ops.attention import RelPositionMultiHeadedAttention
+from ...ops.convs import Conv1d
+from ...ops.embeddings import espnet_rel_pos, wenet_rel_pos
+from ...ops.masks import chunk_attention_mask
+from ...ops.norms import LayerNorm
+from ...utils.config import EncoderConfig
+
+
+class LinearEmbed(nn.Module):
+    """LinearNoSubsampling: Linear + LayerNorm(1e-5), then x * sqrt(d)."""
+
+    def __init__(self, in_features: int, output_size: int):
+        super().__init__()
+        self.output_size = output_size
+        self.linear = nn.Linear(in_features, output_size)
+        self.norm = LayerNorm(output_size, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(self.linear(x))
+        return x * torch.sqrt(torch.tensor(self.output_size, dtype=x.dtype,
+                                           device=x.device))
+
+
+class PreLookaheadLayer(nn.Module):
+    """conv1 (kernel la+1, la tokens of lookahead or explicit context) ->
+    leaky_relu -> causal conv2 k3 -> +residual."""
+
+    def __init__(self, channels: int, pre_lookahead_len: int = 3):
+        super().__init__()
+        self.la = pre_lookahead_len
+        self.conv1 = Conv1d(channels, channels, pre_lookahead_len + 1)
+        self.conv2 = Conv1d(channels, channels, 3)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if context is None:
+            h = F.pad(x, (0, 0, 0, self.la))
+        else:
+            assert context.shape[1] == self.la
+            h = torch.cat([x, context], dim=1)
+        h = F.leaky_relu(self.conv1(h), 0.01)
+        h = self.conv2(F.pad(h, (0, 0, 2, 0)))
+        return h + x
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, hidden: int, activation: str = "swish"):
+        super().__init__()
+        self.w_1 = nn.Linear(dim, hidden)
+        self.w_2 = nn.Linear(hidden, dim)
+        self.act = get_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_2(self.act(self.w_1(x)))
+
+
+class ConformerEncoderLayer(nn.Module):
+    """Pre-LN conformer layer (reference transformer/encoder_layer.py:
+    110-236) without macaron FF or conv module."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        if cfg.macaron_style or cfg.use_cnn_module:
+            raise NotImplementedError(
+                "macaron_style / use_cnn_module are not ported")
+        d = cfg.output_size
+        self.norm_mha = LayerNorm(d, eps=1e-12)
+        self.self_attn = RelPositionMultiHeadedAttention(
+            cfg.attention_heads, d, cfg.key_bias)
+        self.norm_ff = LayerNorm(d, eps=1e-12)
+        self.feed_forward = FeedForward(d, cfg.linear_units, cfg.activation)
+
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                pos_emb: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.norm_mha(x), pos_emb, attn_mask)
+        return x + self.feed_forward(self.norm_ff(x))
+
+
+class Upsample1D(nn.Module):
+    """Nearest x`stride` + left-padded conv k=2*stride+1."""
+
+    def __init__(self, channels: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.conv = Conv1d(channels, channels, 2 * stride + 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.repeat_interleave(x, self.stride, dim=1)
+        return self.conv(F.pad(x, (0, 0, 2 * self.stride, 0)))
+
+
+class UpsampleConformerEncoder(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.output_size
+        self.embed = LinearEmbed(cfg.input_size, d)
+        self.pre_lookahead_layer = PreLookaheadLayer(d, cfg.pre_lookahead_len)
+        self.encoders = [self._add(f"encoders_{i}", ConformerEncoderLayer(cfg))
+                         for i in range(cfg.num_blocks)]
+        self.up_layer = Upsample1D(d, cfg.upsample_stride)
+        self.up_embed = LinearEmbed(d, d)
+        self.up_encoders = [
+            self._add(f"up_encoders_{i}", ConformerEncoderLayer(cfg))
+            for i in range(cfg.num_up_blocks)]
+        self.after_norm = LayerNorm(d, eps=1e-5)
+
+    def _add(self, name: str, module: nn.Module) -> nn.Module:
+        # children carry the JAX package's parameter names (weights.py)
+        self.add_module(name, module)
+        return module
+
+    def _rel_pos(self, size: int, device) -> torch.Tensor:
+        if self.cfg.pos_enc_layer_type == "rel_pos_espnet":
+            return espnet_rel_pos(size, self.cfg.output_size, device=device)
+        return wenet_rel_pos(size, self.cfg.output_size, device=device)
+
+    def forward(self, x: torch.Tensor, valid: torch.Tensor,
+                context: Optional[torch.Tensor] = None,
+                streaming: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: embedded tokens (B, T, input_size); valid bool (B, T).
+        Returns (features (B, T*stride, output_size), valid_up)."""
+        c = self.cfg
+        t = x.shape[1]
+        x = self.embed(x)
+        pos = self._rel_pos(t, x.device).to(x.dtype)
+        if context is not None:
+            context = self.embed(context)
+        chunk = c.static_chunk_size if streaming else 0
+        attn_mask = chunk_attention_mask(valid, chunk)
+
+        x = self.pre_lookahead_layer(x, context)
+        for layer in self.encoders:
+            x = layer(x, attn_mask, pos)
+
+        x = self.up_layer(x)
+        valid_up = torch.repeat_interleave(valid, c.upsample_stride, dim=1)
+        x = self.up_embed(x)
+        pos_up = self._rel_pos(t * c.upsample_stride, x.device).to(x.dtype)
+        attn_mask_up = chunk_attention_mask(
+            valid_up, chunk * c.upsample_stride if streaming else 0)
+        for layer in self.up_encoders:
+            x = layer(x, attn_mask_up, pos_up)
+        return self.after_norm(x), valid_up
