@@ -16,8 +16,9 @@ Phases (any failure raises and the script exits non-zero):
 4. Slice at full width: ``moss_flow_config()`` with flash attention and
    ``moss_hift_config()``, weights drawn from seed 0, bf16 compute.
    ``token2wav`` of 250 tokens (launch counts read around one decode, then
-   the wall time of 1 warm-up + median of 3, and the RTF), and
-   ``stream_inference`` of 100 tokens.
+   the wall time of 1 warm-up + median of 3, and the RTF),
+   ``stream_inference`` of 100 tokens, and the first chunk's latency of a
+   new streaming session.
 5. Cross-device: the flow mel of 50 tokens in f32 on the card (kernel) and
    on the CPU (plain path), same weights.
 6. One ``{"kernels": [...]}`` line, the card line, and as the last line
@@ -51,13 +52,17 @@ CROSS_TOL = 2e-3
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call over ``iters`` back-to-back calls (CUDA events)."""
+    """Mean ms per call over ``iters`` back-to-back calls (CUDA events).
+    A spin kernel ahead of the first event keeps the card busy while the
+    host enqueues the calls, so a call that does not wait on the card is
+    timed on the device alone, without its host launch cost."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)        # ~25 ms of clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -200,26 +205,34 @@ def slice_phase(torch, fa, device: str = "cuda", tiny: bool = False,
     wall = statistics.median(walls)
 
     stream_tokens = rng.randint(0, flow_cfg.vocab_size, (1, n_stream))
+    # one window per complete hop (hop + lookahead tokens), one to finish
+    hop, ahead = dec.pipe_cfg.block_size, flow_cfg.pre_lookahead_len
+    windows = max(0, (n_stream - ahead) // hop) + 1
     fa.launch_flash_chunk_attention.launches = 0
     t0 = time.perf_counter()
-    sess = dec.new_session()
-    chunks = list(sess.push(stream_tokens[0])) + list(sess.finish())
+    swav = dec.stream_inference(stream_tokens)
     stream_wall = time.perf_counter() - t0
     stream_launches = fa.launch_flash_chunk_attention.launches
-    swav = np.concatenate(chunks, axis=-1)
     want_len = n_stream * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
-    if device == "cuda" and stream_launches != per_decode * len(chunks):
+    if device == "cuda" and stream_launches != per_decode * windows:
         raise AssertionError(f"stream_inference launched the kernel "
-                             f"{stream_launches} times over {len(chunks)} "
-                             f"windows, expected {per_decode} each")
+                             f"{stream_launches} times, expected {per_decode} "
+                             f"in each of {windows} windows")
     if swav.shape != (1, want_len) or not np.isfinite(swav).all():
         raise AssertionError(f"bad stream output {swav.shape}")
+    # first-chunk latency: a new session fed its first hop's tokens
+    t0 = time.perf_counter()
+    first = next(dec.new_session().push(stream_tokens[0, :hop + ahead]))
+    first_chunk_s = time.perf_counter() - t0
+    if not np.isfinite(first).all():
+        raise AssertionError("bad first stream chunk")
     out = dict(tokens=n_tokens, audio_s=audio_s, launches=launches,
                launches_per_decode=per_decode, wall_s=walls, median_s=wall,
                rtf=wall / audio_s, wav_max_abs=float(np.abs(wav).max()),
-               stream_tokens=n_stream, stream_windows=len(chunks),
+               stream_tokens=n_stream, stream_windows=windows,
                stream_launches=stream_launches, stream_wall_s=stream_wall,
-               stream_rtf=stream_wall / (want_len / hift_cfg.sampling_rate))
+               stream_rtf=stream_wall / (want_len / hift_cfg.sampling_rate),
+               first_chunk_s=first_chunk_s)
     print("slice", json.dumps(out), flush=True)
     return out
 

@@ -86,10 +86,8 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
-                flash_chunk: int = -1,
-                flash_valid_len: int = -1) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x), attn_bias, flash_chunk,
-                           flash_valid_len)
+                flash_chunk: int = -1) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x), attn_bias, flash_chunk)
         return x + self.ff_out(self.act(self.ff_proj(self.norm3(x))))
 
 

@@ -191,7 +191,7 @@ class HiFTGenerator(nn.Module):
         last = base // 2 ** len(self.ups)
         self.conv_post = Conv1d(last, cfg.istft_n_fft + 2, 7, padding=3,
                                 weight_norm=True)
-        self._window = stft_ops.hann_window(cfg.istft_n_fft, periodic=True)
+        self._window = stft_ops.hann_window(cfg.istft_n_fft)
         self.draws: DrawFn = seeded_draws
 
     def _add(self, name: str, module: nn.Module) -> nn.Module:

@@ -18,11 +18,10 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
 
 
-def snake(x: torch.Tensor, alpha: torch.Tensor,
-          no_div_by_zero: float = 1e-9) -> torch.Tensor:
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Snake activation, alpha shaped (C,) broadcasting over (..., C)."""
     s = torch.sin(alpha * x)
-    return x + s * s / (alpha + no_div_by_zero)
+    return x + s * s / (alpha + 1e-9)
 
 
 class Snake(nn.Module):

@@ -102,14 +102,12 @@ class UNetAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
-                flash_chunk: int = -1,
-                flash_valid_len: int = -1) -> torch.Tensor:
+                flash_chunk: int = -1) -> torch.Tensor:
         b, t, _ = x.shape
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         if flash_chunk >= 0:
-            out = flash_chunk_attention_fl(
-                q, k, v, self.heads, chunk_size=flash_chunk,
-                valid_len=flash_valid_len if flash_valid_len > 0 else None)
+            out = flash_chunk_attention_fl(q, k, v, self.heads,
+                                           chunk_size=flash_chunk)
             return self.to_out(out)
 
         def split(y):

@@ -16,11 +16,10 @@ import torch
 import torch.nn.functional as F
 
 
-def hann_window(n_fft: int, periodic: bool = True) -> np.ndarray:
-    """Hann window; periodic matches torch.hann_window / scipy get_window."""
+def hann_window(n_fft: int) -> np.ndarray:
+    """Periodic Hann window, as torch.hann_window / scipy get_window."""
     n = np.arange(n_fft, dtype=np.float64)
-    denom = n_fft if periodic else n_fft - 1
-    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / denom)).astype(np.float32)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / n_fft)).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,19 +51,16 @@ def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def frame(x: torch.Tensor, n_fft: int, hop: int, center: bool = True,
-          pad_mode: str = "reflect") -> torch.Tensor:
-    """(B, L) -> (B, T, n_fft) frames, torch.stft framing."""
-    if center:
-        x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode=pad_mode)[:, 0]
+def frame(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """(B, L) -> (B, T, n_fft) frames, torch.stft(center=True) framing."""
+    x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     return x.unfold(-1, n_fft, hop)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop: int, window: np.ndarray,
-         center: bool = True, pad_mode: str = "reflect"):
+def stft(x: torch.Tensor, n_fft: int, hop: int, window: np.ndarray):
     """torch.stft equivalent.  Returns (real, imag) each (B, T, F) in the
     input dtype; the DFT runs in f32."""
-    frames = frame(x.float(), n_fft, hop, center, pad_mode)
+    frames = frame(x.float(), n_fft, hop)
     frames = frames * _t(window, x.device)[None, None, :]
     cos_b, sin_b = _dft_bases(n_fft)
     real = frames @ _t(cos_b, x.device)
@@ -90,7 +86,7 @@ def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
 
 
 def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int,
-          window: np.ndarray, center: bool = True) -> torch.Tensor:
+          window: np.ndarray) -> torch.Tensor:
     """torch.istft(center=True, length=None): (B, T, F) -> (B, (T-1)*hop),
     f32."""
     dev = real.device
@@ -102,6 +98,4 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int,
     t = real.shape[1]
     env = _overlap_add((win * win)[None, None, :].expand(1, t, n_fft), hop)
     sig = sig / torch.clamp(env, min=1e-11)
-    if center:
-        sig = sig[:, n_fft // 2: sig.shape[1] - n_fft // 2]
-    return sig
+    return sig[:, n_fft // 2: sig.shape[1] - n_fft // 2]

@@ -1,6 +1,7 @@
 """Declarative model configs (the port's own copy of the JAX package's
-``utils/config.py``; the two are kept field-for-field identical so a
-config built for one package describes the same model in the other).
+``utils/config.py`` dataclasses and of the presets the port runs; the
+dataclasses are kept field-for-field identical so a config built for one
+package describes the same model in the other).
 
 The reference instantiates live objects from hyperpyyaml checkpoint configs
 (flow_inference.py:53-64); here every model is described by a frozen
@@ -9,7 +10,6 @@ dataclass so configs are hashable, serializable, and diffable.  Presets:
 - ``moss_flow_config`` / ``moss_hift_config``: the MOSS-Speech 24 kHz decoder
   (12.5 Hz tokens, vocab 16384, token→mel ratio 4 via upsample_stride 4;
   SURVEY.md §0 and gradio_voice_converter_unstreaming_streaming.py:324).
-- ``cosyvoice2_flow_config``: CosyVoice2 (25 Hz tokens, vocab 6561, ratio 2).
 - ``tiny_*``: small shapes for unit tests.
 """
 
@@ -167,39 +167,6 @@ def moss_flow_config() -> FlowConfig:
 
 def moss_hift_config() -> HiFTConfig:
     return HiFTConfig()
-
-
-def cosyvoice1_flow_config() -> FlowConfig:
-    """CosyVoice v1 / stock GLM-4-Voice 22.05 kHz flow (MaskedDiffWithXvec,
-    flow.py:24-148): plain 512-d conformer text encoder (rel_pos_espnet),
-    InterpolateRegulator, non-causal matcha U-Net [256,256] estimator."""
-    return FlowConfig(
-        vocab_size=4096, input_size=512, output_size=80, spk_embed_dim=192,
-        input_frame_rate=50, token_mel_ratio=2,  # ~50 Hz -> 86.13 Hz mels
-        encoder=EncoderConfig(
-            input_size=512, output_size=512, attention_heads=8,
-            linear_units=2048, num_blocks=6, macaron_style=False,
-            use_cnn_module=False, dropout_rate=0.0,
-            pos_enc_layer_type="rel_pos_espnet"),
-        estimator=EstimatorConfig(
-            in_channels=320, out_channels=80, channels=(256, 256),
-            attention_head_dim=64, n_blocks=4, num_mid_blocks=12,
-            num_heads=8, act_fn="gelu", causal=False),
-        cfm=CFMConfig(n_timesteps=10, max_noise_len=15000),
-    )
-
-
-def cosyvoice1_hift_config() -> HiFTConfig:
-    """22.05 kHz HiFT (hifigan/generator.py:429 SourceModuleHnNSF branch)."""
-    return HiFTConfig(sampling_rate=22050)
-
-
-def cosyvoice2_flow_config() -> FlowConfig:
-    return FlowConfig(
-        vocab_size=6561, input_frame_rate=25, token_mel_ratio=2,
-        encoder=EncoderConfig(upsample_stride=2, static_chunk_size=25),
-        estimator=EstimatorConfig(static_chunk_size=50),
-    )
 
 
 def tiny_flow_config() -> FlowConfig:

@@ -143,7 +143,6 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     return state
 
 
-
 def seeded_states(flow_cfg, hift_cfg, seed: int = 0
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(flow_state, hift_state) drawn from seeds ``seed`` and ``seed + 1``

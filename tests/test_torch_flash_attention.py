@@ -1,6 +1,7 @@
 """The flash chunk-attention wrapper of the port against the JAX Pallas kernel
 (interpret mode on the CPU).  On the CPU the wrapper runs the kernel's plain
-version; the CUDA kernel itself is checked on the card (``cuda`` marker)."""
+version; the CUDA kernel itself is checked on the card by
+``test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -101,23 +102,3 @@ def test_wrapper_rejects_bad_inputs():
         fa.flash_chunk_attention(q, k.double(), v)
     with pytest.raises(ValueError):
         fa.flash_chunk_attention(q, k, v, valid_len=17)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
-        for t, chunk, vl in ((1000, 0, 1000), (160, 50, 131)):
-            q, k, v = (torch.from_numpy(a).cuda().to(dtype)
-                       for a in _qkv((2, 8, t, 64), 5))
-            want = fa.flash_chunk_attention_plain(q, k, v, chunk, vl)
-            got = fa.flash_chunk_attention(q, k, v, chunk, vl)
-            got_fl = fa.flash_chunk_attention_fl(
-                *(x.transpose(1, 2).reshape(2, t, 512).contiguous()
-                  for x in (q, k, v)), heads=8, chunk_size=chunk,
-                valid_len=vl).reshape(2, t, 8, 64).transpose(1, 2)
-            torch.cuda.synchronize()
-            for out in (got, got_fl):
-                err = (out.float() - want.float()).abs().max().item()
-                assert err <= tol, (dtype, t, chunk, err)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``moss_speech_decoder_cosy_torch`` and
-not ``chip_smoke.py`` imports jax, flax or the JAX package (AST scan)."""
+"""The port stands alone: no module of ``moss_speech_decoder_cosy_torch``,
+not ``chip_smoke.py`` and not the card's tests (``test_torch_cuda.py``)
+import jax, flax or the JAX package (AST scan)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "moss_speech_decoder_cosy_tpu")
 FILES = sorted(str(p.relative_to(ROOT)) for p in
                (ROOT / "moss_speech_decoder_cosy_torch").rglob("*.py")) + [
-    "chip_smoke.py"]
+    "chip_smoke.py", "tests/test_torch_cuda.py"]
 
 
 def _imported(path: Path):
