@@ -30,6 +30,8 @@
 // key tiles are never read.  The arithmetic runs on CUDA cores in f32 for
 // both dtypes: the kernel sits well above its tensor-core bound in bf16.
 
+#include <atomic>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -230,14 +232,32 @@ flash_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Raises the kernel's dynamic shared-memory limit once per device and dtype
+// rather than on every launch.
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+cudaError_t allow_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_chunk_attention_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemBytes);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int heads, int t_len, Strides qs, Strides ks, Strides vs,
            Strides os, int chunk, int valid_len, float scale,
            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_chunk_attention_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  cudaError_t err = allow_smem<T>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t_len + kBq - 1) / kBq, batch * heads);
   flash_chunk_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(

@@ -53,6 +53,21 @@ def flash_chunk_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return (acc / torch.clamp(l, min=1e-20)).to(q.dtype)
 
 
+def kernel_tolerance(want: torch.Tensor) -> float:
+    """Largest abs difference allowed between the kernel and the plain
+    version whose output is ``want``.  f32: 2e-5 (summation order only).
+    bf16: two bf16 ulps of the largest |output| -- the two round p at
+    different running maxima and then round the output once."""
+    if want.dtype == torch.float32:
+        return 2e-5
+    if want.dtype != torch.bfloat16:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {want.dtype}")
+    top = want.float().abs().max().item()
+    # bf16 keeps 8 significant bits: for |x| in [2^e, 2^(e+1)) an ulp is
+    # 2^(e-7); frexp gives top = f * 2^(e+1), f in [0.5, 1)
+    return 2.0 * 2.0 ** (math.frexp(top)[1] - 8) if top > 0 else 0.0
+
+
 def _check(q, k, v, ndim: int) -> None:
     if q.dim() != ndim or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q/k/v must share one {ndim}-D shape, got "

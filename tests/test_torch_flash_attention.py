@@ -102,3 +102,16 @@ def test_wrapper_rejects_bad_inputs():
         fa.flash_chunk_attention(q, k.double(), v)
     with pytest.raises(ValueError):
         fa.flash_chunk_attention(q, k, v, valid_len=17)
+
+
+@pytest.mark.parametrize("top,tol", [
+    (0.3, 2 * 2.0 ** -9),      # |x| in [0.25, 0.5): one bf16 ulp is 2^-9
+    (0.5, 2 * 2.0 ** -8),
+    (4.9, 2 * 2.0 ** -5),
+])
+def test_kernel_tolerance_is_two_bf16_ulps_of_the_largest_output(top, tol):
+    want = torch.tensor([[0.01, -top, 0.0]], dtype=torch.bfloat16)
+    assert fa.kernel_tolerance(want) == tol
+    assert fa.kernel_tolerance(want.float()) == 2e-5
+    with pytest.raises(ValueError):
+        fa.kernel_tolerance(want.half())
