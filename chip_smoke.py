@@ -11,17 +11,30 @@ Phases (any failure raises and the script exits non-zero):
    (one process per source, in parallel).
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes, with its time, the plain version's time, the
-   time of one PyTorch library call computing the same function (a
-   yardstick only; the port never calls it) and the card's bound.
-4. Slice at full width: ``moss_flow_config()`` with flash attention and
-   ``moss_hift_config()``, weights drawn from seed 0, bf16 compute.
-   ``token2wav`` of 250 tokens and ``stream_inference`` of 100 tokens, each
-   1 warm-up + median of 3 with the launch counts read around every timed
-   call, and the first chunk's latency of a new streaming session.
-5. Cross-device: the flow mel in f32 on the card (kernel) and on the CPU
-   (plain path), same weights: offline over 50 tokens and streaming over
-   one 40-token window.
-6. One ``{"kernels": [...]}`` line, the card line, and as the last line
+   time of one PyTorch library call computing the same function where
+   there is one (a yardstick only; the port never calls it) and the
+   card's bound.  ``flash_chunk_attention``: both entries, f32 and bf16.
+   ``fused_tf_group``: the down, mid and up groups (L = 4) in f32 and
+   bf16, a shared write offset with and without a wrap, the per-row mode,
+   disabled rows, rings in ramp-up and full.
+4. Offline and windowed slice at full width: ``moss_flow_config()`` with
+   flash attention and ``moss_hift_config()``, weights drawn from seed 0,
+   bf16 compute.  ``token2wav`` of 250 tokens and ``stream_inference`` of
+   100 tokens, each 1 warm-up + median of 3 with the launch counts read
+   around every timed call, and the first chunk's latency of a new
+   streaming session.
+5. KV slice at full width, the configuration ``bench.py`` runs at batch 1:
+   ``moss_flow_config()`` (ring attention, no flash), 10 steps with a
+   4096-frame noise buffer, block 5, mel cache 8, max_token_len 40,
+   ``kv_stream_decoder()`` with its defaults (ring 35 tokens, fused
+   write-then-attend, kernel engine), bf16.  ``stream_decode`` of 250
+   tokens, 1 warm-up + median of 3, with exactly 14 ``fused_tf_group``
+   launches per wavefront iteration; and the first hop's latency
+   (a warm ``_hop`` + ``_voc``).
+6. Cross-device: the flow mel in f32 on the card (kernels) and on the CPU
+   (plain versions), same weights: offline over 50 tokens, one 40-token
+   streaming window, and the KV wavefront over 40 tokens.
+7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or the port's
@@ -47,6 +60,10 @@ PEAK_BYTES = 3.35e12
 
 # flow mel, f32 on the card (kernel, cuBLAS/cuDNN without TF32) vs the CPU
 CROSS_TOL = 1e-4
+# the KV slice: bench.py's stream length and noise buffer
+KV_TOKENS, KV_NOISE_LEN = 250, 4096
+FUSED_NOTE = ("no single PyTorch call computes a causal resnet followed by "
+              "L transformer blocks with ring writes")
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -152,16 +169,129 @@ def kernel_phase(torch, fa) -> list:
     return records
 
 
-def seeded_models():
-    """(flow_cfg, hift_cfg, flow_state, hift_state): the MOSS presets with
-    flash attention on, weights from seeds 0 and 1."""
+def group_bound_ms(rows: int, cf: int, cin: int, ch: int, inner: int,
+                   ff: int, tdim: int, n_layers: int, rp: int, nd, enable,
+                   dtype: str):
+    """Least time for one ``fused_tf_group`` call.  Bytes: every input read
+    once (x, mt, conv caches, the group's weights, and of each layer's ring
+    only the valid slots the chunk does not overwrite), every output written
+    once (x_out, conv caches, the enabled rows' chunk K/V).  Operations: the
+    resnet's convs and time projection, each layer's QKV, out-proj and FF
+    products, and QK^T and A V over each row's valid slots.  Over the
+    dtype's peak: tensor cores in bf16, CUDA cores in f32."""
+    elem = 2 if dtype == "bfloat16" else 4
+    valid = [min(int(n), rp) for n in nd]
+    written = [cf if e else 0 for e in enable]
+    res_w = (3 * cin * ch + 3 * ch * ch + tdim * ch + cin * ch + 7 * ch)
+    tf_w = n_layers * (3 * ch * inner + inner * ch + 2 * ch * ff + 6 * ch
+                       + ff)
+    ring_read = n_layers * sum(max(v - w, 0) for v, w in
+                               zip(valid, written)) * 2 * inner
+    ring_write = n_layers * sum(written) * 2 * inner
+    nbytes = elem * (rows * (cf * cin + tdim + 2 * cin + 2 * ch)
+                     + res_w + tf_w + ring_read + ring_write
+                     + rows * (cf * ch + 2 * cin + 2 * ch))
+    flops = (2 * rows * cf * (3 * cin * ch + 3 * ch * ch + cin * ch)
+             + 2 * rows * tdim * ch
+             + n_layers * 2 * rows * cf * (3 * ch * inner + inner * ch
+                                           + 2 * ch * ff)
+             + n_layers * 4 * sum(valid) * cf * inner)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def fused_group_phase(torch, fb) -> list:
+    """``fused_tf_group`` against its plain version at the KV slice's shapes
+    (20 wavefront rows, hop 20 frames, ring 160 slots, 8 x 64 heads, L 4):
+    the down (cin 320), mid (256) and up (512) groups in their steady state
+    (shared offset on the hop grid, full rings, every row enabled), and for
+    the mid group a wrapping write at align 12 into ramp-up rings with two
+    rows drained, the per-row mode, and disabled rows.  Checks x_out, the
+    rings and both conv caches (``fused_block.kernel_tolerance``), that
+    disabled rows keep their rings and that no input changes."""
+    rows, cf, rp, heads, hd, ch, n_layers = 20, 20, 160, 8, 64, 256, 4
+    ff = tdim = 4 * ch
+    steady = dict(shared=True, offset=100, nd=[rp + cf] * rows,
+                  enable=[1] * rows)
+    cases = [("down", 320, "steady", steady), ("mid", 256, "steady", steady),
+             ("up", 512, "steady", steady),
+             ("mid", 256, "wrap_rampup", dict(
+                 shared=True, offset=152,
+                 nd=[cf * (1 + r // 2) for r in range(rows)],
+                 enable=[1] * (rows - 2) + [0, 0])),
+             ("mid", 256, "per_row", dict(
+                 shared=False, offset=0,
+                 nd=[20, 45, 160, 171, 213, 300, 20, 99, 140, 180] * 2,
+                 enable=[1, 1, 1, 0, 1, 1, 0, 1, 1, 1] * 2)),
+             ("mid", 256, "disabled_rows", dict(
+                 shared=True, offset=0, nd=[rp + cf] * rows,
+                 enable=[int(r % 3 != 0) for r in range(rows)]))]
+    rot = [((r // 2) * cf) % rp for r in range(rows)]
+    records = []
+    for group, cin, mode, c in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
+                rows, cf, cin, ch, heads, hd, n_layers, rp, dtype, "cuda",
+                seed=cin + len(mode))
+            scal = fb.group_scalars(c["nd"], rot, c["enable"], "cuda")
+            kw = dict(heads=heads, head_dim=hd, shared_offset=c["shared"])
+            inputs = [t.clone() for t in (mt, cc1, cc2, x)]
+            r_plain, r_kern = rings.clone(), rings.clone()
+            want = fb.fused_tf_group_plain(p, rp_, mt, cc1, cc2, x, r_plain,
+                                           scal, c["offset"], **kw)
+            got = fb.fused_tf_group(p, rp_, mt, cc1, cc2, x, r_kern, scal,
+                                    c["offset"], **kw)
+            torch.cuda.synchronize()
+            errs, tols = {}, {}
+            for g, w, what in zip(got, want, ("x", "rings", "cc1", "cc2")):
+                errs[what] = (g.float() - w.float()).abs().max().item()
+                tols[what] = fb.kernel_tolerance(w)
+            off = torch.tensor(c["enable"], device="cuda") == 0
+            kept = bool(torch.equal(r_kern[:, off], rings[:, off]))
+            untouched = all(torch.equal(a, b) for a, b in
+                            zip(inputs, (mt, cc1, cc2, x)))
+            ms = time_cuda(lambda: fb.fused_tf_group(
+                p, rp_, mt, cc1, cc2, x, r_kern, scal, c["offset"], **kw))
+            plain_ms = time_cuda(lambda: fb.fused_tf_group_plain(
+                p, rp_, mt, cc1, cc2, x, r_plain, scal, c["offset"], **kw))
+            bound, bound_by = group_bound_ms(
+                rows, cf, cin, ch, heads * hd, ff, tdim, n_layers, rp,
+                c["nd"], c["enable"], dname)
+            rec = dict(group=group, mode=mode, dtype=dname,
+                       shape=dict(rows=rows, cf=cf, cin=cin, ch=ch, L=n_layers,
+                                  rp=rp, heads=heads, head_dim=hd),
+                       max_abs_err=errs, tol=tols,
+                       disabled_rows_kept=kept, inputs_untouched=untouched,
+                       ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bound, bound_by=bound_by)
+            print("fused_tf_group", json.dumps(rec), flush=True)
+            if not (all(errs[k] <= tols[k] for k in errs) and kept
+                    and untouched):
+                raise AssertionError(f"fused_tf_group disagrees with its "
+                                     f"plain version: {rec}")
+            records.append(rec)
+    return records
+
+
+def seeded_models(flash: bool = True):
+    """(flow_cfg, hift_cfg, flow_state, hift_state): the MOSS presets,
+    weights from seeds 0 and 1.  ``flash``: the estimator's attention
+    through the flash kernel (offline and windowed decode); without it, the
+    KV session's configuration, with ``bench.py``'s 4096-frame noise
+    buffer."""
     from moss_speech_decoder_cosy_torch.utils import config as C
     from moss_speech_decoder_cosy_torch.weights import seeded_states
 
     flow_cfg = C.moss_flow_config()
     hift_cfg = C.moss_hift_config()
-    flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
-        flow_cfg.estimator, use_flash_attention=True))
+    if flash:
+        flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
+            flow_cfg.estimator, use_flash_attention=True))
+    else:
+        flow_cfg = dataclasses.replace(flow_cfg, cfm=dataclasses.replace(
+            flow_cfg.cfm, max_noise_len=KV_NOISE_LEN))
     return (flow_cfg, hift_cfg) + seeded_states(flow_cfg, hift_cfg)
 
 
@@ -173,18 +303,18 @@ def launches_per_decode(flow_cfg) -> int:
     return blocks * flow_cfg.cfm.n_timesteps
 
 
-def timed_runs(fa, call, want_launches: int, what: str):
-    """One warm-up call, then 3 timed calls with the launch count set to 0
-    just before each and checked just after.  Returns (last output, walls,
-    launches of one call)."""
+def timed_runs(counter, call, want_launches: int, what: str):
+    """One warm-up call, then 3 timed calls with the kernel's launch count
+    (``counter.launches``) set to 0 just before each and checked just after.
+    Returns (last output, walls, launches of one call)."""
     call()
     walls = []
     for _ in range(3):
-        fa.launch_flash_chunk_attention.launches = 0
+        counter.launches = 0
         t0 = time.perf_counter()
         out = call()
         walls.append(time.perf_counter() - t0)
-        launches = fa.launch_flash_chunk_attention.launches
+        launches = counter.launches
         if launches != want_launches:
             raise AssertionError(f"{what} launched the kernel {launches} "
                                  f"times, expected {want_launches}")
@@ -207,7 +337,8 @@ def slice_phase(torch, fa) -> dict:
     samples = n_tokens * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
     audio_s = samples / hift_cfg.sampling_rate
 
-    wav, walls, launches = timed_runs(fa, lambda: dec.token2wav(tokens),
+    counter = fa.launch_flash_chunk_attention
+    wav, walls, launches = timed_runs(counter, lambda: dec.token2wav(tokens),
                                       per_decode, "token2wav")
     if wav.shape != (1, samples) or not np.isfinite(wav).all() or \
             np.abs(wav).max() > hift_cfg.audio_limit:
@@ -220,8 +351,8 @@ def slice_phase(torch, fa) -> dict:
     hop, ahead = dec.pipe_cfg.block_size, flow_cfg.pre_lookahead_len
     windows = max(0, (n_stream - ahead) // hop) + 1
     swav, stream_walls, stream_launches = timed_runs(
-        fa, lambda: dec.stream_inference(stream_tokens), per_decode * windows,
-        "stream_inference")
+        counter, lambda: dec.stream_inference(stream_tokens),
+        per_decode * windows, "stream_inference")
     want_len = n_stream * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
     if swav.shape != (1, want_len) or not np.isfinite(swav).all():
         raise AssertionError(f"bad stream output {swav.shape}")
@@ -242,6 +373,117 @@ def slice_phase(torch, fa) -> dict:
                first_chunk_s=first_chunk_s)
     print("slice", json.dumps(out), flush=True)
     return out
+
+
+def kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state, n_tokens, **kw):
+    """``AudioDecoder(...).kv_stream_decoder()`` with bench.py's pipeline
+    geometry and the session's defaults; checks that it runs the kernel
+    engine."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+
+    dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                       PipelineConfig(block_size=5, mel_cache_len=8,
+                                      max_token_len=40), **kw)
+    kv = dec.kv_stream_decoder(token_cap=n_tokens + 16)
+    if not (kv._kernel and kv._fused and kv.ring_tokens == 35):
+        raise AssertionError("kv_stream_decoder() did not select the fused "
+                             "kernel engine over a 35-token ring")
+    return kv
+
+
+def wave_launches(kv, flow_cfg, n_tokens: int) -> int:
+    """fused_tf_group launches of one wavefront: one per resnet + group
+    (down, each mid, up) in each of the k + S - 1 live iterations."""
+    k = sum(1 for _, fin in kv.schedule(n_tokens) if not fin)
+    e = flow_cfg.estimator
+    return (k + flow_cfg.cfm.n_timesteps - 1) * (2 + e.num_mid_blocks)
+
+
+def kv_slice_phase(torch, fb) -> dict:
+    """Full-width bf16 ``stream_decode`` of 250 tokens through the KV
+    session; returns the measurements."""
+    import numpy as np
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                    KV_TOKENS, compute_dtype=torch.bfloat16)
+    per_call = wave_launches(kv, flow_cfg, KV_TOKENS)
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, flow_cfg.vocab_size, (1, KV_TOKENS))
+    samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    audio_s = samples / hift_cfg.sampling_rate
+    wav, walls, launches = timed_runs(
+        fb.launch_fused_tf_group, lambda: kv.stream_decode(tokens), per_call,
+        "stream_decode")
+    if wav.shape != (1, samples) or not np.isfinite(wav).all() or \
+            np.abs(wav).max() > hift_cfg.audio_limit:
+        raise AssertionError(f"bad stream_decode output {wav.shape} "
+                             f"max|x| {np.abs(wav).max()}")
+    wall = statistics.median(walls)
+
+    # first-hop latency as bench.py times it: the per-hop flow step and
+    # the vocoder of the first hop, warm, from a fresh state
+    buf = kv._token_buf(tokens)
+
+    def first_hop():
+        cache, voc = kv.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel, _ = kv._hop(buf, cache, kv.hop, False)
+        seg, _ = kv._voc(mel, voc, True, False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, seg
+
+    first_hop()
+    first_s, seg = first_hop()
+    if not torch.isfinite(seg).all():
+        raise AssertionError("bad first KV chunk")
+    out = dict(tokens=KV_TOKENS, audio_s=audio_s, launches=launches,
+               launches_per_iteration=2 + flow_cfg.estimator.num_mid_blocks,
+               wall_s=walls, median_s=wall, stream_rtf=wall / audio_s,
+               wav_max_abs=float(np.abs(wav).max()),
+               first_chunk_s=first_s)
+    print("kv_slice", json.dumps(out), flush=True)
+    return out
+
+
+def cross_kv_phase(fb) -> dict:
+    """f32 KV wavefront over 40 tokens on the card (fused_tf_group kernel)
+    vs on the CPU (its plain version), same weights: the flow mel of
+    ``_flow_mels_wave`` including the finalize tail.  The wav is not
+    compared: the NSF source's random draws differ between devices."""
+    import numpy as np
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    n_tokens = 40
+    tokens = np.random.RandomState(2).randint(0, flow_cfg.vocab_size,
+                                              (1, n_tokens))
+    mels = {}
+    for dev in ("cuda", "cpu"):
+        kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                        n_tokens, device=dev)
+        cache, _ = kv.init_state()
+        fb.launch_fused_tf_group.launches = 0
+        mel, _ = kv._flow_mels_wave(kv._token_buf(tokens), cache,
+                                    kv.schedule(n_tokens))
+        want = wave_launches(kv, flow_cfg, n_tokens) if dev == "cuda" else 0
+        if fb.launch_fused_tf_group.launches != want:
+            raise AssertionError(f"{dev} KV wavefront launched the kernel "
+                                 f"{fb.launch_fused_tf_group.launches} "
+                                 f"times, expected {want}")
+        mels[dev] = mel.float().cpu().numpy()
+    got, want = mels["cuda"], mels["cpu"]
+    err = float(np.abs(got - want).max())
+    rec = dict(tokens=n_tokens, mel_shape=list(want.shape),
+               mel_max_abs=float(np.abs(want).max()), max_abs_diff=err,
+               tol=CROSS_TOL)
+    print("cross_kv", json.dumps(rec), flush=True)
+    if want.shape != (1, n_tokens * flow_cfg.token_mel_ratio,
+                      flow_cfg.output_size) or not np.isfinite(got).all() \
+            or not err <= CROSS_TOL:
+        raise AssertionError(f"card and CPU KV mels disagree: {rec}")
+    return rec
 
 
 def cross_phase(torch) -> dict:
@@ -296,6 +538,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from moss_speech_decoder_cosy_torch.ops import cuda_build
     from moss_speech_decoder_cosy_torch.ops import flash_attention as fa
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
     from moss_speech_decoder_cosy_torch.utils.device import card_line
 
     # 1. card
@@ -315,37 +558,55 @@ def main(argv=None) -> int:
 
     # 3. kernels
     records = kernel_phase(torch, fa)
+    group_records = fused_group_phase(torch, fb)
 
-    # 4. slice
+    # 4. offline and windowed slice
     sl = slice_phase(torch, fa)
 
-    # 5. cross-device
-    cross = cross_phase(torch)
+    # 5. KV slice
+    kv_sl = kv_slice_phase(torch, fb)
 
-    # 6. result
+    # 6. cross-device
+    cross = cross_phase(torch)
+    cross["kv"] = cross_kv_phase(fb)
+
+    # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
                     and r["dtype"] == "bfloat16" and r["chunk"] == 0
                     and r["valid_len"] == r["shape"][2]
                     and r["qk_scale"] == 0.3)
-    kernel = dict(
+    group_rec = next(r for r in group_records if r["group"] == "mid"
+                     and r["mode"] == "steady" and r["dtype"] == "bfloat16")
+    kernels = [dict(
         name="flash_chunk_attention", route="cuda",
         source=f"{PACKAGE}/csrc/flash_chunk_attention.cu",
         replaces="moss_speech_decoder_cosy_tpu/ops/pallas_attention.py:30",
         launches=sl["launches"], max_abs_err=main_rec["max_abs_err"],
         ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
         bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
-        library_ms=main_rec["library_ms"], cases=records)
+        library_ms=main_rec["library_ms"]), dict(
+        name="fused_tf_group", route="cuda",
+        source=f"{PACKAGE}/csrc/fused_tf_group.cu",
+        replaces="moss_speech_decoder_cosy_tpu/ops/pallas_block.py:158",
+        launches=kv_sl["launches"],
+        max_abs_err=max(group_rec["max_abs_err"].values()),
+        ms=group_rec["ms"], plain_ms=group_rec["plain_ms"],
+        bound_ms=group_rec["bound_ms"], bound_by=group_rec["bound_by"],
+        library_ms=None, library_note=FUSED_NOTE)]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                 build_s=build_s, kernels=[kernel], slice=sl, cross=cross),
-            indent=1))
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+                 build_s=build_s, kernels=kernels,
+                 cases=dict(flash_chunk_attention=records,
+                            fused_tf_group=group_records),
+                 slice=sl, kv_slice=kv_sl, cross=cross), indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
+    # the run used one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -1,12 +1,18 @@
 """Where the time of a full-width decode goes, on one CUDA card.
 
     python -m moss_speech_decoder_cosy_torch.bin.profile_decode \
-        [--tokens 250] [--stream-tokens 40] [--out prof.json]
+        [--tokens 250] [--stream-tokens 40] [--kv] [--out prof.json]
 
-Builds the MOSS presets with flash attention and seeded weights in bf16,
-warms up, then for ``token2wav`` and for one windowed ``stream_inference``:
+Builds the MOSS presets with seeded weights in bf16 and warms up.  Without
+``--kv``, with flash attention, for ``token2wav`` and for one windowed
+``stream_inference``; with ``--kv``, for the KV session's
+``stream_decode`` of ``--tokens`` tokens (the configuration ``bench.py``
+runs: ring attention, block 5, mel cache 8, max_token_len 40, the kernel
+engine):
 
-- stage wall times with a synchronize after each stage (flow mel, HiFT);
+- stage wall times with a synchronize after each stage (flow mel, HiFT;
+  for the KV session the wavefront with its finalize tail, then the bulk
+  vocoder);
 - a ``torch.profiler`` trace: device time by kernel (top 12), kernel
   launches, total device time, host wall, and the device's busy share of
   the wall (the profiler's own host cost lowers that share).
@@ -65,17 +71,35 @@ def _trace(fn, top: int = 12) -> dict:
              for e in kernels[:top]])
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tokens", type=int, default=250)
-    ap.add_argument("--stream-tokens", type=int, default=40)
-    ap.add_argument("--out")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_decode needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _kv_profile(tokens: np.ndarray, results: dict) -> None:
+    """Stages and trace of the KV session's ``stream_decode``."""
+    flow_cfg = C.moss_flow_config()
+    flow_cfg = dataclasses.replace(flow_cfg, cfm=dataclasses.replace(
+        flow_cfg.cfm, max_noise_len=4096))
+    hift_cfg = C.moss_hift_config()
+    dec = AudioDecoder(flow_cfg, hift_cfg,
+                       *seeded_states(flow_cfg, hift_cfg),
+                       C.PipelineConfig(block_size=5, mel_cache_len=8,
+                                        max_token_len=40),
+                       compute_dtype=torch.bfloat16)
+    kv = dec.kv_stream_decoder(token_cap=tokens.shape[1] + 16)
+    kv.stream_decode(tokens)                               # warm-up
+    plan = kv.schedule(tokens.shape[1])
+    buf = kv._token_buf(tokens)
+    cache, _ = kv.init_state()
+    flow_s, (mel, _) = _wall(lambda: kv._flow_mels_wave(buf, cache, plan))
+    voc_s, _ = _wall(lambda: kv._bulk.vocode(
+        mel, [e * kv.ratio for e, _ in plan]))
+    results["kv_stages_s"] = dict(
+        wavefront_iterations=sum(1 for _, fin in plan if not fin)
+        + kv.s_steps - 1, flow=flow_s, bulk_vocoder=voc_s)
+    results["kv_trace"] = _trace(lambda: kv.stream_decode(tokens))
+    print(json.dumps({"kv_stages_s": results["kv_stages_s"]}))
+    print(json.dumps({"kv_trace": results["kv_trace"]}))
 
+
+def _offline_profile(args, results: dict) -> None:
+    """Stages and traces of ``token2wav`` and ``stream_inference``."""
     flow_cfg = C.moss_flow_config()
     flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
         flow_cfg.estimator, use_flash_attention=True))
@@ -86,8 +110,6 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(0)
     tokens = rng.randint(0, flow_cfg.vocab_size, (1, args.tokens))
     none = dec._defaults(None, None, None)
-    results = dict(card=card_line(), torch=torch.__version__,
-                   cuda=torch.version.cuda, tokens=args.tokens)
 
     dec.token2wav(tokens)                                  # warm-up
     flow_s, mel = _wall(lambda: dec._flow_mel(tokens, *none, False, True))
@@ -109,6 +131,27 @@ def main(argv=None) -> int:
     results["stream_trace"] = _trace(lambda: dec.stream_inference(stream))
     print(json.dumps({"window_stages_s": results["window_stages_s"]}))
     print(json.dumps({"stream_trace": results["stream_trace"]}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tokens", type=int, default=250)
+    ap.add_argument("--stream-tokens", type=int, default=40)
+    ap.add_argument("--kv", action="store_true",
+                    help="profile the KV session's stream_decode instead")
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = dict(card=card_line(), torch=torch.__version__,
+                   cuda=torch.version.cuda, tokens=args.tokens)
+    if args.kv:
+        _kv_profile(np.random.RandomState(0).randint(
+            0, C.moss_flow_config().vocab_size, (1, args.tokens)), results)
+    else:
+        _offline_profile(args, results)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

@@ -180,6 +180,48 @@ class AudioDecoder:
         chunks = list(sess.push(token[0])) + list(sess.finish())
         return np.concatenate(chunks, axis=-1)
 
+    def kv_stream_decoder(self, prompt_token=None, prompt_feat=None,
+                          embedding=None, block_size: Optional[int] = None,
+                          ring_tokens: Optional[int] = None,
+                          token_cap: int = 2048, batch: int = 1,
+                          write_mode: str = "auto", fused: bool = True,
+                          stacked: bool = False, kernel="auto",
+                          ring_quant: bool = False,
+                          enc_kernel: bool = False):
+        """KV-cached streaming decoder (``kv_session.KVStreamDecoder``):
+        every token runs through the flow once; ``ring_tokens`` (default
+        max_token_len - block_size) sets the attention's left context.
+        ``fused`` selects the write-then-attend wavefront; ``kernel="auto"``
+        runs each resnet + transformer group of the estimator as one
+        ``fused_tf_group`` launch whenever the geometry allows (True/False
+        force it).  The other options of the JAX package raise."""
+        missing = {"batch > 1 (lockstep streams)": batch != 1,
+                   "ring_quant (int8 rings)": ring_quant}
+        for what, asked in missing.items():
+            if asked:
+                raise NotImplementedError(f"{what} is ROADMAP item A7")
+        if stacked:
+            raise NotImplementedError("the stacked-scan engine is not "
+                                      "ported (measured slower in "
+                                      "BENCH_NOTES.md)")
+        if enc_kernel:
+            raise NotImplementedError("the fused conformer encoder kernel "
+                                      "is ROADMAP item B2")
+        if write_mode != "auto":
+            raise NotImplementedError("write_mode='onehot' is not ported; "
+                                      "the shared-offset write is the "
+                                      "wavefront's geometry")
+        from .kv_session import KVStreamDecoder
+        prompt_token, prompt_feat, embedding = self._defaults(
+            prompt_token, prompt_feat, embedding)
+        hop = block_size or self.pipe_cfg.block_size
+        if ring_tokens is None:
+            ring_tokens = self.pipe_cfg.max_token_len - hop
+        return KVStreamDecoder(self, prompt_token, prompt_feat, embedding,
+                               hop, ring_tokens=ring_tokens,
+                               token_cap=token_cap, fused=fused,
+                               kernel=kernel)
+
 
 class StreamSession:
     """Incremental token -> wav-chunk session: ``push(tokens)`` yields a wav

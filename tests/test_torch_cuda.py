@@ -132,3 +132,62 @@ def test_flow_mel_on_card_matches_cpu(card):
         got, want = mels["cuda", streaming], mels["cpu", streaming]
         assert got.shape == want.shape == (1, 160, flow_cfg.output_size)
         np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+# (L, rows, cf, cin, ch, heads, head_dim, rp, shared, offset, nd, enable)
+GROUP_CASES = {
+    "L1_prod_width_rampup": (1, 4, 20, 320, 256, 8, 64, 160, True, 40,
+                             [20, 40, 60, 20], [1, 1, 1, 1]),
+    "L4_prod_up_group_wrap": (4, 20, 20, 512, 256, 8, 64, 160, True, 152,
+                              [172 + 20 * (i // 2) for i in range(20)],
+                              [i % 3 != 0 for i in range(20)]),
+    "rp70_not_tile_multiple_wrap": (2, 6, 10, 64, 32, 2, 16, 70, True, 65,
+                                    [70, 15, 80, 100, 10, 35],
+                                    [1, 1, 0, 1, 1, 1]),
+    "per_row_offsets": (2, 8, 20, 256, 256, 8, 64, 160, False, 0,
+                        [20, 45, 160, 171, 213, 300, 20, 99],
+                        [1, 1, 1, 0, 1, 1, 0, 1]),
+    "all_rows_disabled": (2, 4, 20, 256, 256, 8, 64, 160, True, 0,
+                          [40, 40, 60, 60], [0, 0, 0, 0]),
+    "tiny_chunk12_rp36": (1, 8, 12, 64, 24, 2, 8, 36, True, 32,
+                          [12, 24, 36, 48, 12, 24, 36, 48],
+                          [1, 1, 1, 1, 1, 0, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_fused_tf_group_matches_plain(card, case, dtype):
+    """The fused group kernel against its plain version at edge shapes:
+    one and four layers, a ring not a multiple of the 64-slot tile, a
+    wrapping shared write, per-row offsets, disabled rows.  Rows that are
+    disabled keep their rings bit for bit, and no input is written."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    (n_layers, rows, cf, cin, ch, heads, hd, rp, shared, offset, nd,
+     enable) = GROUP_CASES[case]
+    p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
+        rows, cf, cin, ch, heads, hd, n_layers, rp, dtype, card,
+        seed=len(case))
+    rot = [((r // 2) * cf) % rp for r in range(rows)]
+    scal = fb.group_scalars(nd, rot, enable, card)
+    inputs = [t.clone() for t in (mt, cc1, cc2, x, rings)]
+    r_plain, r_kern = rings.clone(), rings.clone()
+    want = fb.fused_tf_group_plain(p, rp_, mt, cc1, cc2, x, r_plain, scal,
+                                   offset, heads=heads, head_dim=hd,
+                                   shared_offset=shared)
+    before = fb.launch_fused_tf_group.launches
+    got = fb.fused_tf_group(p, rp_, mt, cc1, cc2, x, r_kern, scal, offset,
+                            heads=heads, head_dim=hd, shared_offset=shared)
+    torch.cuda.synchronize()
+    assert fb.launch_fused_tf_group.launches == before + 1
+    assert got[1] is r_kern
+    for g, w, what in zip(got, want, ("x", "rings", "cc1", "cc2")):
+        assert g.dtype == dtype and g.shape == w.shape, what
+        err = (g.float() - w.float()).abs().max().item()
+        tol = fb.kernel_tolerance(w)
+        assert err <= tol, (what, err, tol)
+    off = torch.tensor(enable, device=card) == 0
+    assert torch.equal(r_kern[:, off], rings[:, off])
+    for before_t, after_t in zip(inputs, (mt, cc1, cc2, x, rings)):
+        assert torch.equal(before_t, after_t)

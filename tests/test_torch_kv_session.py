@@ -1,0 +1,133 @@
+"""The port's ``KVStreamDecoder.stream_decode`` against the JAX package's,
+f32 on the CPU, tiny configs, same weights, with a 2-token prompt, hop 3 and
+ring 6, so the shared write offset is not hop-aligned (align 8 of a 12-frame
+chunk) as in tests/test_kv_stream.py:223-233.  The port's NSF source gets
+the JAX draws.
+
+Tolerances on the waveform:
+- 1e-4: the port's default wavefront (kernel engine, plain version on the
+  CPU) against the JAX default wavefront (its fused XLA engine);
+- 2e-5: the port's kernel engine against its own unfused engine (the
+  tolerance the JAX package pins between its kernel and unfused engines);
+- 1e-5: bulk vocoding against the per-hop vocoder chain."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from moss_speech_decoder_cosy_tpu.models.flow import CausalMaskedDiffWithXvec
+from moss_speech_decoder_cosy_tpu.models.hift import HiFTGenerator
+from moss_speech_decoder_cosy_tpu.pipeline import AudioDecoder as JDecoder
+from moss_speech_decoder_cosy_tpu.utils.config import (
+    PipelineConfig, tiny_flow_config, tiny_hift_config)
+from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder as TDecoder
+from moss_speech_decoder_cosy_torch.utils import config as tcfg
+from moss_speech_decoder_cosy_torch.weights import (
+    flow_state_from_jax, hift_state_from_jax)
+
+P, N, HOP, RING = 2, 34, 3, 6
+
+
+def jax_draws(harmonics, length, device):
+    k_ini, k_noise = jax.random.split(jax.random.PRNGKey(0))
+    rand_ini = jax.random.uniform(k_ini, (1, harmonics), dtype=jnp.float32)
+    noise = jax.random.normal(k_noise, (1, length, harmonics), jnp.float32)
+    return (torch.from_numpy(np.array(rand_ini)).to(device),
+            torch.from_numpy(np.array(noise)).to(device))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg, hcfg = tiny_flow_config(), tiny_hift_config()
+    rng = np.random.RandomState(0)
+    r = cfg.token_mel_ratio
+    tokens = rng.randint(0, cfg.vocab_size, (1, P + N)).astype(np.int32)
+    prompt_feat = rng.randn(1, P * r, cfg.output_size).astype(np.float32)
+    emb = rng.randn(1, cfg.spk_embed_dim).astype(np.float32)
+    fp = jax.jit(CausalMaskedDiffWithXvec(cfg).init)(
+        jax.random.PRNGKey(1), jnp.asarray(tokens),
+        jnp.ones(tokens.shape, bool), jnp.asarray(prompt_feat),
+        jnp.asarray(emb))
+    hp = jax.jit(HiFTGenerator(hcfg).init)(
+        jax.random.PRNGKey(2), jnp.zeros((1, 8, hcfg.in_channels)))
+    # a louder vocoder head, so the waveform tolerances bite
+    hp = jax.tree_util.tree_map_with_path(
+        lambda path, a: a * 200.0 if "conv_post" in str(path)
+        and str(path[-1]) == "['g']" else a, hp)
+    jdec = JDecoder(cfg, hcfg, fp, hp, PipelineConfig(
+        block_size=HOP, mel_cache_len=2, max_token_len=9))
+    jkv = jdec.kv_stream_decoder(tokens[:, :P], prompt_feat, emb,
+                                 block_size=HOP, ring_tokens=RING,
+                                 token_cap=64)
+    want = np.asarray(jkv.stream_decode(tokens[:, P:], bulk_voc=True,
+                                        wavefront=True))
+    tdec = TDecoder(
+        tcfg.tiny_flow_config(), tcfg.tiny_hift_config(),
+        flow_state_from_jax(jax.tree.map(np.asarray, fp)),
+        hift_state_from_jax(jax.tree.map(np.asarray, hp)),
+        tcfg.PipelineConfig(block_size=HOP, mel_cache_len=2,
+                            max_token_len=9),
+        device="cpu", nsf_draws=jax_draws)
+
+    def session(**kw):
+        return tdec.kv_stream_decoder(tokens[:, :P], prompt_feat, emb,
+                                      block_size=HOP, ring_tokens=RING,
+                                      token_cap=64, **kw)
+
+    wavs = {}
+
+    def decode(kernel="auto", bulk_voc=True, wavefront=True):
+        """The port's stream_decode of the stream, once per setting; on the
+        CPU every engine leaves the kernel's launch count alone."""
+        key = (kernel, bulk_voc, wavefront)
+        if key not in wavs:
+            before = fb.launch_fused_tf_group.launches
+            wavs[key] = session(kernel=kernel).stream_decode(
+                tokens[:, P:], bulk_voc=bulk_voc, wavefront=wavefront)
+            assert fb.launch_fused_tf_group.launches == before
+        return wavs[key]
+
+    return dict(want=want, session=session, decode=decode)
+
+
+def test_wavefront_matches_jax_wavefront(setup):
+    kv = setup["session"]()
+    assert kv._kernel and kv._fused and kv._align == 8
+    got = setup["decode"]()
+    want = setup["want"]
+    assert got.shape == want.shape == (
+        1, N * 4 * tiny_hift_config().total_upsample) and \
+        got.dtype == np.float32
+    assert np.abs(want).max() > 0.05, "trivial waveform"
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_kernel_engine_matches_unfused_engine(setup):
+    assert setup["session"](kernel=False)._kernel is False
+    np.testing.assert_allclose(setup["decode"](),
+                               setup["decode"](kernel=False),
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("wavefront", [False, True])
+def test_bulk_vocode_matches_per_hop_chain(setup, wavefront):
+    """Per-hop flow with bulk vocoding == the per-hop vocoder chain; the
+    wavefront flow with bulk vocoding stays within the wavefront
+    tolerance of it."""
+    seq = setup["decode"](bulk_voc=False)
+    bulk = setup["decode"](bulk_voc=True, wavefront=wavefront)
+    assert bulk.shape == seq.shape
+    np.testing.assert_allclose(bulk, seq, atol=1e-4 if wavefront else 1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(batch=2), "A7"), (dict(ring_quant=True), "A7"),
+    (dict(enc_kernel=True), "B2"), (dict(write_mode="onehot"), "onehot"),
+    (dict(stacked=True), "stacked")])
+def test_options_not_ported_raise(setup, kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        setup["session"](**kw)
