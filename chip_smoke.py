@@ -16,7 +16,11 @@ Phases (any failure raises and the script exits non-zero):
    card's bound.  ``flash_chunk_attention``: both entries, f32 and bf16.
    ``fused_tf_group``: the down, mid and up groups (L = 4) in f32 and
    bf16, a shared write offset with and without a wrap, the per-row mode,
-   disabled rows, rings in ramp-up and full.
+   disabled rows, rings in ramp-up and full.  ``fused_conformer_group``:
+   the encoder's blocks group (L 6, C 5, Rt 35) and up group (L 4, C 20,
+   Rt 140) in f32 and bf16, with an empty ring, in ramp-up, full, and with
+   a wrapping write; timed with the L2 cache flushed before each launch
+   (as the stream finds it) and warm.
 4. Offline and windowed slice at full width: ``moss_flow_config()`` with
    flash attention and ``moss_hift_config()``, weights drawn from seed 0,
    bf16 compute.  ``token2wav`` of 250 tokens and ``stream_inference`` of
@@ -30,10 +34,15 @@ Phases (any failure raises and the script exits non-zero):
    write-then-attend, kernel engine), bf16.  ``stream_decode`` of 250
    tokens, 1 warm-up + median of 3, with exactly 14 ``fused_tf_group``
    launches per wavefront iteration; and the first hop's latency
-   (a warm ``_hop`` + ``_voc``).
+   (a warm ``_hop`` + ``_voc``).  Then the same stream through
+   ``kv_stream_decoder(enc_kernel=True)``: exactly two
+   ``fused_conformer_group`` launches per steady hop and the same
+   ``fused_tf_group`` launches, its RTF beside the default's, timed
+   before and after it.
 6. Cross-device: the flow mel in f32 on the card (kernels) and on the CPU
    (plain versions), same weights: offline over 50 tokens, one 40-token
-   streaming window, and the KV wavefront over 40 tokens.
+   streaming window, and the KV wavefront over 40 tokens with the
+   per-layer encoder and with the kernel encoder hop.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +73,11 @@ CROSS_TOL = 1e-4
 KV_TOKENS, KV_NOISE_LEN = 250, 4096
 FUSED_NOTE = ("no single PyTorch call computes a causal resnet followed by "
               "L transformer blocks with ring writes")
+CONFORMER_NOTE = ("no single PyTorch call computes a group of rel-pos "
+                  "conformer layers with ring writes")
+# the encoder's two conformer groups in the KV session: (L, C, Rt) at
+# block 5, ring 35 tokens and the x4 upsample
+CONFORMER_GROUPS = {"blocks": (6, 5, 35), "up": (4, 20, 140)}
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -84,6 +98,30 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cuda_cold(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call with the 50 MB L2 cache flushed before each call:
+    a 128 MB buffer is written between calls, outside the timed events,
+    then a spin kernel keeps the card busy while the host enqueues the
+    call, so only the call's device time lies between the events."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.fill_(1)
+        torch.cuda._sleep(2_000_000)     # ~1 ms of clock cycles
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def attention_bound_ms(b: int, h: int, t: int, dk: int, chunk: int,
@@ -275,6 +313,92 @@ def fused_group_phase(torch, fb) -> list:
     return records
 
 
+def conformer_bound_ms(n_layers: int, c: int, d: int, ff: int, rt: int,
+                       n_tok: int, dtype: str):
+    """Least time for one ``fused_conformer_group`` call.  Bytes: every input
+    read once (x, the position rows, the group's weights, and of each
+    layer's rings only the valid slots), every output written once (x_out,
+    the chunk's [k | v] and pk).  Operations: each layer's QKV, position,
+    out-proj and FF products, and the two score products and A V over the
+    valid slots.  Over the dtype's peak: tensor cores in bf16, CUDA cores in
+    f32."""
+    elem = 2 if dtype == "bfloat16" else 4
+    layer_w = (d * 3 * d + 3 * d + d * d + 2 * d + d * d + d + 4 * d
+               + d * ff + ff + ff * d + d)
+    valid = min(n_tok, rt)
+    nbytes = elem * (n_layers * (layer_w + valid * 3 * d + c * 3 * d)
+                     + 3 * c * d)
+    flops = n_layers * (2 * c * d * (5 * d + 2 * ff)
+                        + 6 * c * (valid + c) * d)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def conformer_phase(torch, fc) -> list:
+    """``fused_conformer_group`` against its plain version at the KV
+    session's shapes (D 512, 8 x 64 heads, FF 2048): the blocks group and
+    the up group with an empty ring, in ramp-up, full, and with a write
+    that wraps.  Checks x_out and both rings (``kernel_tolerance``), that
+    only the chunk's slots change and that no input changes.  Times each
+    case cold (L2 flushed before each launch) and warm."""
+    d, heads, ff = 512, 8, 2048
+    records = []
+    for group, (n_layers, c, rt) in CONFORMER_GROUPS.items():
+        cases = {"empty": 0, "rampup": 2 * c, "full": 3 * rt,
+                 "wrap": 3 * rt + rt - c // 2 - 1}
+        for mode, n_tok in cases.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                p, x, pe, kv, pk = fc.make_conformer_inputs(
+                    n_layers, c, d, heads, ff, rt, dtype, "cuda",
+                    seed=c + n_tok)
+                kw = dict(heads=heads, head_dim=d // heads)
+                inputs = [t.clone() for t in (x, pe)]
+                kv_p, pk_p, kv_k, pk_k = kv.clone(), pk.clone(), kv.clone(), \
+                    pk.clone()
+                want = fc.fused_conformer_group_plain(p, x, pe, kv_p, pk_p,
+                                                      n_tok, **kw)
+                got = fc.fused_conformer_group(p, x, pe, kv_k, pk_k, n_tok,
+                                               **kw)
+                torch.cuda.synchronize()
+                errs, tols = {}, {}
+                for g, w, what in zip(got, want, ("x", "ring_kv", "ring_pk")):
+                    errs[what] = (g.float() - w.float()).abs().max().item()
+                    tols[what] = fc.kernel_tolerance(w)
+                written = {(n_tok + f) % rt for f in range(c)}
+                kept = [s for s in range(rt) if s not in written]
+                kept_ok = bool(torch.equal(kv_k[:, :, kept], kv[:, :, kept])
+                               and torch.equal(pk_k[:, :, kept],
+                                               pk[:, :, kept]))
+                untouched = all(torch.equal(a, b) for a, b in
+                                zip(inputs, (x, pe)))
+                call = lambda: fc.fused_conformer_group(  # noqa: E731
+                    p, x, pe, kv_k, pk_k, n_tok, **kw)
+                ms_cold = time_cuda_cold(call)
+                ms_warm = time_cuda(call)
+                plain_ms = time_cuda(lambda: fc.fused_conformer_group_plain(
+                    p, x, pe, kv_p, pk_p, n_tok, **kw))
+                bound, bound_by = conformer_bound_ms(n_layers, c, d, ff, rt,
+                                                     n_tok, dname)
+                rec = dict(group=group, mode=mode, dtype=dname,
+                           shape=dict(L=n_layers, C=c, Rt=rt, D=d,
+                                      heads=heads, FF=ff, n_tok=n_tok),
+                           max_abs_err=errs, tol=tols,
+                           other_slots_kept=kept_ok,
+                           inputs_untouched=untouched, ms=ms_cold,
+                           ms_warm_l2=ms_warm, plain_ms=plain_ms,
+                           library_ms=None, bound_ms=bound,
+                           bound_by=bound_by)
+                print("fused_conformer_group", json.dumps(rec), flush=True)
+                if not (all(errs[k] <= tols[k] for k in errs) and kept_ok
+                        and untouched):
+                    raise AssertionError(f"fused_conformer_group disagrees "
+                                         f"with its plain version: {rec}")
+                records.append(rec)
+    return records
+
+
 def seeded_models(flash: bool = True):
     """(flow_cfg, hift_cfg, flow_state, hift_state): the MOSS presets,
     weights from seeds 0 and 1.  ``flash``: the estimator's attention
@@ -303,22 +427,25 @@ def launches_per_decode(flow_cfg) -> int:
     return blocks * flow_cfg.cfm.n_timesteps
 
 
-def timed_runs(counter, call, want_launches: int, what: str):
-    """One warm-up call, then 3 timed calls with the kernel's launch count
-    (``counter.launches``) set to 0 just before each and checked just after.
-    Returns (last output, walls, launches of one call)."""
+def timed_runs(call, what: str, want: dict):
+    """One warm-up call, then 3 timed calls with each kernel's launch count
+    (``counter.launches`` for each counter of ``want``) set to 0 just before
+    each call and checked against ``want[counter]`` just after.  Returns
+    (last output, walls)."""
     call()
     walls = []
     for _ in range(3):
-        counter.launches = 0
+        for counter in want:
+            counter.launches = 0
         t0 = time.perf_counter()
         out = call()
         walls.append(time.perf_counter() - t0)
-        launches = counter.launches
-        if launches != want_launches:
-            raise AssertionError(f"{what} launched the kernel {launches} "
-                                 f"times, expected {want_launches}")
-    return out, walls, launches
+        for counter, n in want.items():
+            if counter.launches != n:
+                raise AssertionError(f"{what} launched {counter.__name__} "
+                                     f"{counter.launches} times, expected "
+                                     f"{n}")
+    return out, walls
 
 
 def slice_phase(torch, fa) -> dict:
@@ -338,8 +465,9 @@ def slice_phase(torch, fa) -> dict:
     audio_s = samples / hift_cfg.sampling_rate
 
     counter = fa.launch_flash_chunk_attention
-    wav, walls, launches = timed_runs(counter, lambda: dec.token2wav(tokens),
-                                      per_decode, "token2wav")
+    wav, walls = timed_runs(lambda: dec.token2wav(tokens), "token2wav",
+                            {counter: per_decode})
+    launches = per_decode
     if wav.shape != (1, samples) or not np.isfinite(wav).all() or \
             np.abs(wav).max() > hift_cfg.audio_limit:
         raise AssertionError(f"bad token2wav output {wav.shape} "
@@ -350,9 +478,10 @@ def slice_phase(torch, fa) -> dict:
     # one window per complete hop (hop + lookahead tokens), one to finish
     hop, ahead = dec.pipe_cfg.block_size, flow_cfg.pre_lookahead_len
     windows = max(0, (n_stream - ahead) // hop) + 1
-    swav, stream_walls, stream_launches = timed_runs(
-        counter, lambda: dec.stream_inference(stream_tokens),
-        per_decode * windows, "stream_inference")
+    stream_launches = per_decode * windows
+    swav, stream_walls = timed_runs(
+        lambda: dec.stream_inference(stream_tokens), "stream_inference",
+        {counter: stream_launches})
     want_len = n_stream * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
     if swav.shape != (1, want_len) or not np.isfinite(swav).all():
         raise AssertionError(f"bad stream output {swav.shape}")
@@ -378,7 +507,8 @@ def slice_phase(torch, fa) -> dict:
 def kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state, n_tokens, **kw):
     """``AudioDecoder(...).kv_stream_decoder()`` with bench.py's pipeline
     geometry and the session's defaults; checks that it runs the kernel
-    engine."""
+    engine.  ``enc_session`` makes its ``enc_kernel=True`` twin on the same
+    decoder."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
@@ -386,40 +516,60 @@ def kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state, n_tokens, **kw):
                        PipelineConfig(block_size=5, mel_cache_len=8,
                                       max_token_len=40), **kw)
     kv = dec.kv_stream_decoder(token_cap=n_tokens + 16)
-    if not (kv._kernel and kv._fused and kv.ring_tokens == 35):
+    if not (kv._kernel and kv._fused and kv.ring_tokens == 35
+            and not kv._enc_kernel):
         raise AssertionError("kv_stream_decoder() did not select the fused "
                              "kernel engine over a 35-token ring")
     return kv
 
 
+def enc_session(kv, n_tokens):
+    """The ``enc_kernel=True`` session on ``kv``'s decoder."""
+    kve = kv.dec.kv_stream_decoder(token_cap=n_tokens + 16, enc_kernel=True)
+    if not (kve._enc_kernel and kve._kernel and kve.ring_tokens == 35):
+        raise AssertionError("kv_stream_decoder(enc_kernel=True) did not "
+                             "select both kernels")
+    return kve
+
+
+def steady_hops(kv, n_tokens: int) -> int:
+    return sum(1 for _, fin in kv.schedule(n_tokens) if not fin)
+
+
 def wave_launches(kv, flow_cfg, n_tokens: int) -> int:
     """fused_tf_group launches of one wavefront: one per resnet + group
     (down, each mid, up) in each of the k + S - 1 live iterations."""
-    k = sum(1 for _, fin in kv.schedule(n_tokens) if not fin)
     e = flow_cfg.estimator
-    return (k + flow_cfg.cfm.n_timesteps - 1) * (2 + e.num_mid_blocks)
+    return ((steady_hops(kv, n_tokens) + flow_cfg.cfm.n_timesteps - 1)
+            * (2 + e.num_mid_blocks))
 
 
-def kv_slice_phase(torch, fb) -> dict:
+def kv_slice_phase(torch, fb, fc) -> dict:
     """Full-width bf16 ``stream_decode`` of 250 tokens through the KV
-    session; returns the measurements."""
+    session, then through its ``enc_kernel=True`` twin; returns the
+    measurements."""
     import numpy as np
 
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
     kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
                     KV_TOKENS, compute_dtype=torch.bfloat16)
-    per_call = wave_launches(kv, flow_cfg, KV_TOKENS)
+    launches = wave_launches(kv, flow_cfg, KV_TOKENS)
     rng = np.random.RandomState(0)
     tokens = rng.randint(0, flow_cfg.vocab_size, (1, KV_TOKENS))
     samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
     audio_s = samples / hift_cfg.sampling_rate
-    wav, walls, launches = timed_runs(
-        fb.launch_fused_tf_group, lambda: kv.stream_decode(tokens), per_call,
-        "stream_decode")
-    if wav.shape != (1, samples) or not np.isfinite(wav).all() or \
-            np.abs(wav).max() > hift_cfg.audio_limit:
-        raise AssertionError(f"bad stream_decode output {wav.shape} "
-                             f"max|x| {np.abs(wav).max()}")
+
+    def check(wav, what):
+        if wav.shape != (1, samples) or not np.isfinite(wav).all() or \
+                np.abs(wav).max() > hift_cfg.audio_limit:
+            raise AssertionError(f"bad {what} output {wav.shape} "
+                                 f"max|x| {np.abs(wav).max()}")
+
+    conformer = fc.launch_fused_conformer_group
+    wav, walls = timed_runs(lambda: kv.stream_decode(tokens), "stream_decode",
+                            {fb.launch_fused_tf_group: launches,
+                             conformer: 0})
+    check(wav, "stream_decode")
     wall = statistics.median(walls)
 
     # first-hop latency as bench.py times it: the per-hop flow step and
@@ -445,45 +595,81 @@ def kv_slice_phase(torch, fb) -> dict:
                wav_max_abs=float(np.abs(wav).max()),
                first_chunk_s=first_s)
     print("kv_slice", json.dumps(out), flush=True)
+
+    # the same stream with the encoder hop on the conformer group kernel
+    kve = enc_session(kv, KV_TOKENS)
+    enc_launches = 2 * steady_hops(kve, KV_TOKENS)
+    ewav, ewalls = timed_runs(lambda: kve.stream_decode(tokens),
+                              "enc_kernel stream_decode",
+                              {fb.launch_fused_tf_group: launches,
+                               conformer: enc_launches})
+    check(ewav, "enc_kernel stream_decode")
+    ewall = statistics.median(ewalls)
+    # the default session once more after it (A B A in one call), so a
+    # difference between the two is not drift of the host clock
+    _, again = timed_runs(lambda: kv.stream_decode(tokens), "stream_decode",
+                          {fb.launch_fused_tf_group: launches,
+                           conformer: 0})
+    out["enc_kernel"] = dict(
+        launches=enc_launches, fused_tf_group_launches=launches,
+        wall_s=ewalls, median_s=ewall, stream_rtf=ewall / audio_s,
+        default_stream_rtf=out["stream_rtf"], default_again_wall_s=again,
+        default_again_stream_rtf=statistics.median(again) / audio_s,
+        wav_max_abs=float(np.abs(ewav).max()))
+    print("kv_enc_slice", json.dumps(out["enc_kernel"]), flush=True)
     return out
 
 
-def cross_kv_phase(fb) -> dict:
-    """f32 KV wavefront over 40 tokens on the card (fused_tf_group kernel)
-    vs on the CPU (its plain version), same weights: the flow mel of
-    ``_flow_mels_wave`` including the finalize tail.  The wav is not
-    compared: the NSF source's random draws differ between devices."""
+def cross_kv_phase(fb, fc) -> dict:
+    """f32 KV wavefront over 40 tokens on the card (kernels) vs on the CPU
+    (their plain versions), same weights: the flow mel of
+    ``_flow_mels_wave`` including the finalize tail, with the per-layer
+    encoder and with the kernel encoder hop (``enc_kernel=True``).  The
+    wav is not compared: the NSF source's random draws differ between
+    devices."""
     import numpy as np
 
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
     n_tokens = 40
     tokens = np.random.RandomState(2).randint(0, flow_cfg.vocab_size,
                                               (1, n_tokens))
+    counters = (fb.launch_fused_tf_group, fc.launch_fused_conformer_group)
     mels = {}
     for dev in ("cuda", "cpu"):
         kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
                         n_tokens, device=dev)
-        cache, _ = kv.init_state()
-        fb.launch_fused_tf_group.launches = 0
-        mel, _ = kv._flow_mels_wave(kv._token_buf(tokens), cache,
-                                    kv.schedule(n_tokens))
-        want = wave_launches(kv, flow_cfg, n_tokens) if dev == "cuda" else 0
-        if fb.launch_fused_tf_group.launches != want:
-            raise AssertionError(f"{dev} KV wavefront launched the kernel "
-                                 f"{fb.launch_fused_tf_group.launches} "
-                                 f"times, expected {want}")
-        mels[dev] = mel.float().cpu().numpy()
-    got, want = mels["cuda"], mels["cpu"]
-    err = float(np.abs(got - want).max())
-    rec = dict(tokens=n_tokens, mel_shape=list(want.shape),
-               mel_max_abs=float(np.abs(want).max()), max_abs_diff=err,
-               tol=CROSS_TOL)
-    print("cross_kv", json.dumps(rec), flush=True)
-    if want.shape != (1, n_tokens * flow_cfg.token_mel_ratio,
-                      flow_cfg.output_size) or not np.isfinite(got).all() \
-            or not err <= CROSS_TOL:
-        raise AssertionError(f"card and CPU KV mels disagree: {rec}")
-    return rec
+        for enc_kernel in (False, True):
+            sess = enc_session(kv, n_tokens) if enc_kernel else kv
+            cache, _ = sess.init_state()
+            for counter in counters:
+                counter.launches = 0
+            mel, _ = sess._flow_mels_wave(sess._token_buf(tokens), cache,
+                                          sess.schedule(n_tokens))
+            want = ((wave_launches(sess, flow_cfg, n_tokens),
+                     2 * steady_hops(sess, n_tokens) if enc_kernel else 0)
+                    if dev == "cuda" else (0, 0))
+            got = tuple(counter.launches for counter in counters)
+            if got != want:
+                raise AssertionError(f"{dev} KV wavefront (enc_kernel="
+                                     f"{enc_kernel}) launched the kernels "
+                                     f"{got} times, expected {want}")
+            mels[dev, enc_kernel] = mel.float().cpu().numpy()
+        del kv
+    out = {}
+    for enc_kernel in (False, True):
+        got, want = mels["cuda", enc_kernel], mels["cpu", enc_kernel]
+        err = float(np.abs(got - want).max())
+        rec = dict(tokens=n_tokens, enc_kernel=enc_kernel,
+                   mel_shape=list(want.shape),
+                   mel_max_abs=float(np.abs(want).max()), max_abs_diff=err,
+                   tol=CROSS_TOL)
+        print("cross_kv", json.dumps(rec), flush=True)
+        if want.shape != (1, n_tokens * flow_cfg.token_mel_ratio,
+                          flow_cfg.output_size) or \
+                not np.isfinite(got).all() or not err <= CROSS_TOL:
+            raise AssertionError(f"card and CPU KV mels disagree: {rec}")
+        out["enc_kernel" if enc_kernel else "default"] = rec
+    return out
 
 
 def cross_phase(torch) -> dict:
@@ -539,6 +725,7 @@ def main(argv=None) -> int:
     from moss_speech_decoder_cosy_torch.ops import cuda_build
     from moss_speech_decoder_cosy_torch.ops import flash_attention as fa
     from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
     from moss_speech_decoder_cosy_torch.utils.device import card_line
 
     # 1. card
@@ -559,16 +746,17 @@ def main(argv=None) -> int:
     # 3. kernels
     records = kernel_phase(torch, fa)
     group_records = fused_group_phase(torch, fb)
+    conf_records = conformer_phase(torch, fc)
 
     # 4. offline and windowed slice
     sl = slice_phase(torch, fa)
 
     # 5. KV slice
-    kv_sl = kv_slice_phase(torch, fb)
+    kv_sl = kv_slice_phase(torch, fb, fc)
 
     # 6. cross-device
     cross = cross_phase(torch)
-    cross["kv"] = cross_kv_phase(fb)
+    cross["kv"] = cross_kv_phase(fb, fc)
 
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
@@ -593,20 +781,35 @@ def main(argv=None) -> int:
         ms=group_rec["ms"], plain_ms=group_rec["plain_ms"],
         bound_ms=group_rec["bound_ms"], bound_by=group_rec["bound_by"],
         library_ms=None, library_note=FUSED_NOTE)]
+    # the blocks group (the larger read) with a full ring, as the steady
+    # stream runs it, timed with L2 flushed: each hop streams the
+    # estimator's rings between two encoder launches
+    conf_rec = next(r for r in conf_records if r["group"] == "blocks"
+                    and r["mode"] == "full" and r["dtype"] == "bfloat16")
+    kernels.append(dict(
+        name="fused_conformer_group", route="cuda",
+        source=f"{PACKAGE}/csrc/fused_conformer_group.cu",
+        replaces="moss_speech_decoder_cosy_tpu/ops/pallas_conformer.py:57",
+        launches=kv_sl["enc_kernel"]["launches"],
+        max_abs_err=max(conf_rec["max_abs_err"].values()),
+        ms=conf_rec["ms"], ms_warm_l2=conf_rec["ms_warm_l2"],
+        plain_ms=conf_rec["plain_ms"], bound_ms=conf_rec["bound_ms"],
+        bound_by=conf_rec["bound_by"], library_ms=None,
+        library_note=CONFORMER_NOTE))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                  build_s=build_s, kernels=kernels,
                  cases=dict(flash_chunk_attention=records,
-                            fused_tf_group=group_records),
+                            fused_tf_group=group_records,
+                            fused_conformer_group=conf_records),
                  slice=sl, kv_slice=kv_sl, cross=cross), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
-    # the run used one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

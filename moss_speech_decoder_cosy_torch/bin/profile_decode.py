@@ -1,18 +1,21 @@
 """Where the time of a full-width decode goes, on one CUDA card.
 
     python -m moss_speech_decoder_cosy_torch.bin.profile_decode \
-        [--tokens 250] [--stream-tokens 40] [--kv] [--out prof.json]
+        [--tokens 250] [--stream-tokens 40] [--kv [--enc-kernel]] \
+        [--out prof.json]
 
 Builds the MOSS presets with seeded weights in bf16 and warms up.  Without
 ``--kv``, with flash attention, for ``token2wav`` and for one windowed
 ``stream_inference``; with ``--kv``, for the KV session's
 ``stream_decode`` of ``--tokens`` tokens (the configuration ``bench.py``
 runs: ring attention, block 5, mel cache 8, max_token_len 40, the kernel
-engine):
+engine; ``--enc-kernel`` runs its encoder hop through the conformer group
+kernel):
 
 - stage wall times with a synchronize after each stage (flow mel, HiFT;
-  for the KV session the wavefront with its finalize tail, then the bulk
-  vocoder);
+  for the KV session the wavefront with its finalize tail, median of 3,
+  then the bulk vocoder, and apart from them the encoder of the stream's
+  steady hops, with its own trace);
 - a ``torch.profiler`` trace: device time by kernel (top 12), kernel
   launches, total device time, host wall, and the device's busy share of
   the wall (the profiler's own host cost lowers that share).
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import time
 from pathlib import Path
 
@@ -71,8 +75,9 @@ def _trace(fn, top: int = 12) -> dict:
              for e in kernels[:top]])
 
 
-def _kv_profile(tokens: np.ndarray, results: dict) -> None:
-    """Stages and trace of the KV session's ``stream_decode``."""
+def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool) -> None:
+    """Stages and traces of the KV session's ``stream_decode`` and of the
+    encoder of its steady hops."""
     flow_cfg = C.moss_flow_config()
     flow_cfg = dataclasses.replace(flow_cfg, cfm=dataclasses.replace(
         flow_cfg.cfm, max_noise_len=4096))
@@ -82,20 +87,38 @@ def _kv_profile(tokens: np.ndarray, results: dict) -> None:
                        C.PipelineConfig(block_size=5, mel_cache_len=8,
                                         max_token_len=40),
                        compute_dtype=torch.bfloat16)
-    kv = dec.kv_stream_decoder(token_cap=tokens.shape[1] + 16)
+    kv = dec.kv_stream_decoder(token_cap=tokens.shape[1] + 16,
+                               enc_kernel=enc_kernel)
     kv.stream_decode(tokens)                               # warm-up
     plan = kv.schedule(tokens.shape[1])
+    k = sum(1 for _, fin in plan if not fin)
     buf = kv._token_buf(tokens)
-    cache, _ = kv.init_state()
-    flow_s, (mel, _) = _wall(lambda: kv._flow_mels_wave(buf, cache, plan))
+    flow_walls = []
+    for _ in range(3):
+        cache, _ = kv.init_state()
+        flow_s, (mel, _) = _wall(lambda: kv._flow_mels_wave(buf, cache,
+                                                            plan))
+        flow_walls.append(flow_s)
     voc_s, _ = _wall(lambda: kv._bulk.vocode(
         mel, [e * kv.ratio for e, _ in plan]))
+    enc = kv.init_state()[0]["enc"]
+
+    def encoder_hops():
+        """The encoder of the k steady hops, as the wavefront runs it."""
+        nonlocal enc
+        for i in range(k):
+            _, enc = kv._encode_hop(buf, enc, kv.p + i * kv.hop)
+
+    encoder_hops()                                         # warm-up
+    enc_s, _ = _wall(encoder_hops)
     results["kv_stages_s"] = dict(
-        wavefront_iterations=sum(1 for _, fin in plan if not fin)
-        + kv.s_steps - 1, flow=flow_s, bulk_vocoder=voc_s)
+        enc_kernel=enc_kernel, wavefront_iterations=k + kv.s_steps - 1,
+        flow=statistics.median(flow_walls), flow_walls=flow_walls,
+        bulk_vocoder=voc_s, steady_hops=k, encoder_of_steady_hops=enc_s)
     results["kv_trace"] = _trace(lambda: kv.stream_decode(tokens))
-    print(json.dumps({"kv_stages_s": results["kv_stages_s"]}))
-    print(json.dumps({"kv_trace": results["kv_trace"]}))
+    results["kv_encoder_trace"] = _trace(encoder_hops)
+    for key in ("kv_stages_s", "kv_trace", "kv_encoder_trace"):
+        print(json.dumps({key: results[key]}))
 
 
 def _offline_profile(args, results: dict) -> None:
@@ -139,6 +162,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stream-tokens", type=int, default=40)
     ap.add_argument("--kv", action="store_true",
                     help="profile the KV session's stream_decode instead")
+    ap.add_argument("--enc-kernel", action="store_true",
+                    help="with --kv: the encoder hop on the conformer group "
+                         "kernel (kv_stream_decoder(enc_kernel=True))")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -149,7 +175,8 @@ def main(argv=None) -> int:
                    cuda=torch.version.cuda, tokens=args.tokens)
     if args.kv:
         _kv_profile(np.random.RandomState(0).randint(
-            0, C.moss_flow_config().vocab_size, (1, args.tokens)), results)
+            0, C.moss_flow_config().vocab_size, (1, args.tokens)), results,
+            args.enc_kernel)
     else:
         _offline_profile(args, results)
     if args.out:

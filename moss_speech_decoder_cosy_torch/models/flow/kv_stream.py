@@ -25,6 +25,10 @@ Unlike the JAX package, whose arrays are immutable, the rings and conv
 caches are updated IN PLACE; that takes the place of JAX's buffer
 donation.
 
+The encoder hop has two engines: ``encoder_step`` runs the conformer layers
+one by one; ``encoder_hop_kernel`` runs each of its two conformer stacks as
+one ``fused_conformer_group`` launch (the session's ``enc_kernel`` option).
+
 Two estimator dataflows are ported: concat (``write=None``: attend over
 [ring ++ chunk], the caller writes the chunk afterwards) and fused
 write-then-attend with one shared write offset (``write`` dict: the chunk
@@ -45,6 +49,7 @@ from ...ops.activations import mish
 from ...ops.attention import _NEG, masked_softmax
 from ...ops.embeddings import _abs_pe_table
 from ...ops.fused_block import fused_tf_group, group_scalars
+from ...ops.fused_conformer import fused_conformer_group
 from ...utils.config import EstimatorConfig, FlowConfig
 
 Cache = Dict[str, object]
@@ -841,3 +846,82 @@ def wave_step_kernel(gp: Dict, cfm, x_wave, mu_wave, mu_new, spks,
                                      new_convs, scal[2] != 0, w,
                                      base_frames)
     return exit_mel, x_shift, mu_wave
+
+
+# --------------------------------------------------------------------------
+# kernel encoder hop: each conformer stack of the encoder as one
+# fused_conformer_group launch (ops/fused_conformer.py)
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def _pack_conformer_group(layers, qkv) -> Dict[str, torch.Tensor]:
+    def stk(fn):
+        return torch.stack([fn(layer) for layer in layers]).contiguous()
+    return {
+        "nms": stk(lambda m: m.norm_mha.weight),
+        "nmb": stk(lambda m: m.norm_mha.bias),
+        "qkvk": torch.stack([w.t() for w, _ in qkv]).contiguous(),
+        "qkvb": torch.stack([b for _, b in qkv]).contiguous(),
+        "posk": stk(lambda m: m.self_attn.linear_pos.weight.t()),
+        "pbu": stk(lambda m: m.self_attn.pos_bias_u.reshape(-1)),
+        "pbv": stk(lambda m: m.self_attn.pos_bias_v.reshape(-1)),
+        "outk": stk(lambda m: m.self_attn.linear_out.weight.t()),
+        "outb": stk(lambda m: m.self_attn.linear_out.bias),
+        "nfs": stk(lambda m: m.norm_ff.weight),
+        "nfb": stk(lambda m: m.norm_ff.bias),
+        "w1k": stk(lambda m: m.feed_forward.w_1.weight.t()),
+        "w1b": stk(lambda m: m.feed_forward.w_1.bias),
+        "w2k": stk(lambda m: m.feed_forward.w_2.weight.t()),
+        "w2b": stk(lambda m: m.feed_forward.w_2.bias)}
+
+
+def group_encoder_params(flow, fused) -> Dict:
+    """The encoder's conformer weights packed once per decoder for the
+    kernel (the JAX package's ``group_encoder_params``): the leaves of
+    ``encoder.encoders_*`` and of ``encoder.up_encoders_*`` each stacked on
+    a leading L axis, matrices in (in, out) layout, the q/k/v projections
+    fused.  A one-time copy; the rest of the encoder stays in ``flow``."""
+    enc = flow.encoder
+
+    def group(prefix, layers):
+        return _pack_conformer_group(
+            layers, [fused[f"encoder.{prefix}_{i}.self_attn"]
+                     for i in range(len(layers))])
+
+    return {"blocks": group("encoders", enc.encoders),
+            "up_blocks": group("up_encoders", enc.up_encoders)}
+
+
+def encoder_hop_kernel(egp: Dict, flow, token_chunk, context, cache: Dict,
+                       n_tok: int, pe_tok, pe_mel):
+    """``kv_flow_encode_step`` of a steady hop (``context`` the lookahead
+    tokens) with each conformer stack run by ``fused_conformer_group`` (the
+    JAX package's ``encoder_hop_pallas``): embed, pre-lookahead, the blocks
+    group, upsample, up-embed, the up group, ``after_norm``,
+    ``encoder_proj``.  The rings are written in place; returns (mu chunk
+    (1, Ct*stride, n_mel), new enc cache)."""
+    enc = flow.encoder
+    c = enc.cfg
+    if c.pos_enc_layer_type != "rel_pos":
+        raise NotImplementedError("KV streaming needs the wenet rel_pos "
+                                  "position table")
+    kw = dict(heads=c.attention_heads,
+              head_dim=c.output_size // c.attention_heads,
+              act_fn=c.activation)
+    ct, s = token_chunk.shape[1], c.upsample_stride
+    x = enc.embed(flow.input_embedding(torch.clamp(token_chunk, min=0)))
+    ctx = enc.embed(flow.input_embedding(torch.clamp(context, min=0)))
+    pos = pe_tok[n_tok:n_tok + ct][None].to(x.dtype)
+    x, new_pre = pre_lookahead_step(enc.pre_lookahead_layer, x, ctx,
+                                    cache["pre"])
+    x, _, _ = fused_conformer_group(egp["blocks"], x.contiguous(), pos,
+                                    cache["kv"], cache["pk"], n_tok, **kw)
+    x, new_up = upsample_step(enc.up_layer, x, cache["up_conv"])
+    cm, n_mel = ct * s, n_tok * s
+    x = enc.up_embed(x)
+    pos_up = pe_mel[n_mel:n_mel + cm][None].to(x.dtype)
+    x, _, _ = fused_conformer_group(egp["up_blocks"], x.contiguous(), pos_up,
+                                    cache["ukv"], cache["upk"], n_mel, **kw)
+    new_cache = dict(cache, pre=new_pre.to(cache["pre"].dtype),
+                     up_conv=new_up.to(cache["up_conv"].dtype))
+    return flow.encoder_proj(enc.after_norm(x)), new_cache

@@ -194,7 +194,9 @@ class AudioDecoder:
         ``fused`` selects the write-then-attend wavefront; ``kernel="auto"``
         runs each resnet + transformer group of the estimator as one
         ``fused_tf_group`` launch whenever the geometry allows (True/False
-        force it).  The other options of the JAX package raise."""
+        force it); ``enc_kernel=True`` runs the wavefront's encoder hop with
+        each conformer stack as one ``fused_conformer_group`` launch.  The
+        other options of the JAX package raise."""
         missing = {"batch > 1 (lockstep streams)": batch != 1,
                    "ring_quant (int8 rings)": ring_quant}
         for what, asked in missing.items():
@@ -204,9 +206,6 @@ class AudioDecoder:
             raise NotImplementedError("the stacked-scan engine is not "
                                       "ported (measured slower in "
                                       "BENCH_NOTES.md)")
-        if enc_kernel:
-            raise NotImplementedError("the fused conformer encoder kernel "
-                                      "is ROADMAP item B2")
         if write_mode != "auto":
             raise NotImplementedError("write_mode='onehot' is not ported; "
                                       "the shared-offset write is the "
@@ -220,7 +219,7 @@ class AudioDecoder:
         return KVStreamDecoder(self, prompt_token, prompt_feat, embedding,
                                hop, ring_tokens=ring_tokens,
                                token_cap=token_cap, fused=fused,
-                               kernel=kernel)
+                               kernel=kernel, enc_kernel=enc_kernel)
 
 
 class StreamSession:

@@ -26,6 +26,10 @@ group of the estimator as one ``fused_tf_group`` launch
 (``ops/fused_block.py``); ``kernel=False`` runs the unfused per-layer
 engine.  ``kernel="auto"`` picks the kernel engine whenever the geometry
 allows it, on every device: on the CPU its wrapper runs the plain version.
+``enc_kernel=True`` (opt-in, as in the JAX package) runs the wavefront's
+per-hop encoder with each conformer stack as one ``fused_conformer_group``
+launch (``ops/fused_conformer.py``); the prefill and the finalize hop keep
+the per-layer encoder step.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ import numpy as np
 import torch
 
 from ..models.flow.kv_stream import (
-    est_cache_from_flat, est_cache_to_flat, extend_rings_for_fused,
-    fuse_qkv_params, group_est_flat, group_estimator_params, init_kv_cache,
+    encoder_hop_kernel, est_cache_from_flat, est_cache_to_flat,
+    extend_rings_for_fused, fuse_qkv_params, group_encoder_params,
+    group_est_flat, group_estimator_params, init_kv_cache,
     kv_flow_encode_step, kv_flow_step, pe_tables, shrink_rings_from_fused,
     noise_chunk, spk_embedding, ungroup_est_flat, wave_step,
     wave_step_kernel)
@@ -63,7 +68,8 @@ class KVStreamDecoder:
     def __init__(self, dec, prompt_token: np.ndarray,
                  prompt_feat: np.ndarray, embedding: np.ndarray,
                  block_size: int, ring_tokens: int = 35,
-                 token_cap: int = 2048, fused: bool = True, kernel="auto"):
+                 token_cap: int = 2048, fused: bool = True, kernel="auto",
+                 enc_kernel: bool = False):
         self.dec = dec
         self.hop = block_size
         self.ring_tokens = ring_tokens
@@ -118,6 +124,13 @@ class KVStreamDecoder:
             self._gp = getattr(dec, "_grouped_est_params", None)
             if self._gp is None:
                 self._gp = dec._grouped_est_params = group_estimator_params(
+                    dec.flow, self._fw)
+        self._enc_kernel = bool(enc_kernel)
+        self._egp = None
+        if self._enc_kernel:
+            self._egp = getattr(dec, "_grouped_enc_params", None)
+            if self._egp is None:
+                self._egp = dec._grouped_enc_params = group_encoder_params(
                     dec.flow, self._fw)
         self._spks = None
         self._bulk: Optional[BulkVocoder] = None
@@ -207,6 +220,16 @@ class KVStreamDecoder:
             mels.append(mel)
         return torch.cat(mels, dim=1), cache
 
+    def _encode_hop(self, token_buf, enc: Dict, n_tok: int):
+        """The encoder of one steady hop at ``n_tok`` (the kernel hop when
+        ``enc_kernel``): (mu chunk, new enc cache), rings written in place."""
+        chunk, ctx = self._slices(token_buf, n_tok, self.hop)
+        if self._enc_kernel:
+            return encoder_hop_kernel(self._egp, self.dec.flow, chunk, ctx,
+                                      enc, n_tok, self._pe_tok, self._pe_mel)
+        return kv_flow_encode_step(self.dec.flow, self._fw, chunk, ctx, enc,
+                                   n_tok, self._pe_tok, self._pe_mel)
+
     def _rot(self, rp: int) -> List[int]:
         """Per flat row, the slot rotation of the shared-offset scheme."""
         return [(s * self.cf) % rp for s in range(self.s_steps)
@@ -250,9 +273,7 @@ class KVStreamDecoder:
         for w in range(k + s_steps - 1):
             mu_new = zeros
             if w < k:
-                mu_new, enc = kv_flow_encode_step(
-                    flow, self._fw, *self._slices(token_buf, n_tok, self.hop),
-                    enc, n_tok, self._pe_tok, self._pe_mel)
+                mu_new, enc = self._encode_hop(token_buf, enc, n_tok)
                 n_tok += self.hop
             if self._kernel:
                 exit_mel, x_w, mu_w = wave_step_kernel(

@@ -191,3 +191,109 @@ def test_fused_tf_group_matches_plain(card, case, dtype):
     assert torch.equal(r_kern[:, off], rings[:, off])
     for before_t, after_t in zip(inputs, (mt, cc1, cc2, x, rings)):
         assert torch.equal(before_t, after_t)
+
+
+# (L, C, D, heads, FF, Rt, n_tok)
+CONFORMER_CASES = {
+    "C1_rampup": (2, 1, 64, 2, 96, 8, 3),
+    "C_is_Rt_wrap": (2, 8, 64, 2, 128, 8, 13),
+    "n_tok0": (2, 5, 64, 4, 64, 12, 0),
+    "wrap": (2, 6, 64, 2, 96, 10, 7),
+    "ring_written_exactly_full": (2, 5, 64, 2, 96, 10, 5),
+    "ragged_column_tiles": (2, 7, 24, 3, 40, 9, 4),
+    "more_slots_than_threads": (1, 4, 64, 1, 64, 300, 290),
+    "blocks_group_full_width": (6, 5, 512, 8, 2048, 35, 100),
+    "up_group_full_width_wrap": (4, 20, 512, 8, 2048, 140, 410),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CONFORMER_CASES))
+def test_fused_conformer_group_matches_plain(card, case, dtype):
+    """The conformer group kernel against its plain version at edge shapes:
+    one-frame and ring-sized chunks, an empty ring, a wrapping write, a
+    ring written exactly full, column tiles cut by D and FF, more ring
+    slots than threads, and both full-width groups of the encoder.  Only the
+    chunk's slots of the rings change, and no input is written."""
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    n_layers, c, d, heads, ff, rt, n_tok = CONFORMER_CASES[case]
+    p, x, pe, kv, pk = fc.make_conformer_inputs(n_layers, c, d, heads, ff,
+                                                rt, dtype, card,
+                                                seed=len(case))
+    hd = d // heads
+    inputs = [t.clone() for t in (x, pe)]
+    kv_plain, pk_plain = kv.clone(), pk.clone()
+    kv_kern, pk_kern = kv.clone(), pk.clone()
+    want = fc.fused_conformer_group_plain(p, x, pe, kv_plain, pk_plain,
+                                          n_tok, heads=heads, head_dim=hd)
+    before = fc.launch_fused_conformer_group.launches
+    got = fc.fused_conformer_group(p, x, pe, kv_kern, pk_kern, n_tok,
+                                   heads=heads, head_dim=hd)
+    torch.cuda.synchronize()
+    assert fc.launch_fused_conformer_group.launches == before + 1
+    assert got[1] is kv_kern and got[2] is pk_kern
+    for g, w, what in zip(got, want, ("x", "ring_kv", "ring_pk")):
+        assert g.dtype == dtype and g.shape == w.shape, what
+        err = (g.float() - w.float()).abs().max().item()
+        tol = fc.kernel_tolerance(w)
+        assert err <= tol, (what, err, tol)
+    written = {(n_tok + f) % rt for f in range(c)}
+    kept = [s for s in range(rt) if s not in written]
+    assert torch.equal(kv_kern[:, :, kept], kv[:, :, kept])
+    assert torch.equal(pk_kern[:, :, kept], pk[:, :, kept])
+    for before_t, after_t in zip(inputs, (x, pe)):
+        assert torch.equal(before_t, after_t)
+
+
+def test_fused_conformer_group_rejects_what_it_cannot_run(card):
+    """Mixed CPU / CUDA inputs and a chunk longer than the ring raise before
+    any launch."""
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    p, x, pe, kv, pk = fc.make_conformer_inputs(2, 5, 64, 2, 96, 10,
+                                                torch.float32, card)
+    before = fc.launch_fused_conformer_group.launches
+    with pytest.raises(ValueError, match="ring_pk lies on cpu"):
+        fc.fused_conformer_group(p, x, pe, kv, pk.cpu(), 0, heads=2,
+                                 head_dim=32)
+    with pytest.raises(ValueError, match="lies on"):
+        fc.fused_conformer_group(dict(p, w1k=p["w1k"].cpu()), x, pe, kv, pk,
+                                 0, heads=2, head_dim=32)
+    p, x, pe, kv, pk = fc.make_conformer_inputs(2, 12, 64, 2, 96, 10,
+                                                torch.float32, card)
+    with pytest.raises(ValueError, match="chunk 12 must be in"):
+        fc.fused_conformer_group(p, x, pe, kv, pk, 0, heads=2, head_dim=32)
+    assert fc.launch_fused_conformer_group.launches == before
+
+
+def test_enc_kernel_wavefront_on_card_matches_cpu(card):
+    """The tiny KV session's wavefront in f32 with the kernel encoder hop:
+    the card (both kernels) against the CPU (plain versions), two conformer
+    launches per steady hop."""
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    flow_cfg, hift_cfg = C.tiny_flow_config(), C.tiny_hift_config()
+    states = seeded_states(flow_cfg, hift_cfg)
+    tokens = np.random.RandomState(3).randint(0, flow_cfg.vocab_size,
+                                              (1, 30))
+    mels, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        dec = AudioDecoder(flow_cfg, hift_cfg, *states,
+                           C.PipelineConfig(block_size=3, mel_cache_len=2,
+                                            max_token_len=9), device=dev)
+        kv = dec.kv_stream_decoder(ring_tokens=6, token_cap=64,
+                                   enc_kernel=True)
+        cache, _ = kv.init_state()
+        plan = kv.schedule(tokens.shape[1])
+        fc.launch_fused_conformer_group.launches = 0
+        mel, _ = kv._flow_mels_wave(kv._token_buf(tokens), cache, plan)
+        launches[dev] = fc.launch_fused_conformer_group.launches
+        mels[dev] = mel.float().cpu().numpy()
+    k = sum(1 for _, fin in plan if not fin)
+    assert launches == {"cuda": 2 * k, "cpu": 0}
+    assert mels["cuda"].shape == mels["cpu"].shape == (
+        1, 30 * flow_cfg.token_mel_ratio, flow_cfg.output_size)
+    np.testing.assert_allclose(mels["cuda"], mels["cpu"], atol=1e-4, rtol=0)

@@ -6,9 +6,12 @@ the JAX draws.
 
 Tolerances on the waveform:
 - 1e-4: the port's default wavefront (kernel engine, plain version on the
-  CPU) against the JAX default wavefront (its fused XLA engine);
-- 2e-5: the port's kernel engine against its own unfused engine (the
-  tolerance the JAX package pins between its kernel and unfused engines);
+  CPU) against the JAX default wavefront (its fused XLA engine), and the
+  port's ``enc_kernel=True`` wavefront against the JAX session with both
+  Pallas kernels (interpret mode);
+- 2e-5: the port's kernel engine against its own unfused engine, and its
+  kernel encoder hop against its per-layer encoder step (the tolerance the
+  JAX package pins between its kernel and unfused engines);
 - 1e-5: bulk vocoding against the per-hop vocoder chain."""
 
 import numpy as np
@@ -23,6 +26,7 @@ from moss_speech_decoder_cosy_tpu.pipeline import AudioDecoder as JDecoder
 from moss_speech_decoder_cosy_tpu.utils.config import (
     PipelineConfig, tiny_flow_config, tiny_hift_config)
 from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
 from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder as TDecoder
 from moss_speech_decoder_cosy_torch.utils import config as tcfg
 from moss_speech_decoder_cosy_torch.weights import (
@@ -79,18 +83,37 @@ def setup():
 
     wavs = {}
 
-    def decode(kernel="auto", bulk_voc=True, wavefront=True):
+    def decode(kernel="auto", bulk_voc=True, wavefront=True,
+               enc_kernel=False):
         """The port's stream_decode of the stream, once per setting; on the
-        CPU every engine leaves the kernel's launch count alone."""
-        key = (kernel, bulk_voc, wavefront)
+        CPU every engine leaves the kernels' launch counts alone."""
+        key = (kernel, bulk_voc, wavefront, enc_kernel)
         if key not in wavs:
-            before = fb.launch_fused_tf_group.launches
-            wavs[key] = session(kernel=kernel).stream_decode(
+            before = (fb.launch_fused_tf_group.launches,
+                      fc.launch_fused_conformer_group.launches)
+            wavs[key] = session(kernel=kernel,
+                                enc_kernel=enc_kernel).stream_decode(
                 tokens[:, P:], bulk_voc=bulk_voc, wavefront=wavefront)
-            assert fb.launch_fused_tf_group.launches == before
+            assert (fb.launch_fused_tf_group.launches,
+                    fc.launch_fused_conformer_group.launches) == before
         return wavs[key]
 
-    return dict(want=want, session=session, decode=decode)
+    def want_enc_kernel():
+        """The JAX session with both Pallas kernels (interpret mode), as
+        tests/test_kv_stream.py:307-315 builds it."""
+        if "jax_enc" not in wavs:
+            jkve = jdec.kv_stream_decoder(
+                tokens[:, :P], prompt_feat, emb, block_size=HOP,
+                ring_tokens=RING, token_cap=64, fused=True, kernel=True,
+                enc_kernel=True)
+            assert jkve._enc_kernel and jkve._kernel
+            wavs["jax_enc"] = np.asarray(jkve.stream_decode(
+                tokens[:, P:], bulk_voc=True, wavefront=True,
+                wave_stepped=False))
+        return wavs["jax_enc"]
+
+    return dict(want=want, session=session, decode=decode,
+                want_enc_kernel=want_enc_kernel)
 
 
 def test_wavefront_matches_jax_wavefront(setup):
@@ -124,10 +147,30 @@ def test_bulk_vocode_matches_per_hop_chain(setup, wavefront):
                                rtol=0)
 
 
+def test_enc_kernel_wavefront_matches_jax(setup):
+    """The wavefront's encoder hop through fused_conformer_group (its plain
+    version on the CPU) against the JAX session with the Pallas conformer
+    and block kernels; the prefill and the finalize hop keep the per-layer
+    encoder step in both."""
+    kv = setup["session"](enc_kernel=True)
+    assert kv._enc_kernel and kv._kernel and kv._align == 8
+    got = setup["decode"](enc_kernel=True)
+    want = setup["want_enc_kernel"]()
+    assert got.shape == want.shape and np.abs(want).max() > 0.05
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_enc_kernel_matches_per_layer_encoder(setup):
+    """As the JAX package pins its enc_kernel session against its default
+    (tests/test_kv_stream.py:305-315)."""
+    assert setup["session"]()._enc_kernel is False
+    np.testing.assert_allclose(setup["decode"](enc_kernel=True),
+                               setup["decode"](), atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(batch=2), "A7"), (dict(ring_quant=True), "A7"),
-    (dict(enc_kernel=True), "B2"), (dict(write_mode="onehot"), "onehot"),
-    (dict(stacked=True), "stacked")])
+    (dict(write_mode="onehot"), "onehot"), (dict(stacked=True), "stacked")])
 def test_options_not_ported_raise(setup, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         setup["session"](**kw)

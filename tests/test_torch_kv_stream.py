@@ -6,10 +6,13 @@ JAX package's, f32 on the CPU, tiny config, same weights (``weights.py``):
 - the ring extend / shrink of the fused layout against JAX;
 - one wavefront iteration (fused write-then-attend, shared offset) of the
   unfused engine and of the kernel engine against JAX
-  ``CausalConditionalCFMWave``.
+  ``CausalConditionalCFMWave``;
+- three consecutive kernel encoder hops (``encoder_hop_kernel``, the plain
+  conformer group on the CPU) against JAX ``encoder_hop_pallas`` in
+  interpret mode.
 
-Tolerances: mel 2e-5 and wave outputs 2e-5 (f32, summation order only);
-the extend / shrink gathers are exact."""
+Tolerances: mel 2e-5, wave outputs 2e-5 and encoder hops 2e-5 (f32,
+summation order only); the extend / shrink gathers are exact."""
 
 import numpy as np
 import pytest
@@ -194,3 +197,37 @@ def test_wave_iteration_matches_jax(models, kernel, w):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                    rtol=0, err_msg=what)
     assert_tree_close(test, jout[3], TOL, "est")
+
+
+def test_encoder_hop_kernel_matches_jax(models):
+    """Three steady hops from random rings after a 2-token prompt: hop 3,
+    ring 6 (blocks group C 3, Rt 6) and the x4 upsample (up group C 12,
+    Rt 24), so both groups see ramp-up, a full ring and a wrapping write.
+    mu and every leaf of the enc cache after each hop."""
+    m = models
+    cfg, ring_t, hop, la = m["cfg"], 6, 3, m["cfg"].pre_lookahead_len
+    rng = np.random.RandomState(11)
+    jcache = jax.tree.map(lambda a: jnp.asarray(
+        rng.randn(*a.shape).astype(np.float32)),
+        J.init_kv_cache(cfg, ring_t)["enc"])
+    tcache = to_torch(jcache)
+    pe_tok, pe_mel = J.pe_tables(cfg, 64)
+    tpe_tok, tpe_mel = T.pe_tables(tcfg.tiny_flow_config(), 64)
+    egp = J.group_encoder_params(m["fparams"], cfg.encoder)
+    tegp = T.group_encoder_params(m["flow"], m["fused"])
+    stream = m["tokens"]
+    for i, n_tok in enumerate((2, 5, 8)):
+        chunk = stream[:, n_tok:n_tok + hop]
+        ctx = stream[:, n_tok + hop:n_tok + hop + la]
+        jmu, jcache = J.encoder_hop_pallas(
+            egp, m["fparams"], cfg, jnp.asarray(chunk), jnp.asarray(ctx),
+            jcache, n_tok, pe_tok, pe_mel, interpret=True)
+        with torch.inference_mode():
+            tmu, tcache = T.encoder_hop_kernel(
+                tegp, m["flow"], torch.from_numpy(chunk).long(),
+                torch.from_numpy(ctx).long(), tcache, n_tok, tpe_tok,
+                tpe_mel)
+        assert tmu.shape == (1, hop * cfg.token_mel_ratio, cfg.output_size)
+        np.testing.assert_allclose(tmu.numpy(), np.asarray(jmu), atol=TOL,
+                                   rtol=0, err_msg=f"mu, hop {i}")
+        assert_tree_close(tcache, jcache, TOL, f"enc, hop {i}")
