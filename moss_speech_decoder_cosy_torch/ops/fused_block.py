@@ -35,10 +35,11 @@ Bound on an H100 SXM: a steady launch of the KV session (20 rows, hop 20
 frames, ring 160, L 4, bf16) moves about 37 MB (the ring slots it attends
 to, the group's weights, the chunk K/V it writes), about 11 us at
 3.35 TB/s; its 4.3 GFLOP take 4.3 us on tensor cores, so it is bound by
-bytes (in f32, by operations on CUDA cores, about 64 us).  The kernel's
-design is the simple one: one thread block per row, so rows never
-synchronise; every product on CUDA cores in f32.  It leaves most of the
-card idle; see the source's header.
+bytes (in f32, by operations on CUDA cores, about 64 us).  The kernel runs
+one thread-block cluster per row (4 CTAs at full width), each CTA a column
+slice of every product on tensor cores (bf16) and its share of the heads;
+the slices meet through distributed shared memory.  See the source's
+header.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel (float32 or bfloat16) or raise.  There is no fall-back.

@@ -49,6 +49,12 @@ def _qkv(shape, dtype, seed, qk_scale=0.3):
     (2, 2, 130, 7, 100),       # a chunk that does not divide the tile
     (1, 2, 200, 100, 200),     # a chunk longer than the tile
     (1, 1, 300, 0, 5),         # nearly every key masked
+    (1, 2, 16, 8, 13),         # one m16 tile, chunk 8
+    (1, 2, 17, 16, 11),        # one row past an m16 tile, chunk 16
+    (2, 3, 63, 8, 61),         # one row short of a 64-row tile
+    (1, 2, 63, 16, 45),        # valid_len inside an n8 tile
+    (1, 4, 1000, 16, 997),     # offline length, ragged valid_len
+    (1, 2, 1000, 8, 555),      # chunk 8 over many key tiles
 ])
 def test_kernel_matches_plain(card, dtype, b, h, t, chunk, valid_len):
     """Both entries against the plain version; one launch per call."""
@@ -152,6 +158,15 @@ GROUP_CASES = {
     "tiny_chunk12_rp36": (1, 8, 12, 64, 24, 2, 8, 36, True, 32,
                           [12, 24, 36, 48, 12, 24, 36, 48],
                           [1, 1, 1, 1, 1, 0, 1, 1]),
+    # more clusters than fit in one wave of the card
+    "rows40_two_waves": (1, 40, 20, 256, 256, 8, 64, 160, True, 100,
+                         [180] * 40, [1] * 40),
+    # three heads dealt over a larger cluster, dk 16
+    "heads3_dk16": (2, 6, 20, 64, 48, 3, 16, 80, True, 70,
+                    [20, 40, 80, 100, 35, 90], [1, 1, 1, 0, 1, 1]),
+    # ch 24: column slices narrower than an n8 tile, per-row offsets
+    "ch24_narrow_slices": (2, 5, 16, 24, 24, 3, 8, 48, False, 0,
+                           [16, 30, 48, 60, 100], [1, 1, 0, 1, 1]),
 }
 
 
