@@ -146,33 +146,6 @@ def attention_bound_ms(b: int, h: int, t: int, dk: int, chunk: int,
                                        else "operations")
 
 
-def flash_q128_call(torch, fa, q, k, v, b, h, t, chunk, vl):
-    """A call of the bf16 flash kernel with 128-row query tiles (8 warps),
-    through the library's ``flash_chunk_attention_tiled`` entry: the tile
-    height measured beside the port's 64 rows.  Measurement only; the port
-    never takes it, so its launches are not counted."""
-    import ctypes
-    from moss_speech_decoder_cosy_torch.ops import cuda_build
-    fn = cuda_build.load("flash_chunk_attention").flash_chunk_attention_tiled
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
-    out = torch.empty_like(q)
-    strides = [s for x in (q, k, v, out) for s in fa._strides_bht(x, "bhtd")]
-
-    def call():
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1,
-                b, h, t, fa.KERNEL_HEAD_DIM, *strides, chunk, vl,
-                fa.KERNEL_HEAD_DIM ** -0.5, 128,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"flash_chunk_attention_tiled: CUDA error {rc}")
-        return out
-    return call
-
-
 def kernel_phase(torch, fa) -> list:
     """Both entries, f32 and bf16, at the main path's shapes, against the
     plain version; returns one record per case.  q and k at scale 0.3 give
@@ -206,14 +179,6 @@ def kernel_phase(torch, fa) -> list:
                                                        attn_mask=allow))
             bound, bound_by = attention_bound_ms(b, h, t, dk, chunk, vl,
                                                  dname)
-            extra = {}
-            if dtype == torch.bfloat16:
-                q128 = flash_q128_call(torch, fa, q, k, v, b, h, t, chunk, vl)
-                err128 = (q128().float() - want.float()).abs().max().item()
-                extra = dict(ms_q128=time_cuda(q128), max_abs_err_q128=err128)
-                if not err128 <= tol:
-                    raise AssertionError(f"128-row flash tiles disagree with "
-                                         f"the plain version: {err128}")
             for layout in ("bhtd", "fl"):
                 if layout == "bhtd":
                     args = (q, k, v)
@@ -236,7 +201,7 @@ def kernel_phase(torch, fa) -> list:
                            out_max_abs=want.float().abs().max().item(),
                            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound,
-                           bound_by=bound_by, **extra)
+                           bound_by=bound_by)
                 print("kernel", json.dumps(rec), flush=True)
                 if not err <= tol:
                     raise AssertionError(f"kernel disagrees with its plain "
@@ -277,38 +242,6 @@ def group_bound_ms(rows: int, cf: int, cin: int, ch: int, inner: int,
                                        else "operations")
 
 
-def fused_cluster_call(torch, fb, p, rp_, mt, cc1, cc2, x, rings, scal,
-                       offset, heads, hd, shared, cluster):
-    """A call of ``fused_tf_group`` with the cluster size forced, through the
-    library's ``fused_tf_group_clustered`` entry: cluster 8 measured beside
-    the port's 4.  Measurement only; the port never takes it, so its
-    launches are not counted.  Returns (x_out, rings, cc1_out, cc2_out)."""
-    import ctypes
-    from moss_speech_decoder_cosy_torch.ops import cuda_build
-    fn = cuda_build.load("fused_tf_group").fused_tf_group_clustered
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 14
-                   + [ctypes.c_void_p])
-    ch = rp_["resb"].shape[-1]
-    rows, cf, cin = x.shape
-    n_layers, _, rp, _ = rings.shape
-    outs = (torch.empty((rows, cf, ch), dtype=x.dtype, device=x.device),
-            torch.empty_like(cc1), torch.empty_like(cc2))
-    tensors = ([x, mt, cc1, cc2] + [rp_[k] for k in fb.RES_KEYS]
-               + [p[k] for k in fb.TF_KEYS] + [rings, *outs, scal])
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-    def call():
-        rc = fn(ptrs, fb._DTYPE_CODE[x.dtype], rows, cf, cin, ch,
-                mt.shape[-1], heads, hd, p["ffpb"].shape[-1], n_layers, rp,
-                int(shared), int(offset), cluster,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"fused_tf_group_clustered: CUDA error {rc}")
-        return outs[0], rings, outs[1], outs[2]
-    return call
-
-
 def fused_group_phase(torch, fb) -> list:
     """``fused_tf_group`` against its plain version at the KV slice's shapes
     (20 wavefront rows, hop 20 frames, ring 160 slots, 8 x 64 heads, L 4):
@@ -320,8 +253,7 @@ def fused_group_phase(torch, fb) -> list:
     disabled rows keep their rings and that no input changes.  Times each
     case with the L2 cache flushed before each launch (as the stream finds
     it: each wavefront iteration streams 367 MB of rings through L2) and
-    warm; the steady cases also with clusters of 8 CTAs (measurement
-    only)."""
+    warm."""
     rows, cf, rp, heads, hd, ch, n_layers = 20, 20, 160, 8, 64, 256, 4
     ff = tdim = 4 * ch
     steady = dict(shared=True, offset=100, nd=[rp + cf] * rows,
@@ -368,21 +300,6 @@ def fused_group_phase(torch, fb) -> list:
                 p, rp_, mt, cc1, cc2, x, r_kern, scal, c["offset"], **kw)
             ms = time_cuda_cold(call)
             ms_warm = time_cuda(call)
-            extra = {}
-            if mode == "steady":
-                r8 = rings.clone()
-                c8 = fused_cluster_call(torch, fb, p, rp_, mt, cc1, cc2, x,
-                                        r8, scal, c["offset"], heads, hd,
-                                        c["shared"], 8)
-                err8 = max((g.float() - w.float()).abs().max().item()
-                           / fb.kernel_tolerance(w)
-                           for g, w in zip(c8(), want))
-                extra = dict(ms_cluster8=time_cuda_cold(c8),
-                             ms_cluster8_warm_l2=time_cuda(c8),
-                             err_over_tol_cluster8=err8)
-                if not err8 <= 1.0:
-                    raise AssertionError(f"fused_tf_group with clusters of 8 "
-                                         f"disagrees: {err8} x tolerance")
             plain_ms = time_cuda(lambda: fb.fused_tf_group_plain(
                 p, rp_, mt, cc1, cc2, x, r_plain, scal, c["offset"], **kw))
             bound, bound_by = group_bound_ms(
@@ -394,8 +311,7 @@ def fused_group_phase(torch, fb) -> list:
                        max_abs_err=errs, tol=tols,
                        disabled_rows_kept=kept, inputs_untouched=untouched,
                        ms=ms, ms_warm_l2=ms_warm, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=bound, bound_by=bound_by,
-                       **extra)
+                       library_ms=None, bound_ms=bound, bound_by=bound_by)
             print("fused_tf_group", json.dumps(rec), flush=True)
             if not (all(errs[k] <= tols[k] for k in errs) and kept
                     and untouched):

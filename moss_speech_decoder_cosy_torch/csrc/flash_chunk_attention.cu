@@ -22,8 +22,8 @@
 // chunk 50, is bound by its 1.3 MB of bytes: ~0.4 us.
 //
 // bf16 design (FlashAttention-2 on mma.sync): one CTA per (batch*head,
-// 64-row query tile), 4 warps of 16 query rows each (a 128-row, 8-warp
-// variant is built for measurement).  Q is loaded once by cp.async, scaled
+// 64-row query tile), 4 warps of 16 query rows each (128-row tiles of 8
+// warps measured slower on an H100; PERF.md).  Q is loaded once by cp.async, scaled
 // in bf16 and kept in registers as m16n8k16 A fragments (ldmatrix).  K/V
 // tiles of 64 keys stream as bf16 through a 3-stage shared-memory ring of
 // cp.async copies (16 B per copy, XOR-swizzled 128 B rows, so ldmatrix is
@@ -60,6 +60,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int kDk = 64;       // head dim, compile-time
 constexpr int kBk = 64;       // keys per tile
 constexpr int kStages = 3;    // bf16 K/V ring depth
+constexpr int kWarps = 4;     // bf16: 16 query rows per warp
 constexpr float kNeg = -1.0e30f;
 
 struct Strides {
@@ -122,7 +123,6 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // ------------------------------------------------------------------ bf16
-template <int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -500,7 +500,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
   return err;
 }
 
-template <int kWarps>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int batch, int heads, int t_len, Strides qs, Strides ks,
                 Strides vs, Strides os, int chunk, int valid_len, float scale,
@@ -508,10 +507,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   static std::atomic<bool> done[kMaxDevices];
   constexpr int rows = kWarps * 16;
   const int smem = (int)sizeof(bf16) * (rows * kDk + kStages * 2 * kBk * kDk);
-  cudaError_t err = allow_smem(flash_bf16_kernel<kWarps>, smem, done);
+  cudaError_t err = allow_smem(flash_bf16_kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t_len + rows - 1) / rows, batch * heads);
-  flash_bf16_kernel<kWarps><<<grid, kWarps * 32, smem, stream>>>(
+  flash_bf16_kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, t_len, qs,
       ks, vs, os, chunk, valid_len, scale);
@@ -542,20 +541,19 @@ bool aligned16(const void* p, const Strides& s, int elem) {
 
 }  // namespace
 
-// flash_chunk_attention with the bf16 query tile chosen: q_rows 64 (4 warps,
-// the default) or 128 (8 warps); f32 always takes 64.  dtype: 0 = float32,
-// 1 = bfloat16.  Strides are in elements; every row must start on a 16-byte
-// boundary.  Returns 0 on success, else a cudaError_t code.
-extern "C" int flash_chunk_attention_tiled(
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; every row
+// must start on a 16-byte boundary.  Returns 0 on success, else a
+// cudaError_t code.
+extern "C" int flash_chunk_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int heads, int t_len, int head_dim,
     long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
     long long o_sb, long long o_sh, long long o_st,
-    int chunk, int valid_len, float scale, int q_rows, void* stream) {
+    int chunk, int valid_len, float scale, void* stream) {
   if (head_dim != kDk || t_len <= 0 || valid_len <= 0 || valid_len > t_len ||
-      chunk < 0 || batch <= 0 || heads <= 0 || (q_rows != 64 && q_rows != 128))
+      chunk < 0 || batch <= 0 || heads <= 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st},
       vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
@@ -568,25 +566,6 @@ extern "C" int flash_chunk_attention_tiled(
     return launch_f32(q, k, v, o, batch, heads, t_len, qs, ks, vs, os, chunk,
                       valid_len, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (q_rows == 128)
-    return launch_bf16<8>(q, k, v, o, batch, heads, t_len, qs, ks, vs, os,
-                          chunk, valid_len, scale, s);
-  return launch_bf16<4>(q, k, v, o, batch, heads, t_len, qs, ks, vs, os,
-                        chunk, valid_len, scale, s);
-}
-
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.
-// Returns 0 on success, else a cudaError_t code.
-extern "C" int flash_chunk_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype,
-    int batch, int heads, int t_len, int head_dim,
-    long long q_sb, long long q_sh, long long q_st,
-    long long k_sb, long long k_sh, long long k_st,
-    long long v_sb, long long v_sh, long long v_st,
-    long long o_sb, long long o_sh, long long o_st,
-    int chunk, int valid_len, float scale, void* stream) {
-  return flash_chunk_attention_tiled(
-      q, k, v, o, dtype, batch, heads, t_len, head_dim, q_sb, q_sh, q_st,
-      k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, chunk, valid_len,
-      scale, 64, stream);
+  return launch_bf16(q, k, v, o, batch, heads, t_len, qs, ks, vs, os, chunk,
+                     valid_len, scale, s);
 }

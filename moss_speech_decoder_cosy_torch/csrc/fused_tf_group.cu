@@ -29,8 +29,8 @@
 //
 // Design: one thread-block cluster of CS CTAs per wavefront row (CS = 4 at
 // full width: 80 CTAs of 256 threads, one per SM, one wave on the 132 SMs;
-// 8 when the shared memory of 4 does not fit, as in f32; cluster 8 can be
-// asked for at launch).  Rows never synchronise with each other; only the
+// 8 when the shared memory of 4 does not fit, as in f32; clusters of 8 in
+// bf16 measured slower on an H100, PERF.md).  Rows never synchronise with each other; only the
 // weights are shared, through L2.  Inside a cluster:
 //   - every CTA holds the row's resident activation (cf x ch, in T) and the
 //     inputs of each product in shared memory, and computes one column
@@ -1017,7 +1017,7 @@ int layout(Params<T>& p, int cs) {
 template <typename T>
 int launch(void* const* ptrs, int rows, int cf, int cin, int ch, int tdim,
            int heads, int dk, int ff, int n_layers, int rp, int shared,
-           int offset, int cluster, cudaStream_t stream) {
+           int offset, cudaStream_t stream) {
   const bool bf = sizeof(T) == 2;
   if (dk % 4 || (bf && cf > 32)) return (int)cudaErrorInvalidValue;
   Params<T> p;
@@ -1054,7 +1054,6 @@ int launch(void* const* ptrs, int rows, int cf, int cin, int ch, int tdim,
            inner % 8 == 0 && ff % 8 == 0 && dk % 8 == 0) ? 8 : 4;
   int cs = 0;
   for (int cand : {4, 8}) {
-    if (cluster && cand != cluster) continue;
     if (layout(p, cand) <= kMaxSmem) {
       cs = cand;
       break;
@@ -1082,38 +1081,25 @@ int launch(void* const* ptrs, int rows, int cf, int cin, int ch, int tdim,
 
 }  // namespace
 
-// fused_tf_group with the cluster size chosen: 0 picks the smallest of 4
-// and 8 whose shared memory fits; 4 or 8 forces it.
 // ptrs: x, mt, cc1, cc2, the 12 resnet weights, the 11 stacked transformer
 // weights (fused_block.py's RES_KEYS and TF_KEYS order), rings, x_out,
-// cc1_out, cc2_out, scal.  dtype: 0 = float32, 1 = bfloat16.
+// cc1_out, cc2_out, scal.  dtype: 0 = float32, 1 = bfloat16.  The cluster
+// is the smallest of 4 and 8 CTAs whose shared memory fits.
 // Returns 0 on success, else a cudaError_t code.
-extern "C" int fused_tf_group_clustered(void* const* ptrs, int dtype,
-                                        int rows, int cf, int cin, int ch,
-                                        int tdim, int heads, int head_dim,
-                                        int ff, int n_layers, int rp,
-                                        int shared, int offset, int cluster,
-                                        void* stream) {
-  if (rows <= 0 || cf <= 0 || cf > rp || cin % 4 || ch % 4 || tdim % 4 ||
-      (heads * head_dim) % 4 || ff % 4 || n_layers <= 0 || offset < 0 ||
-      offset >= rp || heads <= 0 || head_dim <= 0 ||
-      (cluster != 0 && cluster != 4 && cluster != 8))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(ptrs, rows, cf, cin, ch, tdim, heads, head_dim, ff,
-                         n_layers, rp, shared, offset, cluster, s);
-  if (dtype == 1)
-    return launch<bf16>(ptrs, rows, cf, cin, ch, tdim, heads, head_dim, ff,
-                        n_layers, rp, shared, offset, cluster, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 extern "C" int fused_tf_group(void* const* ptrs, int dtype, int rows, int cf,
                               int cin, int ch, int tdim, int heads,
                               int head_dim, int ff, int n_layers, int rp,
                               int shared, int offset, void* stream) {
-  return fused_tf_group_clustered(ptrs, dtype, rows, cf, cin, ch, tdim, heads,
-                                  head_dim, ff, n_layers, rp, shared, offset,
-                                  0, stream);
+  if (rows <= 0 || cf <= 0 || cf > rp || cin % 4 || ch % 4 || tdim % 4 ||
+      (heads * head_dim) % 4 || ff % 4 || n_layers <= 0 || offset < 0 ||
+      offset >= rp || heads <= 0 || head_dim <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(ptrs, rows, cf, cin, ch, tdim, heads, head_dim, ff,
+                         n_layers, rp, shared, offset, s);
+  if (dtype == 1)
+    return launch<bf16>(ptrs, rows, cf, cin, ch, tdim, heads, head_dim, ff,
+                        n_layers, rp, shared, offset, s);
+  return (int)cudaErrorInvalidValue;
 }

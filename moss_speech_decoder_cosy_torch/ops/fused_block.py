@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -279,6 +279,18 @@ def _check(p, rp_, mt, cc1, cc2, x, rings, scal, offset, heads, head_dim,
             raise ValueError(f"{name} {dim} must be a multiple of 4")
 
 
+def kernel_limit(cf: int, head_dim: int, dtype: torch.dtype
+                 ) -> Optional[str]:
+    """Why ``csrc/fused_tf_group.cu`` cannot run this geometry, or None:
+    it reads a head in float4 steps, and in bf16 holds the chunk's frames
+    in two m16 row tiles.  The plain version has neither limit."""
+    if head_dim % 4:
+        return f"the kernel needs head_dim % 4 == 0, got {head_dim}"
+    if dtype == torch.bfloat16 and cf > 32:
+        return f"the bf16 kernel takes chunks of at most 32 frames, got {cf}"
+    return None
+
+
 def _kernel_fn():
     fn = cuda_build.load("fused_tf_group").fused_tf_group
     if fn.argtypes is None:
@@ -303,6 +315,9 @@ def launch_fused_tf_group(p, rp_, mt, cc1, cc2, x, rings, scal, offset,
             raise ValueError("kernel needs contiguous tensors")
     n_layers, rows, rp, _ = rings.shape
     _, cf, cin = x.shape
+    why = kernel_limit(cf, head_dim, x.dtype)
+    if why:
+        raise ValueError(why)
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     fn = _kernel_fn()
     with torch.cuda.device(x.device):

@@ -25,7 +25,8 @@ Engines of the wavefront: ``kernel=True`` runs each resnet + transformer
 group of the estimator as one ``fused_tf_group`` launch
 (``ops/fused_block.py``); ``kernel=False`` runs the unfused per-layer
 engine.  ``kernel="auto"`` picks the kernel engine whenever the geometry
-allows it, on every device: on the CPU its wrapper runs the plain version.
+allows it (``fused_block.kernel_limit``: in bf16 a hop of at most 32
+frames), on every device: on the CPU its wrapper runs the plain version.
 ``enc_kernel=True`` (opt-in, as in the JAX package) runs the wavefront's
 per-hop encoder with each conformer stack as one ``fused_conformer_group``
 launch (``ops/fused_conformer.py``); the prefill and the finalize hop keep
@@ -47,6 +48,7 @@ from ..models.flow.kv_stream import (
     kv_flow_encode_step, kv_flow_step, pe_tables, shrink_rings_from_fused,
     noise_chunk, spk_embedding, ungroup_est_flat, wave_step,
     wave_step_kernel)
+from ..ops.fused_block import kernel_limit
 from .bulk_voc import BulkVocoder
 
 
@@ -95,12 +97,14 @@ class KVStreamDecoder:
         # prompt alignment of the shared write offset (frames % hop)
         self._align = (self.p * self.ratio) % self.cf
         est_cfg = cfg.estimator
-        kernel_ok = self._fused and est_cfg.act_fn == "gelu"
+        why = kernel_limit(self.cf, est_cfg.attention_head_dim, self.est_dt)
+        kernel_ok = self._fused and est_cfg.act_fn == "gelu" and not why
         if kernel == "auto":
             kernel = kernel_ok
         if kernel and not kernel_ok:
             raise ValueError("the kernel engine needs fused=True, the "
-                             "shared-offset geometry and exact GELU")
+                             "shared-offset geometry and exact GELU"
+                             + (f"; {why}" if why else ""))
         self._kernel = bool(kernel)
 
         self._prompt_tok = torch.as_tensor(np.asarray(prompt_token),

@@ -157,6 +157,17 @@ def test_kernel_tolerance_is_four_bf16_ulps_of_the_largest_output(top, tol):
         fb.kernel_tolerance(want.half())
 
 
+@pytest.mark.parametrize("cf,head_dim,dtype,why", [
+    (20, 64, torch.bfloat16, None), (32, 64, torch.bfloat16, None),
+    (33, 64, torch.bfloat16, "at most 32 frames, got 33"),
+    (40, 64, torch.float32, None),
+    (20, 6, torch.float32, "head_dim % 4 == 0, got 6")])
+def test_kernel_limit_names_what_the_cuda_kernel_cannot_hold(cf, head_dim,
+                                                             dtype, why):
+    got = fb.kernel_limit(cf, head_dim, dtype)
+    assert got is None if why is None else why in got
+
+
 def test_wrapper_rejects_what_the_kernel_cannot_run():
     rng = np.random.RandomState(1)
     tp, trp = _pack(*_params(rng))

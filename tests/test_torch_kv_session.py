@@ -77,9 +77,8 @@ def setup():
         device="cpu", nsf_draws=jax_draws)
 
     def session(**kw):
-        return tdec.kv_stream_decoder(tokens[:, :P], prompt_feat, emb,
-                                      block_size=HOP, ring_tokens=RING,
-                                      token_cap=64, **kw)
+        kw = dict(dict(block_size=HOP, ring_tokens=RING, token_cap=64), **kw)
+        return tdec.kv_stream_decoder(tokens[:, :P], prompt_feat, emb, **kw)
 
     wavs = {}
 
@@ -113,7 +112,7 @@ def setup():
         return wavs["jax_enc"]
 
     return dict(want=want, session=session, decode=decode,
-                want_enc_kernel=want_enc_kernel)
+                want_enc_kernel=want_enc_kernel, dec=tdec)
 
 
 def test_wavefront_matches_jax_wavefront(setup):
@@ -174,3 +173,21 @@ def test_enc_kernel_matches_per_layer_encoder(setup):
 def test_options_not_ported_raise(setup, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         setup["session"](**kw)
+
+
+@pytest.mark.parametrize("hop,est_dtype,kernel_ok", [
+    (8, torch.bfloat16, True), (9, torch.bfloat16, False),
+    (9, torch.float32, True)])
+def test_auto_engine_follows_the_kernel_limit(setup, monkeypatch, hop,
+                                              est_dtype, kernel_ok):
+    """The bf16 kernel holds a hop of at most 32 frames (8 tokens at ratio
+    4): past it ``kernel="auto"`` takes the unfused engine and
+    ``kernel=True`` raises a ValueError that names the limit."""
+    monkeypatch.setattr(setup["dec"], "estimator_dtype", est_dtype)
+    kw = dict(block_size=hop, ring_tokens=2 * hop)
+    assert setup["session"](**kw)._kernel is kernel_ok
+    if kernel_ok:
+        assert setup["session"](kernel=True, **kw)._kernel
+    else:
+        with pytest.raises(ValueError, match="at most 32 frames, got 36"):
+            setup["session"](kernel=True, **kw)
