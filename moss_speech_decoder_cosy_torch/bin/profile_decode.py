@@ -1,24 +1,27 @@
 """Where the time of a full-width decode goes, on one CUDA card.
 
     python -m moss_speech_decoder_cosy_torch.bin.profile_decode \
-        [--tokens 250] [--stream-tokens 40] [--kv [--enc-kernel]] \
-        [--out prof.json]
+        [--tokens 250] [--stream-tokens 40] \
+        [--kv [--enc-kernel] [--no-graphs]] [--out prof.json]
 
 Builds the MOSS presets with seeded weights in bf16 and warms up.  Without
 ``--kv``, with flash attention, for ``token2wav`` and for one windowed
 ``stream_inference``; with ``--kv``, for the KV session's
 ``stream_decode`` of ``--tokens`` tokens (the configuration ``bench.py``
 runs: ring attention, block 5, mel cache 8, max_token_len 40, the kernel
-engine; ``--enc-kernel`` runs its encoder hop through the conformer group
-kernel):
+engine, each wavefront iteration and each per-hop step replayed as a CUDA
+graph; ``--enc-kernel`` runs its encoder hop through the conformer group
+kernel, ``--no-graphs`` runs the same steps eagerly):
 
 - stage wall times with a synchronize after each stage (flow mel, HiFT;
   for the KV session the wavefront with its finalize tail, median of 3,
   then the bulk vocoder, and apart from them the encoder of the stream's
   steady hops, with its own trace);
-- a ``torch.profiler`` trace: device time by kernel (top 12), kernel
-  launches, total device time, host wall, and the device's busy share of
-  the wall (the profiler's own host cost lowers that share).
+- a ``torch.profiler`` trace: device time by kernel (top 12), kernels run
+  on the device, the host's launch calls (``cudaLaunchKernel*``,
+  ``cudaGraphLaunch``), total device time, host wall, and the device's
+  busy share of the wall (the profiler's own host cost lowers that
+  share).
 
 Prints one JSON object per measurement and writes them all to ``--out``.
 """
@@ -67,17 +70,21 @@ def _trace(fn, top: int = 12) -> dict:
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    host_launches = {e.key: int(e.count) for e in prof.key_averages()
+                     if e.key.startswith("cuda") and "Launch" in e.key}
     return dict(
         wall_s=wall, device_s=device_s, busy_share=device_s / wall,
         kernel_launches=int(sum(e.count for e in kernels)),
+        host_launch_calls=host_launches,
         top=[dict(name=e.key[:80], calls=e.count,
                   device_ms=e.self_device_time_total / 1e3)
              for e in kernels[:top]])
 
 
-def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool) -> None:
+def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool,
+                graphs: bool) -> None:
     """Stages and traces of the KV session's ``stream_decode`` and of the
-    encoder of its steady hops."""
+    encoder of its steady hops (eager, host-int positions)."""
     flow_cfg = C.moss_flow_config()
     flow_cfg = dataclasses.replace(flow_cfg, cfm=dataclasses.replace(
         flow_cfg.cfm, max_noise_len=4096))
@@ -88,8 +95,8 @@ def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool) -> None:
                                         max_token_len=40),
                        compute_dtype=torch.bfloat16)
     kv = dec.kv_stream_decoder(token_cap=tokens.shape[1] + 16,
-                               enc_kernel=enc_kernel)
-    kv.stream_decode(tokens)                               # warm-up
+                               enc_kernel=enc_kernel, graphs=graphs)
+    kv.stream_decode(tokens)                    # warm-up, captures the graphs
     plan = kv.schedule(tokens.shape[1])
     k = sum(1 for _, fin in plan if not fin)
     buf = kv._token_buf(tokens)
@@ -112,7 +119,8 @@ def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool) -> None:
     encoder_hops()                                         # warm-up
     enc_s, _ = _wall(encoder_hops)
     results["kv_stages_s"] = dict(
-        enc_kernel=enc_kernel, wavefront_iterations=k + kv.s_steps - 1,
+        enc_kernel=enc_kernel, graphs=kv._graphs,
+        wavefront_iterations=k + kv.s_steps - 1,
         flow=statistics.median(flow_walls), flow_walls=flow_walls,
         bulk_vocoder=voc_s, steady_hops=k, encoder_of_steady_hops=enc_s)
     results["kv_trace"] = _trace(lambda: kv.stream_decode(tokens))
@@ -165,6 +173,9 @@ def main(argv=None) -> int:
     ap.add_argument("--enc-kernel", action="store_true",
                     help="with --kv: the encoder hop on the conformer group "
                          "kernel (kv_stream_decoder(enc_kernel=True))")
+    ap.add_argument("--no-graphs", action="store_true",
+                    help="with --kv: run the session's steps eagerly "
+                         "(kv_stream_decoder(graphs=False))")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -176,7 +187,7 @@ def main(argv=None) -> int:
     if args.kv:
         _kv_profile(np.random.RandomState(0).randint(
             0, C.moss_flow_config().vocab_size, (1, args.tokens)), results,
-            args.enc_kernel)
+            args.enc_kernel, not args.no_graphs)
     else:
         _offline_profile(args, results)
     if args.out:

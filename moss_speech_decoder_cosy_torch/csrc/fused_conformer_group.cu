@@ -133,7 +133,8 @@ struct Params {
   T *ring_kv, *ring_pk;  // read, then written, inside the launch
   T* x_out;              // the resident activation (C x D)
   T *qkv, *pk, *att, *ffh;  // scratch: C x 3D, C x D, C x D, C x FF
-  int C, D, heads, dk, FF, L, Rt, n_tok, off, kmax;
+  const int* n_tok;      // (1,): frames written so far, read on the device
+  int C, D, heads, dk, FF, L, Rt, kmax;
   float scale;
 };
 
@@ -259,10 +260,12 @@ __device__ __forceinline__ void tile_product(const float* As, int K,
   __syncthreads();
 }
 
-// Attention of query row r, head h, layer l over [ring ++ chunk]; writes
-// the head's dk outputs into att.  sm: Tk + 2 dk + kThreads + kWarps floats.
+// Attention of query row r, head h, layer l over [ring ++ chunk], ring slots
+// below n_tok valid; writes the head's dk outputs into att.  sm: Tk + 2 dk +
+// kThreads + kWarps floats.
 template <typename T>
-__device__ void attend(const Params<T>& p, int l, int h, int r, float* sm) {
+__device__ void attend(const Params<T>& p, int l, int h, int r, int n_tok,
+                       float* sm) {
   const int D = p.D, dk = p.dk, Rt = p.Rt, Tk = Rt + p.C, D3 = 3 * D;
   float* sc = sm;             // Tk scores, then weights
   float* qs = sc + Tk;        // q + u | q + v
@@ -281,7 +284,7 @@ __device__ void attend(const Params<T>& p, int l, int h, int r, float* sm) {
   float mx = -INFINITY;
   for (int s = threadIdx.x; s < Tk; s += kThreads) {
     float v = rnd<T>(kNeg);
-    if (s >= Rt || s < p.n_tok) {
+    if (s >= Rt || s < n_tok) {
       const T* kr = s < Rt ? ring_kv + (size_t)s * 2 * D
                            : p.qkv + (size_t)(s - Rt) * D3 + D + h * dk;
       const T* pr = s < Rt ? ring_pk + (size_t)s * D
@@ -305,7 +308,7 @@ __device__ void attend(const Params<T>& p, int l, int h, int r, float* sm) {
   }
   sum = rnd<T>(block_sum(sum, red));
   for (int s = threadIdx.x; s < Tk; s += kThreads)
-    sc[s] = (s >= Rt || s < p.n_tok) ? rnd<T>(sc[s] / sum) : 0.f;
+    sc[s] = (s >= Rt || s < n_tok) ? rnd<T>(sc[s] / sum) : 0.f;
   __syncthreads();
   // A V: thread (g, d) sums the slots g, g + G, ... of feature d
   const int G = kThreads / dk;
@@ -341,6 +344,10 @@ fused_conformer_group_kernel(const Params<T> p) {
   float* As = smem;                   // kRows x (D or FF), staged rows
   float* red = As + kRows * p.kmax;   // kWarps x kRows x kCols
   const int nq = cdiv(D3, kCols), nd = cdiv(D, kCols), nf = cdiv(FF, kCols);
+  // n_tok from device memory (the TPU kernel's scalar prefetch), so a
+  // captured launch reads each replay's value; a negative count is 0
+  const int n_tok = max(__ldg(p.n_tok), 0);
+  const int off = n_tok % p.Rt;
 
   for (int l = 0; l < p.L; ++l) {
     const T* xsrc = l == 0 ? p.x_in : p.x_out;
@@ -374,7 +381,7 @@ fused_conformer_group_kernel(const Params<T> p) {
 
     // 2. attention, one (head, query row) per work item
     for (int it = blockIdx.x; it < p.heads * C; it += gridDim.x)
-      attend<T>(p, l, it % p.heads, it / p.heads, smem);
+      attend<T>(p, l, it % p.heads, it / p.heads, n_tok, smem);
     grid.sync();
 
     // 3. the chunk's [k | v] and pk into the layer's rings (every read of
@@ -385,7 +392,7 @@ fused_conformer_group_kernel(const Params<T> p) {
       for (int e = blockIdx.x * kThreads + threadIdx.x; e < C * D3;
            e += gridDim.x * kThreads) {
         const int f = e / D3, j = e % D3;
-        const int slot = (p.off + f) % p.Rt;
+        const int slot = (off + f) % p.Rt;
         if (j < 2 * D)
           copy_bits<T>(rk + (size_t)slot * 2 * D + j,
                        p.qkv + (size_t)f * D3 + D + j);
@@ -478,7 +485,7 @@ cudaError_t device_setup(int* sms) {
 
 template <typename T>
 int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
-           int Rt, int n_tok, cudaStream_t stream) {
+           int Rt, cudaStream_t stream) {
   Params<T> p;
   const T** in[] = {&p.x_in, &p.pe,  &p.nms, &p.nmb, &p.qkvk, &p.qkvb,
                     &p.posk, &p.pbu, &p.pbv, &p.outk, &p.outb, &p.nfs,
@@ -492,8 +499,9 @@ int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
   p.pk = p.qkv + (size_t)C * 3 * D;
   p.att = p.pk + (size_t)C * D;
   p.ffh = p.att + (size_t)C * D;
+  p.n_tok = static_cast<const int*>(ptrs[n_in + 4]);
   p.C = C; p.D = D; p.heads = heads; p.dk = dk; p.FF = FF; p.L = L;
-  p.Rt = Rt; p.n_tok = n_tok; p.off = n_tok % Rt;
+  p.Rt = Rt;
   p.kmax = D > FF ? D : FF;
   p.scale = 1.f / sqrtf((float)dk);
 
@@ -515,10 +523,20 @@ int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
   if (cdiv(FF, kCols) > items) items = cdiv(FF, kCols);
   int grid = per_sm * sms;
   if (grid > items) grid = items;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)fused_conformer_group_kernel<T>,
-                                    dim3(grid), dim3(kThreads), args, smem,
-                                    stream);
+  // a cooperative launch (the grid barrier needs every block resident; the
+  // grid is no larger than the card holds) through cudaLaunchKernelEx, which
+  // stream capture records as a cooperative graph node
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_conformer_group_kernel<T>, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -527,20 +545,20 @@ int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
 
 // ptrs: x, pos_emb, the 15 stacked layer weights (fused_conformer.py's
 // CONF_KEYS order), ring_kv, ring_pk, x_out, scratch (C * (5 D + FF)
-// elements).  dtype: 0 = float32, 1 = bfloat16.  The rings are updated in
+// elements), n_tok (one int32: frames written so far; a negative value
+// counts as 0).  dtype: 0 = float32, 1 = bfloat16.  The rings are updated in
 // place.  Returns 0 on success, else a cudaError_t code.
 extern "C" int fused_conformer_group(void* const* ptrs, int dtype, int C,
                                      int D, int heads, int head_dim, int FF,
-                                     int L, int Rt, int n_tok, void* stream) {
+                                     int L, int Rt, void* stream) {
   if (C <= 0 || C > Rt || heads <= 0 || head_dim <= 0 ||
       head_dim > kThreads || heads * head_dim != D || D % 8 || FF <= 0 ||
-      FF % 8 || L <= 0 || n_tok < 0)
+      FF % 8 || L <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(ptrs, C, D, heads, head_dim, FF, L, Rt, n_tok, s);
+    return launch<float>(ptrs, C, D, heads, head_dim, FF, L, Rt, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(ptrs, C, D, heads, head_dim, FF, L, Rt,
-                                 n_tok, s);
+    return launch<__nv_bfloat16>(ptrs, C, D, heads, head_dim, FF, L, Rt, s);
   return (int)cudaErrorInvalidValue;
 }

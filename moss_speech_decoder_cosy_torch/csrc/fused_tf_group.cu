@@ -60,7 +60,12 @@
 // dependent instructions) and index register arrays with constants only.
 //
 // Limits beyond the wrapper's checks (cudaErrorInvalidValue otherwise):
-// head_dim % 4 == 0, and cf <= 32 in bf16 (two m16 tiles).
+// head_dim % 4 == 0, cf <= 32 in bf16 (two m16 tiles), and a shared-memory
+// layout that fits a cluster of 4 or 8 (fused_tf_group_cluster).
+//
+// Per-launch scalars (n_done + cf, rot and enable per row, the shared
+// write offset) are read from device memory, so one captured launch serves
+// every wavefront iteration of a CUDA graph.
 //
 // What still holds it back (about 0.33 ms a mid launch on an H100, against
 // the 11 us bound): one CTA of 8 warps per SM, so every phase runs as a few
@@ -220,8 +225,9 @@ struct Params {
   const T *ffpk, *ffpb, *ffok, *ffob;
   T* rings;
   T *x_out, *cc1_out, *cc2_out;
-  const int* scal;  // (3, rows): nd_mask, rot, enable
-  int rows, cf, cin, ch, tdim, heads, dk, ff, n_layers, rp, shared, offset;
+  const int* scal;    // (3, rows): nd_mask, rot, enable
+  const int* offset;  // (1,): the shared write offset, read on the device
+  int rows, cf, cin, ch, tdim, heads, dk, ff, n_layers, rp, shared;
   int cs;                 // cluster size
   int mp, dkp, rpp;       // padded rows, head dim, ring slots
   int pc, pin, pi, pf, pd, pr;  // row pitches (elements)
@@ -726,7 +732,10 @@ fused_tf_group_kernel(const Params<T> p) {
   const int nd = p.scal[row];
   const int rot = p.scal[p.rows + row];
   const bool en = p.scal[2 * p.rows + row] != 0;
-  int off = p.shared ? p.offset : (nd - cf) % rp;
+  // the shared offset comes from device memory (the TPU kernel's scalar
+  // prefetch), so a captured launch reads each replay's value; any int is
+  // taken modulo rp
+  int off = (p.shared ? *p.offset : nd - cf) % rp;
   if (off < 0) off += rp;
   int rot_m = rot % rp;
   if (rot_m < 0) rot_m += rp;
@@ -1014,10 +1023,38 @@ int layout(Params<T>& p, int cs) {
   return o;
 }
 
+// Sets the padded sizes and row pitches of p from its dimensions.
+template <typename T>
+void set_pitches(Params<T>& p) {
+  const bool bf = sizeof(T) == 2;
+  // bf16 pads K to the mma depth (16) and rows to m16 tiles; f32 pads
+  // rows to its 4-row register tile and K to float4
+  const int al = bf ? 16 : 4, pad = bf ? 8 : 4;
+  const int inner = p.heads * p.dk;
+  p.mp = round_up(p.cf, bf ? 16 : kRB);
+  p.dkp = round_up(p.dk, al);
+  p.rpp = bf ? round_up(p.rp, 16) : p.rp;
+  p.pc = round_up(p.ch, al) + pad;
+  p.pin = round_up(p.cin, al) + pad;
+  p.pi = round_up(inner, al) + pad;
+  p.pf = round_up(p.ff, al) + pad;
+  p.pd = p.dkp + pad;
+  p.pr = p.rpp + pad;
+}
+
+// The smallest cluster (4, then 8 CTAs) whose shared memory fits, with p
+// laid out for it; 0 when neither fits.
+template <typename T>
+int pick_cluster(Params<T>& p) {
+  for (int cand : {4, 8})
+    if (layout(p, cand) <= kMaxSmem) return cand;
+  return 0;
+}
+
 template <typename T>
 int launch(void* const* ptrs, int rows, int cf, int cin, int ch, int tdim,
            int heads, int dk, int ff, int n_layers, int rp, int shared,
-           int offset, cudaStream_t stream) {
+           cudaStream_t stream) {
   const bool bf = sizeof(T) == 2;
   if (dk % 4 || (bf && cf > 32)) return (int)cudaErrorInvalidValue;
   Params<T> p;
@@ -1033,32 +1070,16 @@ int launch(void* const* ptrs, int rows, int cf, int cin, int ch, int tdim,
   p.cc1_out = static_cast<T*>(ptrs[n_in + 2]);
   p.cc2_out = static_cast<T*>(ptrs[n_in + 3]);
   p.scal = static_cast<const int*>(ptrs[n_in + 4]);
+  p.offset = static_cast<const int*>(ptrs[n_in + 5]);
   p.rows = rows; p.cf = cf; p.cin = cin; p.ch = ch; p.tdim = tdim;
   p.heads = heads; p.dk = dk; p.ff = ff; p.n_layers = n_layers; p.rp = rp;
-  p.shared = shared; p.offset = offset;
+  p.shared = shared;
   p.scale = 1.f / sqrtf((float)dk);
-  // bf16 pads K to the mma depth (16) and rows to m16 tiles; f32 pads
-  // rows to its 4-row register tile and K to float4
-  const int al = bf ? 16 : 4, pad = bf ? 8 : 4;
+  set_pitches(p);
   const int inner = heads * dk;
-  p.mp = round_up(cf, bf ? 16 : kRB);
-  p.dkp = round_up(dk, al);
-  p.rpp = bf ? round_up(rp, 16) : rp;
-  p.pc = round_up(ch, al) + pad;
-  p.pin = round_up(cin, al) + pad;
-  p.pi = round_up(inner, al) + pad;
-  p.pf = round_up(ff, al) + pad;
-  p.pd = p.dkp + pad;
-  p.pr = p.rpp + pad;
   p.vec = (bf && cin % 8 == 0 && ch % 8 == 0 && tdim % 8 == 0 &&
            inner % 8 == 0 && ff % 8 == 0 && dk % 8 == 0) ? 8 : 4;
-  int cs = 0;
-  for (int cand : {4, 8}) {
-    if (layout(p, cand) <= kMaxSmem) {
-      cs = cand;
-      break;
-    }
-  }
+  const int cs = pick_cluster(p);
   if (!cs) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem<T>();
   if (err != cudaSuccess) return (int)err;
@@ -1083,23 +1104,46 @@ int launch(void* const* ptrs, int rows, int cf, int cin, int ch, int tdim,
 
 // ptrs: x, mt, cc1, cc2, the 12 resnet weights, the 11 stacked transformer
 // weights (fused_block.py's RES_KEYS and TF_KEYS order), rings, x_out,
-// cc1_out, cc2_out, scal.  dtype: 0 = float32, 1 = bfloat16.  The cluster
-// is the smallest of 4 and 8 CTAs whose shared memory fits.
-// Returns 0 on success, else a cudaError_t code.
+// cc1_out, cc2_out, scal, offset (one int32, read only when shared).  dtype:
+// 0 = float32, 1 = bfloat16.  The cluster is the smallest of 4 and 8 CTAs
+// whose shared memory fits.  Returns 0 on success, else a cudaError_t code.
 extern "C" int fused_tf_group(void* const* ptrs, int dtype, int rows, int cf,
                               int cin, int ch, int tdim, int heads,
                               int head_dim, int ff, int n_layers, int rp,
-                              int shared, int offset, void* stream) {
+                              int shared, void* stream) {
   if (rows <= 0 || cf <= 0 || cf > rp || cin % 4 || ch % 4 || tdim % 4 ||
-      (heads * head_dim) % 4 || ff % 4 || n_layers <= 0 || offset < 0 ||
-      offset >= rp || heads <= 0 || head_dim <= 0)
+      (heads * head_dim) % 4 || ff % 4 || n_layers <= 0 || heads <= 0 ||
+      head_dim <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(ptrs, rows, cf, cin, ch, tdim, heads, head_dim, ff,
-                         n_layers, rp, shared, offset, s);
+                         n_layers, rp, shared, s);
   if (dtype == 1)
     return launch<bf16>(ptrs, rows, cf, cin, ch, tdim, heads, head_dim, ff,
-                        n_layers, rp, shared, offset, s);
+                        n_layers, rp, shared, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The cluster size the launcher picks for this geometry (4 or 8 CTAs), or 0
+// when the shared memory of neither fits (the launcher then refuses it).
+// fused_block.py's cluster_size computes the same from the same layout.
+extern "C" int fused_tf_group_cluster(int dtype, int cf, int cin, int ch,
+                                      int tdim, int heads, int head_dim,
+                                      int ff, int rp) {
+  if (dtype == 0) {
+    Params<float> p;
+    p.cf = cf; p.cin = cin; p.ch = ch; p.tdim = tdim; p.heads = heads;
+    p.dk = head_dim; p.ff = ff; p.rp = rp;
+    set_pitches(p);
+    return pick_cluster(p);
+  }
+  if (dtype == 1) {
+    Params<bf16> p;
+    p.cf = cf; p.cin = cin; p.ch = ch; p.tdim = tdim; p.heads = heads;
+    p.dk = head_dim; p.ff = ff; p.rp = rp;
+    set_pitches(p);
+    return pick_cluster(p);
+  }
+  return 0;
 }

@@ -41,6 +41,7 @@ class CausalConditionalCFM(nn.Module):
         self.cfg = cfg
         self.estimator = CausalConditionalDecoder(estimator_cfg)
         self._noise = {}
+        self._consts = {}    # the KV steps' solver constants, per device
 
     def _z(self, t: int, d: int, device) -> torch.Tensor:
         key = (d, str(device))

@@ -38,8 +38,9 @@ class LinearEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm(self.linear(x))
-        return x * torch.sqrt(torch.tensor(self.output_size, dtype=x.dtype,
-                                           device=x.device))
+        # a device fill, not an upload, so a captured step can run it
+        return x * torch.full((), self.output_size, dtype=x.dtype,
+                              device=x.device).sqrt()
 
 
 class PreLookaheadLayer(nn.Module):

@@ -19,11 +19,22 @@ Caches are dicts of tensors laid out as the JAX package's pytrees:
   ``up_conv`` (B, 2s, D), ``ukv`` (Nu, B, Rm, 2D), ``upk`` (Nu, 1, Rm, D);
 - ``est``: ``kv`` a tuple of L (S, 2B, R, 2*inner) rings, ``convs``
   {name: (S, 2B, 2, cin)} keyed by ``estimator_conv_cache_names``;
-- ``n_tok``: tokens consumed so far (a Python int).
+- ``n_tok``: tokens consumed so far: a Python int, or a 0-d int64 tensor on
+  the device.
 
 Unlike the JAX package, whose arrays are immutable, the rings and conv
 caches are updated IN PLACE; that takes the place of JAX's buffer
 donation.
+
+Every per-call position (``n_tok``, ``n_done``, the wavefront's ``w``,
+``k_total`` and ``base_frames``, the shared write offset) may be a host int
+or a 0-d tensor on the device, as the JAX package threads device scalars
+through its stepped wavefront.  With device scalars a step reads no value
+on the host and uploads nothing: slices become gathers clamped as JAX's
+``dynamic_slice`` clamps, ring writes ``index_copy_`` at computed slots,
+and the solver's constants are made once per device (``_solver_consts``).
+So a step can be captured in a CUDA graph and replayed with new values
+(``pipeline/kv_session.py``).
 
 The encoder hop has two engines: ``encoder_step`` runs the conformer layers
 one by one; ``encoder_hop_kernel`` runs each of its two conformer stacks as
@@ -53,6 +64,24 @@ from ...ops.fused_conformer import fused_conformer_group
 from ...utils.config import EstimatorConfig, FlowConfig
 
 Cache = Dict[str, object]
+
+
+def _clamp(v, lo: int, hi: Optional[int] = None):
+    """``v`` clamped to [lo, hi], a host int or a device scalar."""
+    if torch.is_tensor(v):
+        return torch.clamp(v, lo, hi)
+    return max(v, lo) if hi is None else min(max(v, lo), hi)
+
+
+def dyn_slice(a: torch.Tensor, start, n: int, dim: int = 0) -> torch.Tensor:
+    """``n`` entries of ``a`` along ``dim`` from ``start``, the start clamped
+    so they fit (as JAX's ``dynamic_slice`` clamps).  A device ``start`` is
+    gathered on the device, with no read on the host."""
+    start = _clamp(start, 0, a.shape[dim] - n)
+    if torch.is_tensor(start):
+        return a.index_select(dim, start.reshape(()) + torch.arange(
+            n, device=a.device))
+    return a.narrow(dim, start, n)
 
 
 # --------------------------------------------------------------------------
@@ -91,11 +120,13 @@ def ring_write(ring: torch.Tensor, chunk: torch.Tensor, n_done: int
     """Write ``chunk`` (..., C, d) into the circular ``ring`` (..., R, d) at
     positions ``n_done .. n_done+C (mod R)`` along axis -2, in place; a
     chunk longer than the ring writes only its tail.  An index write, exact
-    as the JAX package's one-hot product."""
+    as the JAX package's one-hot product; ``n_done`` a host int or a device
+    scalar."""
     r, c = ring.shape[-2], chunk.shape[-2]
     m = min(c, r)
     idx = (n_done + (c - m) + torch.arange(m, device=ring.device)) % r
-    ring[..., idx, :] = chunk[..., c - m:, :].to(ring.dtype)
+    ring.index_copy_(ring.dim() - 2, idx,
+                     chunk[..., c - m:, :].to(ring.dtype))
     return ring
 
 
@@ -119,7 +150,7 @@ def ring_mask(ring_len: int, chunk_len: int, n_done, rot=None,
     return ok[:, None, None, :].expand(b, 1, chunk_len, ok.shape[-1])
 
 
-def ring_write_dus(ring: torch.Tensor, chunk: torch.Tensor, offset: int,
+def ring_write_dus(ring: torch.Tensor, chunk: torch.Tensor, offset,
                    enable: torch.Tensor) -> torch.Tensor:
     """Write ``chunk`` (B, C, d) into ``ring`` (B, R, d) at ONE shared
     ``offset`` (frame f at slot ``(offset + f) % R``), in place, touching
@@ -128,9 +159,9 @@ def ring_write_dus(ring: torch.Tensor, chunk: torch.Tensor, offset: int,
     are the case ``offset % C == align`` of this wrap."""
     c, r = chunk.shape[-2], ring.shape[-2]
     slots = (offset + torch.arange(c, device=ring.device)) % r
-    old = ring[:, slots]
-    ring[:, slots] = torch.where(enable[:, None, None],
-                                 chunk.to(ring.dtype), old)
+    old = ring.index_select(1, slots)
+    ring.index_copy_(1, slots, torch.where(enable[:, None, None],
+                                           chunk.to(ring.dtype), old))
     return ring
 
 
@@ -157,8 +188,8 @@ def rel_pos_attention_step(attn, qkv, x, pos_emb, ring_kv, ring_pk, mask):
     q_v = (q + attn.pos_bias_v).transpose(1, 2)
     kt = kvs[..., :dim].reshape(b, tk, h, dk).permute(0, 2, 3, 1)
     pt = pks.reshape(pks.shape[0], tk, h, dk).permute(0, 2, 3, 1)
-    scores = (q_u @ kt + q_v @ pt) / torch.sqrt(
-        torch.tensor(dk, dtype=x.dtype, device=x.device))
+    scores = (q_u @ kt + q_v @ pt) / torch.full(
+        (), dk, dtype=x.dtype, device=x.device).sqrt()
     a = masked_softmax(scores, mask)
     vals = kvs[..., dim:].reshape(b, tk, h, dk).transpose(1, 2)
     out = (a @ vals).transpose(1, 2).reshape(b, c, dim)
@@ -186,12 +217,13 @@ def pre_lookahead_step(pre, x, context, cache):
 def upsample_step(up, x, cache):
     """Upsample1D: nearest x stride + conv, cache = the last 2*stride
     post-repeat inputs."""
-    x = torch.repeat_interleave(x, up.stride, dim=1)
+    b, t, d = x.shape
+    x = x[:, :, None].expand(b, t, up.stride, d).reshape(b, t * up.stride, d)
     xp = torch.cat([cache.to(x.dtype), x], dim=1)
     return up.conv(xp), xp[:, xp.shape[1] - 2 * up.stride:]
 
 
-def encoder_step(enc, fused, x, context, cache: Dict, n_tok: int,
+def encoder_step(enc, fused, x, context, cache: Dict, n_tok,
                  pe_tok: torch.Tensor, pe_mel: torch.Tensor):
     """One token chunk (embedded tokens (B, Ct, in)) through the
     UpsampleConformerEncoder with KV rings; ``context`` the embedded
@@ -207,7 +239,7 @@ def encoder_step(enc, fused, x, context, cache: Dict, n_tok: int,
     ctx = (torch.zeros((b, c.pre_lookahead_len, c.output_size),
                        dtype=x.dtype, device=x.device)
            if context is None else enc.embed(context))
-    pos = pe_tok[n_tok:n_tok + ct][None].to(x.dtype)
+    pos = dyn_slice(pe_tok, n_tok, ct)[None].to(x.dtype)
     x, new_pre = pre_lookahead_step(enc.pre_lookahead_layer, x, ctx,
                                     cache["pre"])
     mask = ring_mask(cache["kv"].shape[-2], ct, n_tok, device=x.device)
@@ -224,7 +256,7 @@ def encoder_step(enc, fused, x, context, cache: Dict, n_tok: int,
     x, new_up = upsample_step(enc.up_layer, x, cache["up_conv"])
     cm, n_mel = ct * s, n_tok * s
     x = enc.up_embed(x)
-    pos_up = pe_mel[n_mel:n_mel + cm][None].to(x.dtype)
+    pos_up = dyn_slice(pe_mel, n_mel, cm)[None].to(x.dtype)
     mask_up = ring_mask(cache["ukv"].shape[-2], cm, n_mel, device=x.device)
     ukvs, upks = [], []
     for i, layer in enumerate(enc.up_encoders):
@@ -272,8 +304,8 @@ def attend_stored(q: torch.Tensor, kvs: torch.Tensor, mask: torch.Tensor,
     scores = scores * head_dim ** -0.5
     mask_t = mask.transpose(-1, -2)                          # (B, 1, TK, C)
     scores = torch.where(mask_t, scores,
-                         torch.tensor(_NEG, dtype=scores.dtype,
-                                      device=scores.device))
+                         torch.full((), _NEG, dtype=scores.dtype,
+                                    device=scores.device))
     attn = torch.softmax(scores, dim=-2)
     attn = torch.where(mask_t, attn, torch.zeros((), dtype=attn.dtype,
                                                  device=attn.device))
@@ -405,15 +437,32 @@ def _compute_dtype(cfg, like: torch.Tensor) -> torch.dtype:
             else like.dtype)
 
 
-def noise_chunk(cfm, start: int, cf: int, d: int, device) -> torch.Tensor:
-    """(cf, d) frames of the CFM's fixed noise from ``start``, the start
-    clamped so the slice fits the buffer (as JAX's dynamic_slice clamps)."""
-    noise = cfm._z(cfm.cfg.max_noise_len, d, device)[0]
-    start = min(max(start, 0), noise.shape[0] - cf)
-    return noise[start:start + cf]
+def noise_chunk(cfm, start, cf: int, d: int, device) -> torch.Tensor:
+    """(cf, d) frames of the CFM's fixed noise from ``start`` (a host int or
+    a device scalar), the start clamped so the slice fits the buffer (as
+    JAX's dynamic_slice clamps)."""
+    return dyn_slice(cfm._z(cfm.cfg.max_noise_len, d, device)[0], start, cf)
 
 
-def cfm_step(cfm, fused, mu, spks, cond, est_cache: Dict, n_done: int,
+def _solver_consts(cfm, dtype: torch.dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    """The solver's constants in ``dtype`` on ``device``: the t grid
+    (S + 1,), its steps (S,) and the CFG rate (), made once per dtype and
+    device and kept on the CFM (as its noise buffer is), so a captured step
+    uploads nothing."""
+    key = (dtype, str(device))
+    got = cfm._consts.get(key)
+    if got is None:
+        t_span = _t_span(cfm.cfg)
+        got = cfm._consts[key] = {
+            "t": torch.from_numpy(t_span).to(device).to(dtype),
+            "dts": torch.from_numpy(np.diff(t_span)).to(device).to(dtype),
+            "rate": torch.tensor(cfm.cfg.inference_cfg_rate, dtype=dtype,
+                                 device=device)}
+    return got
+
+
+def cfm_step(cfm, fused, mu, spks, cond, est_cache: Dict, n_done,
              temperature: float = 1.0) -> torch.Tensor:
     """CausalConditionalCFMStep: the Euler solve for one chunk, ring[s] and
     convs[s] serving ODE step s; rings and conv caches updated in place.
@@ -424,12 +473,12 @@ def cfm_step(cfm, fused, mu, spks, cond, est_cache: Dict, n_done: int,
     x = (noise_chunk(cfm, n_done, cf, d, mu.device)[None]
          .expand(b, cf, d).to(sd) * temperature)
     t_span = _t_span(c)
-    dts = np.diff(t_span)
+    consts = _solver_consts(cfm, x.dtype, x.device)
     mu_in = torch.cat([mu, torch.zeros_like(mu)], dim=0)
     spks_in = torch.cat([spks, torch.zeros_like(spks)], dim=0)
     cond_in = torch.cat([cond, torch.zeros_like(cond)], dim=0)
     cd = _compute_dtype(c, mu_in)
-    rate = torch.tensor(c.inference_cfg_rate, dtype=x.dtype, device=x.device)
+    rate = consts["rate"]
     for s in range(c.n_timesteps):
         kv_s = tuple(r[s] for r in est_cache["kv"])
         convs_s = _tree_map(lambda a: a[s], est_cache["convs"])
@@ -445,23 +494,28 @@ def cfm_step(cfm, fused, mu, spks, cond, est_cache: Dict, n_done: int,
             ring_write(ring, chunk, n_done)
         _tree_map(lambda old, new: old.copy_(new.to(old.dtype)), convs_s,
                   new_convs)
-        x = x + torch.tensor(dts[s], dtype=x.dtype, device=x.device) * dphi
+        x = x + consts["dts"][s] * dphi
     return x.float()
 
 
-def _wave_inputs(cfg, x_wave, mu_wave, mu_new, spks, w: int, k_total: int,
-                 base_frames: int, ring_len: int):
+def _wave_inputs(cfm, x_wave, mu_wave, mu_new, spks, w, k_total,
+                 base_frames, ring_len: int):
     """Shared front half of a wavefront iteration: the shifted mu wave, the
     CFG-doubled flat estimator inputs (row order s * 2B + cfg * B + b) and
-    the per-row scalars."""
+    the per-row scalars, computed on the device from ``w``, ``k_total`` and
+    ``base_frames`` (host ints or device scalars)."""
+    cfg = cfm.cfg
     s_steps, b, cf, d = x_wave.shape
     dev = x_wave.device
     cd = _compute_dtype(cfg, mu_wave)
     mu_wave = torch.cat([mu_new[None].to(cd), mu_wave[:-1].to(cd)], dim=0)
-    t_span = _t_span(cfg)
-    h_idx = w - np.arange(s_steps)
+    slot = torch.arange(s_steps, device=dev)
+    h_idx = w - slot
     valid = (h_idx >= 0) & (h_idx < k_total)
-    n_dones = base_frames + np.maximum(h_idx, 0) * cf
+    n_dones = base_frames + torch.clamp(h_idx, min=0) * cf
+
+    def per_row(a):                    # (S,) -> (S * 2B,), row s * 2B + j
+        return a[:, None].expand(s_steps, 2 * b).reshape(-1)
 
     def flat(a):
         return torch.stack([a, torch.zeros_like(a)], dim=1).reshape(
@@ -472,26 +526,20 @@ def _wave_inputs(cfg, x_wave, mu_wave, mu_new, spks, w: int, k_total: int,
         s_steps * 2 * b, cf, d).to(cd)
     spks_in = torch.cat([spks, torch.zeros_like(spks)], dim=0).repeat(
         s_steps, 1).to(cd)
-    t_in = torch.from_numpy(np.repeat(t_span[:-1], 2 * b)).to(dev).to(
-        x_wave.dtype).to(cd)
-    rows = dict(
-        nd=np.repeat(n_dones, 2 * b).astype(np.int64),
-        rot=np.repeat([(s * cf) % ring_len for s in range(s_steps)], 2 * b),
-        enable=np.repeat(valid, 2 * b))
+    t_in = per_row(_solver_consts(cfm, x_wave.dtype, dev)["t"][:-1]).to(cd)
+    rows = dict(nd=per_row(n_dones), rot=per_row((slot * cf) % ring_len),
+                enable=per_row(valid))
     return (mu_wave, x_in, mu_in, torch.zeros_like(mu_in), t_in, spks_in,
             rows, (base_frames + w * cf) % ring_len)
 
 
-def _wave_finish(cfm, x_wave, dphi, convs, new_convs, enable, w: int,
-                 base_frames: int):
+def _wave_finish(cfm, x_wave, dphi, convs, new_convs, enable, w,
+                 base_frames):
     """Shared back half: CFG combine, Euler step, masked conv-cache update
     (in place), the exiting chunk and the noise entering slot 0."""
-    cfg = cfm.cfg
     s_steps, b, cf, d = x_wave.shape
-    rate = torch.tensor(cfg.inference_cfg_rate, dtype=x_wave.dtype,
-                        device=x_wave.device)
-    dts = torch.from_numpy(np.diff(_t_span(cfg))).to(x_wave.device).to(
-        x_wave.dtype)
+    consts = _solver_consts(cfm, x_wave.dtype, x_wave.device)
+    rate, dts = consts["rate"], consts["dts"]
     dphi = dphi.reshape(s_steps, 2, b, cf, d).to(x_wave.dtype)
     dphi = (1.0 + rate) * dphi[:, 0] - rate * dphi[:, 1]
     x_next = x_wave + dts[:, None, None, None] * dphi
@@ -499,7 +547,7 @@ def _wave_finish(cfm, x_wave, dphi, convs, new_convs, enable, w: int,
     _tree_map(lambda old, new: old.copy_(torch.where(en, new.to(old.dtype),
                                                      old)),
               convs, new_convs)
-    n_enter = base_frames + max(w + 1, 0) * cf
+    n_enter = base_frames + _clamp(w + 1, 0) * cf
     z = noise_chunk(cfm, n_enter, cf, d, x_wave.device)[None].expand(
         b, cf, d).to(x_wave.dtype)
     x_shift = torch.cat([z[None], x_next[:-1]], dim=0)
@@ -507,25 +555,23 @@ def _wave_finish(cfm, x_wave, dphi, convs, new_convs, enable, w: int,
 
 
 def wave_step(cfm, fused, x_wave, mu_wave, mu_new, spks, est_flat: Dict,
-              w: int, k_total: int, base_frames: int):
+              w, k_total, base_frames):
     """CausalConditionalCFMWave (fused write-then-attend, shared offset):
     ONE iteration of the pipelined ODE, slot s holding the chunk that has
     done s Euler steps, all S steps in one estimator forward.  ``est_flat``
     in the extended flat layout (``extend_rings_for_fused``), updated in
-    place.  Returns (exit mel (B, cf, n_mel) f32, valid when
+    place; ``w``, ``k_total`` and ``base_frames`` host ints or device
+    scalars.  Returns (exit mel (B, cf, n_mel) f32, valid when
     S-1 <= w < S-1+k_total; x wave shifted; mu wave)."""
-    c = cfm.cfg
     rp = est_flat["kv"][0].shape[-2]
     mu_wave, x_in, mu_in, cond_in, t_in, spks_in, rows, offset = \
-        _wave_inputs(c, x_wave, mu_wave, mu_new, spks, w, k_total,
+        _wave_inputs(cfm, x_wave, mu_wave, mu_new, spks, w, k_total,
                      base_frames, rp)
-    dev = x_wave.device
-    en = torch.from_numpy(rows["enable"]).to(dev)
+    en = rows["enable"]
     write = {"offset": offset, "enable": en}
     dphi, _, new_convs = estimator_step(
         cfm.estimator, fused, x_in, mu_in, t_in, spks_in, cond_in,
-        est_flat["kv"], est_flat["convs"], torch.from_numpy(rows["nd"]).to(
-            dev), torch.from_numpy(rows["rot"]).to(dev), write)
+        est_flat["kv"], est_flat["convs"], rows["nd"], rows["rot"], write)
     exit_mel, x_shift = _wave_finish(cfm, x_wave, dphi, est_flat["convs"],
                                      new_convs, en, w, base_frames)
     return exit_mel, x_shift, mu_wave
@@ -541,7 +587,7 @@ def spk_embedding(flow, embedding: torch.Tensor) -> torch.Tensor:
 
 
 def kv_flow_encode_step(flow, fused, token_chunk, context, enc_cache: Dict,
-                        n_tok: int, pe_tok, pe_mel):
+                        n_tok, pe_tok, pe_mel):
     """KVFlowEncodeStep: tokens (+ lookahead ``context`` tokens, None at the
     end of the stream) -> (mu chunk (B, Ct*ratio, n_mel), new enc cache)."""
     x = flow.input_embedding(torch.clamp(token_chunk, min=0))
@@ -626,33 +672,32 @@ def est_cache_to_flat(est: Dict) -> Dict:
             "convs": _tree_map(flat, est["convs"])}
 
 
-def est_cache_from_flat(flat: Dict, s_steps: int) -> Dict:
-    """Inverse of est_cache_to_flat."""
-    def unflat(a):
-        return a.reshape((s_steps, a.shape[0] // s_steps)
-                         + tuple(a.shape[1:]))
-    return {"kv": tuple(unflat(a) for a in flat["kv"]),
-            "convs": _tree_map(unflat, flat["convs"])}
-
-
-def _regather(est: Dict, idx: torch.Tensor, ok: torch.Tensor) -> Dict:
+def _regather(est: Dict, idx: torch.Tensor, ok: torch.Tensor,
+              out: Optional[Sequence[torch.Tensor]] = None) -> Dict:
     """Per-row gather of ring slots: out[row, j] = in[row, idx[row, j]]
     where ``ok``, else zeros.  An index gather, exact (the JAX package's
-    one-hot product was a TPU device)."""
-    def go(a):
-        g = torch.gather(a, 1, idx[:, :, None].expand(
-            idx.shape[0], idx.shape[1], a.shape[-1]))
-        return torch.where(ok[:, :, None], g, torch.zeros((), dtype=a.dtype,
-                                                          device=a.device))
-    return {"kv": tuple(go(a) for a in est["kv"]), "convs": est["convs"]}
+    one-hot product was a TPU device).  ``out``: rings to write into (the
+    session's persistent buffers) instead of new tensors."""
+    def go(a, o):
+        idx3 = idx[:, :, None].expand(idx.shape[0], idx.shape[1],
+                                      a.shape[-1])
+        if o is not None:
+            return torch.gather(a, 1, idx3, out=o).masked_fill_(
+                ~ok[:, :, None], 0)
+        return torch.where(ok[:, :, None], torch.gather(a, 1, idx3),
+                           torch.zeros((), dtype=a.dtype, device=a.device))
+    outs = out if out is not None else [None] * len(est["kv"])
+    return {"kv": tuple(go(a, o) for a, o in zip(est["kv"], outs)),
+            "convs": est["convs"]}
 
 
 def extend_rings_for_fused(est_flat: Dict, n_frames: int, cf: int,
-                           rot) -> Dict:
+                           rot, out=None) -> Dict:
     """Canonical flat rings (rows, R, 2d), frame f at slot f % R -> the
     fused layout of capacity R + cf, frame f at slot (f + rot[row]) %
     (R + cf); the last min(n_frames, R) frames are carried over, every other
-    slot is zero.  New ring tensors; conv caches pass through."""
+    slot is zero.  New ring tensors, or the rings ``out``; conv caches pass
+    through."""
     a0 = est_flat["kv"][0]
     rows, r = a0.shape[0], a0.shape[-2]
     rp = r + cf
@@ -663,13 +708,14 @@ def extend_rings_for_fused(est_flat: Dict, n_frames: int, cf: int,
     f = (n - 1) - torch.remainder((n - 1) - (sp - rot[:, None]), rp)
     ok = f >= max(n - r, 0)
     idx = torch.where(ok, torch.remainder(f, r), torch.zeros_like(f))
-    return _regather(est_flat, idx, ok)
+    return _regather(est_flat, idx, ok, out)
 
 
 def shrink_rings_from_fused(est_ext: Dict, n_frames: int, cf: int,
-                            rot) -> Dict:
+                            rot, out=None) -> Dict:
     """Inverse of extend_rings_for_fused: the last min(n_frames, R) frames
-    back to canonical capacity-R slots (frame f at slot f % R)."""
+    back to canonical capacity-R slots (frame f at slot f % R), into new
+    tensors or the rings ``out``."""
     a0 = est_ext["kv"][0]
     rows, rp = a0.shape[0], a0.shape[-2]
     r = rp - cf
@@ -681,7 +727,7 @@ def shrink_rings_from_fused(est_ext: Dict, n_frames: int, cf: int,
     ok = (f >= max(n - r, 0)).expand(rows, r)
     idx = torch.where(ok, torch.remainder(f + rot[:, None], rp),
                       torch.zeros_like(ok, dtype=torch.long))
-    return _regather(est_ext, idx, ok)
+    return _regather(est_ext, idx, ok, out)
 
 
 # --------------------------------------------------------------------------
@@ -781,11 +827,12 @@ def ungroup_est_flat(est_g: Dict, cfg: EstimatorConfig) -> Dict:
 
 
 def estimator_step_kernel(gp: Dict, est, x, mu, t, spks, cond, kv_g: Dict,
-                          convs: Dict, scal: torch.Tensor, offset: int):
+                          convs: Dict, scal: torch.Tensor, offset):
     """The estimator with each resnet + transformer group run by
     ``fused_tf_group`` (the JAX package's ``estimator_step_pallas``); the
     glue (skip concat, down/up convs, final block) stays in PyTorch.
-    ``scal`` (3, rows) int32 [n_done + cf; rot; enable].  Rings are updated
+    ``scal`` (3, rows) int32 [n_done + cf; rot; enable], ``offset`` the
+    shared write offset (a host int or a device scalar).  Rings are updated
     in place; returns (out, new convs in the grouped layout, unmasked)."""
     c = est.cfg
     _check_single_level(c)
@@ -826,15 +873,14 @@ def estimator_step_kernel(gp: Dict, est, x, mu, t, spks, cond, kv_g: Dict,
 
 
 def wave_step_kernel(gp: Dict, cfm, x_wave, mu_wave, mu_new, spks,
-                     est_g: Dict, w: int, k_total: int, base_frames: int):
+                     est_g: Dict, w, k_total, base_frames):
     """``wave_step`` with the kernel engine (the JAX package's
     ``wave_step_pallas``): the same iteration, one ``fused_tf_group`` launch
     per resnet + transformer group.  ``est_g`` in the ``group_est_flat``
     layout, updated in place."""
-    c = cfm.cfg
     rp = est_g["kv"]["down"].shape[-2]
     mu_wave, x_in, mu_in, cond_in, t_in, spks_in, rows, offset = \
-        _wave_inputs(c, x_wave, mu_wave, mu_new, spks, w, k_total,
+        _wave_inputs(cfm, x_wave, mu_wave, mu_new, spks, w, k_total,
                      base_frames, rp)
     cf = x_wave.shape[2]
     scal = group_scalars(rows["nd"] + cf, rows["rot"], rows["enable"],
@@ -893,7 +939,7 @@ def group_encoder_params(flow, fused) -> Dict:
 
 
 def encoder_hop_kernel(egp: Dict, flow, token_chunk, context, cache: Dict,
-                       n_tok: int, pe_tok, pe_mel):
+                       n_tok, pe_tok, pe_mel):
     """``kv_flow_encode_step`` of a steady hop (``context`` the lookahead
     tokens) with each conformer stack run by ``fused_conformer_group`` (the
     JAX package's ``encoder_hop_pallas``): embed, pre-lookahead, the blocks
@@ -911,7 +957,7 @@ def encoder_hop_kernel(egp: Dict, flow, token_chunk, context, cache: Dict,
     ct, s = token_chunk.shape[1], c.upsample_stride
     x = enc.embed(flow.input_embedding(torch.clamp(token_chunk, min=0)))
     ctx = enc.embed(flow.input_embedding(torch.clamp(context, min=0)))
-    pos = pe_tok[n_tok:n_tok + ct][None].to(x.dtype)
+    pos = dyn_slice(pe_tok, n_tok, ct)[None].to(x.dtype)
     x, new_pre = pre_lookahead_step(enc.pre_lookahead_layer, x, ctx,
                                     cache["pre"])
     x, _, _ = fused_conformer_group(egp["blocks"], x.contiguous(), pos,
@@ -919,7 +965,7 @@ def encoder_hop_kernel(egp: Dict, flow, token_chunk, context, cache: Dict,
     x, new_up = upsample_step(enc.up_layer, x, cache["up_conv"])
     cm, n_mel = ct * s, n_tok * s
     x = enc.up_embed(x)
-    pos_up = pe_mel[n_mel:n_mel + cm][None].to(x.dtype)
+    pos_up = dyn_slice(pe_mel, n_mel, cm)[None].to(x.dtype)
     x, _, _ = fused_conformer_group(egp["up_blocks"], x.contiguous(), pos_up,
                                     cache["ukv"], cache["upk"], n_mel, **kw)
     new_cache = dict(cache, pre=new_pre.to(cache["pre"].dtype),

@@ -30,8 +30,9 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]
     """softmax over the last axis with a bool attend-mask; masked -> 0."""
     if mask is None:
         return torch.softmax(scores, dim=-1)
-    scores = torch.where(mask, scores, torch.tensor(_NEG, dtype=scores.dtype,
-                                                    device=scores.device))
+    scores = torch.where(mask, scores, torch.full((), _NEG,
+                                                  dtype=scores.dtype,
+                                                  device=scores.device))
     attn = torch.softmax(scores, dim=-1)
     return torch.where(mask, attn, torch.zeros((), dtype=attn.dtype,
                                                device=attn.device))

@@ -18,6 +18,12 @@ chunk at slot ``(offset + f) % rp``) and per row (offset
 untouched.  The returned conv caches are unmasked; the caller applies the
 enable mask, as the JAX package does.
 
+The per-launch scalars (``scal`` and the shared ``offset``) are read from
+device memory, as the TPU kernel reads its scalar prefetch, so a launch
+captured in a CUDA graph reads each replay's values.  The wrapper takes
+the offset as a host int or as a device int32 and checks only a host
+int's range (the kernel takes any offset modulo rp).
+
 Cast points (the TPU kernel's, ``pallas_block.py:76-155, 300-317``): every
 product accumulates in f32 and is rounded to the compute dtype; scores are
 rounded before the ``head_dim ** -0.5`` scale and again after it; masked
@@ -43,13 +49,15 @@ header.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel (float32 or bfloat16) or raise.  There is no fall-back.
+``kernel_limit`` names the geometries the kernel cannot run, its shared
+memory among them (``cluster_size`` mirrors the launcher's layout).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -65,10 +73,25 @@ TF_KEYS = ("n1s", "n1b", "qkvk", "outk", "outb", "n3s", "n3b",
            "ffpk", "ffpb", "ffok", "ffob")
 
 
+Scalar = Union[int, torch.Tensor]
+
+
 def group_scalars(nd_mask, rot, enable, device) -> torch.Tensor:
-    """(3, rows) int32 [nd_mask; rot; enable] as the kernel reads them."""
+    """(3, rows) int32 [nd_mask; rot; enable] as the kernel reads them;
+    from tensors on ``device`` it is built there, with no upload."""
     return torch.stack([torch.as_tensor(a, dtype=torch.int32).reshape(-1)
                         for a in (nd_mask, rot, enable)]).to(device)
+
+
+def device_scalar(v: Scalar, device) -> torch.Tensor:
+    """A (1,) int32 on ``device``: a tensor is cast there (no upload), a
+    host int is uploaded."""
+    if torch.is_tensor(v):
+        if v.numel() != 1 or v.device != torch.device(device):
+            raise ValueError(f"a device scalar must hold one value on "
+                             f"{device}, got {tuple(v.shape)} on {v.device}")
+        return v.reshape(1).to(torch.int32)
+    return torch.tensor([int(v)], dtype=torch.int32, device=device)
 
 
 # ------------------------------------------------------------ plain version
@@ -111,7 +134,7 @@ def fused_tf_group_plain(p: Dict[str, torch.Tensor],
                          rp_: Dict[str, torch.Tensor], mt: torch.Tensor,
                          cc1: torch.Tensor, cc2: torch.Tensor,
                          x: torch.Tensor, rings: torch.Tensor,
-                         scal: torch.Tensor, offset: int, *, heads: int,
+                         scal: torch.Tensor, offset: Scalar, *, heads: int,
                          head_dim: int, shared_offset: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor, torch.Tensor]:
@@ -139,12 +162,12 @@ def fused_tf_group_plain(p: Dict[str, torch.Tensor],
     slots = torch.arange(rp, device=dev)
     valid = torch.remainder(slots[None, :] - rot[:, None], rp) < nd[:, None]
     mask = valid[:, None, None, :]                        # (rows,1,1,rp)
-    off = (torch.full((rows,), offset, device=dev) if shared_offset
-           else torch.remainder(nd - cf, rp))
+    off = (torch.remainder(device_scalar(offset, dev).long(), rp).expand(rows)
+           if shared_offset else torch.remainder(nd - cf, rp))
     wslots = torch.remainder(off[:, None]
                              + torch.arange(cf, device=dev)[None, :], rp)
     ridx = torch.arange(rows, device=dev)[:, None].expand(rows, cf)
-    neg = torch.tensor(_NEG, dtype=dt, device=dev)
+    neg = torch.full((), _NEG, dtype=dt, device=dev)
     scale = head_dim ** -0.5
     for l in range(n_layers):
         h = _ln(xs, p["n1s"][l], p["n1b"][l])
@@ -271,7 +294,9 @@ def _check(p, rp_, mt, cc1, cc2, x, rings, scal, offset, heads, head_dim,
         raise ValueError("scal must be int32 (3, rows) on x's device")
     if not 1 <= cf <= rp:
         raise ValueError(f"chunk {cf} must be in [1, ring {rp}]")
-    if not 0 <= int(offset) < rp:
+    # a device offset is not read here (that would wait for the card and
+    # break capture); the kernel takes it modulo rp
+    if not torch.is_tensor(offset) and not 0 <= int(offset) < rp:
         raise ValueError(f"offset {offset} outside [0, {rp})")
     for name, dim in (("cin", cin), ("ch", ch), ("inner", inner),
                       ("ff", ff), ("time dim", tdim)):
@@ -279,15 +304,75 @@ def _check(p, rp_, mt, cc1, cc2, x, rings, scal, offset, heads, head_dim,
             raise ValueError(f"{name} {dim} must be a multiple of 4")
 
 
-def kernel_limit(cf: int, head_dim: int, dtype: torch.dtype
+_MAX_SMEM = 232448              # bytes a block may use on an H100
+
+
+def _round_up(x: int, a: int) -> int:
+    return (x + a - 1) // a * a
+
+
+def _smem_bytes(cf: int, rp: int, cin: int, ch: int, ff: int, tdim: int,
+                heads: int, head_dim: int, elem: int, cs: int) -> int:
+    """Shared memory of one CTA of a cluster of ``cs`` CTAs: the launcher's
+    ``layout()`` in ``csrc/fused_tf_group.cu``, byte for byte."""
+    bf = elem == 2
+    al, pad = (16, 8) if bf else (4, 4)
+    mp = _round_up(cf, 16 if bf else 4)
+    rpp = _round_up(rp, 16) if bf else rp
+    pc, pin = _round_up(ch, al) + pad, _round_up(cin, al) + pad
+    pi = _round_up(heads * head_dim, al) + pad
+    pf, pd = _round_up(ff, al) + pad, _round_up(head_dim, al) + pad
+    pr = rpp + pad
+    hc = -(-heads // cs)                          # heads per CTA, at most
+
+    def r128(b):
+        return _round_up(b, 128)
+
+    rows = cf
+    u1 = (2 * r128(rows * pc * elem) + r128(hc * rows * pd * elem)
+          + r128(rows * pi * elem))
+    att_end = u1 + 2 * r128(hc * rpp * pd * elem) + r128(hc * rows * pr * elem)
+    ffn_end = u1 + r128(rows * pf * elem)
+    pro_end = u1 + r128((rows + 2) * pin * elem) + r128((rows + 2) * pc * elem)
+    return (max(att_end, ffn_end, pro_end)
+            + r128(max(3 * 128 * 72 * elem if bf else 0, 2 * ch * 4))
+            + r128(ch * 4) + 2 * r128(mp * 4)
+            + r128(_round_up(tdim, 16) * elem)
+            + r128(4 * 32 * 16 * 4 if bf else 0))
+
+
+def cluster_size(cf: int, rp: int, cin: int, ch: int, ff: int, tdim: int,
+                 heads: int, head_dim: int, dtype: torch.dtype) -> int:
+    """The cluster the launcher picks: the smaller of 4 and 8 CTAs whose
+    shared memory fits, else 0 (it then refuses the launch).  The C entry
+    ``fused_tf_group_cluster`` returns the same."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for cs in (4, 8):
+        if _smem_bytes(cf, rp, cin, ch, ff, tdim, heads, head_dim, elem,
+                       cs) <= _MAX_SMEM:
+            return cs
+    return 0
+
+
+def kernel_limit(cf: int, rp: int, cin: int, ch: int, ff: int, tdim: int,
+                 heads: int, head_dim: int, dtype: torch.dtype
                  ) -> Optional[str]:
-    """Why ``csrc/fused_tf_group.cu`` cannot run this geometry, or None:
-    it reads a head in float4 steps, and in bf16 holds the chunk's frames
-    in two m16 row tiles.  The plain version has neither limit."""
+    """Why ``csrc/fused_tf_group.cu`` cannot run this geometry (chunk ``cf``
+    frames, ring ``rp`` slots, input ``cin`` and model ``ch`` channels, FF
+    and time widths, heads), or None: it reads a head in float4 steps, in
+    bf16 holds the chunk's frames in two m16 row tiles, and lays the row
+    out in the shared memory of a cluster of 4 or 8 CTAs.  The plain
+    version has none of these limits."""
     if head_dim % 4:
         return f"the kernel needs head_dim % 4 == 0, got {head_dim}"
     if dtype == torch.bfloat16 and cf > 32:
         return f"the bf16 kernel takes chunks of at most 32 frames, got {cf}"
+    if not cluster_size(cf, rp, cin, ch, ff, tdim, heads, head_dim, dtype):
+        need = _smem_bytes(cf, rp, cin, ch, ff, tdim, heads, head_dim,
+                           2 if dtype == torch.bfloat16 else 4, 8)
+        return (f"the kernel's shared memory for ring {rp}, chunk {cf}, cin "
+                f"{cin} needs {need} bytes a CTA even in a cluster of 8, "
+                f"over the {_MAX_SMEM} an H100 block may use")
     return None
 
 
@@ -296,15 +381,26 @@ def _kernel_fn():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     return fn
+
+
+def kernel_cluster(cf: int, rp: int, cin: int, ch: int, ff: int, tdim: int,
+                   heads: int, head_dim: int, dtype: torch.dtype) -> int:
+    """The compiled launcher's cluster choice for this geometry (0: none
+    fits), to hold ``cluster_size`` against; builds the kernel if needed."""
+    fn = cuda_build.load("fused_tf_group").fused_tf_group_cluster
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 9
+    return fn(_DTYPE_CODE[dtype], cf, cin, ch, tdim, heads, head_dim, ff, rp)
 
 
 def launch_fused_tf_group(p, rp_, mt, cc1, cc2, x, rings, scal, offset,
                           x_out, cc1_out, cc2_out, heads: int, head_dim: int,
                           shared_offset: bool) -> None:
     """Launches the kernel on the current stream; ``launches`` counts every
-    launch.  Raises on a non-zero CUDA return code."""
+    launch.  ``offset`` a host int or a device int32 (read by the kernel).
+    Raises on a non-zero CUDA return code."""
     tensors = ([x, mt, cc1, cc2] + [rp_[k] for k in RES_KEYS]
                + [p[k] for k in TF_KEYS] + [rings, x_out, cc1_out, cc2_out,
                                             scal])
@@ -315,17 +411,18 @@ def launch_fused_tf_group(p, rp_, mt, cc1, cc2, x, rings, scal, offset,
             raise ValueError("kernel needs contiguous tensors")
     n_layers, rows, rp, _ = rings.shape
     _, cf, cin = x.shape
-    why = kernel_limit(cf, head_dim, x.dtype)
+    ch, ff = rp_["resb"].shape[-1], p["ffpb"].shape[-1]
+    why = kernel_limit(cf, rp, cin, ch, ff, mt.shape[-1], heads, head_dim,
+                       x.dtype)
     if why:
         raise ValueError(why)
+    tensors.append(device_scalar(offset, x.device))
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(ptrs, _DTYPE_CODE[x.dtype], rows, cf, cin,
-                rp_["resb"].shape[-1], mt.shape[-1], heads, head_dim,
-                p["ffpb"].shape[-1], n_layers, rp, int(shared_offset),
-                int(offset), stream)
+        rc = fn(ptrs, _DTYPE_CODE[x.dtype], rows, cf, cin, ch, mt.shape[-1],
+                heads, head_dim, ff, n_layers, rp, int(shared_offset), stream)
     launch_fused_tf_group.launches += 1
     if rc != 0:
         raise RuntimeError(f"fused_tf_group launch failed: CUDA error {rc}")
@@ -337,7 +434,7 @@ launch_fused_tf_group.launches = 0
 def fused_tf_group(p: Dict[str, torch.Tensor], rp_: Dict[str, torch.Tensor],
                    mt: torch.Tensor, cc1: torch.Tensor, cc2: torch.Tensor,
                    x: torch.Tensor, rings: torch.Tensor, scal: torch.Tensor,
-                   offset: int, *, heads: int, head_dim: int,
+                   offset: Scalar, *, heads: int, head_dim: int,
                    act_fn: str = "gelu", shared_offset: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor]:
@@ -348,8 +445,8 @@ def fused_tf_group(p: Dict[str, torch.Tensor], rp_: Dict[str, torch.Tensor],
     (rows, 2, cin) / cc2 (rows, 2, ch) the resnet's conv caches; x
     (rows, cf, cin); rings (L, rows, rp, 2*inner), UPDATED IN PLACE; scal
     (3, rows) int32 [nd_mask = n_done + cf; rot; enable]
-    (``group_scalars``); ``offset`` the shared write offset (ignored when
-    ``shared_offset=False``).
+    (``group_scalars``); ``offset`` the shared write offset, a host int or a
+    device int32 (ignored when ``shared_offset=False``).
 
     Returns (x_out (rows, cf, ch), rings, cc1_new, cc2_new); the conv
     caches come back unmasked."""
@@ -357,7 +454,7 @@ def fused_tf_group(p: Dict[str, torch.Tensor], rp_: Dict[str, torch.Tensor],
            act_fn)
     if x.device.type == "cpu":
         return fused_tf_group_plain(p, rp_, mt, cc1, cc2, x, rings, scal,
-                                    int(offset), heads=heads,
+                                    offset, heads=heads,
                                     head_dim=head_dim,
                                     shared_offset=shared_offset)
     rows, cf, _ = x.shape

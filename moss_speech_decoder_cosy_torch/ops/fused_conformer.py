@@ -37,6 +37,12 @@ cores.  The kernel is one cooperative launch whose thread blocks split each
 product's output columns, so the weight read is spread over the card; see
 the source's header.
 
+``n_tok`` is read from device memory, as the TPU kernel reads its scalar
+prefetch, so a launch captured in a CUDA graph reads each replay's value:
+the wrapper takes it as a host int (range-checked) or as a device int32
+(not read on the host; the kernel counts a negative value as 0, and so does
+the plain version).
+
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel (float32 or bfloat16) or raise.  There is no fall-back.
 """
@@ -51,8 +57,8 @@ import torch
 from . import cuda_build
 # kernel_tolerance: the fused group's rule (f32 2e-5, four bf16 ulps of the
 # largest output), which holds here for the same reasons
-from .fused_block import (_DTYPE_CODE, _NEG, _dot, _ln,  # noqa: F401
-                          kernel_tolerance)
+from .fused_block import (_DTYPE_CODE, _NEG, Scalar, _dot,  # noqa: F401
+                          _ln, device_scalar, kernel_tolerance)
 
 # the group's stacked leaves, in the order the kernel takes them
 CONF_KEYS = ("nms", "nmb", "qkvk", "qkvb", "posk", "pbu", "pbv", "outk",
@@ -68,7 +74,7 @@ def _swish(x: torch.Tensor) -> torch.Tensor:
 
 def fused_conformer_group_plain(p: Dict[str, torch.Tensor], x: torch.Tensor,
                                 pos_emb: torch.Tensor, ring_kv: torch.Tensor,
-                                ring_pk: torch.Tensor, n_tok: int, *,
+                                ring_pk: torch.Tensor, n_tok: Scalar, *,
                                 heads: int, head_dim: int
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
@@ -77,9 +83,11 @@ def fused_conformer_group_plain(p: Dict[str, torch.Tensor], x: torch.Tensor,
     n_layers, _, rt, _ = ring_kv.shape
     c, d = x.shape[1], x.shape[2]
     dt, dev = x.dtype, x.device
-    scale = torch.tensor(head_dim ** -0.5, dtype=dt, device=dev)
-    neg = torch.tensor(_NEG, dtype=dt, device=dev)
+    scale = torch.full((), head_dim ** -0.5, dtype=dt, device=dev)
+    neg = torch.full((), _NEG, dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
+    if torch.is_tensor(n_tok):
+        n_tok = torch.clamp(n_tok.reshape(()).long(), min=0)
     valid = torch.arange(rt + c, device=dev)
     valid = (valid < n_tok) | (valid >= rt)                  # (Tk,)
     wslots = (n_tok + torch.arange(c, device=dev)) % rt
@@ -190,7 +198,9 @@ def _check(p, x, pos_emb, ring_kv, ring_pk, n_tok, heads, head_dim,
     # the chunk's first Rt frames
     if not 1 <= c <= rt:
         raise ValueError(f"chunk {c} must be in [1, ring {rt}]")
-    if int(n_tok) < 0:
+    # a device n_tok is not read here (that would wait for the card and
+    # break capture)
+    if not torch.is_tensor(n_tok) and int(n_tok) < 0:
         raise ValueError(f"n_tok {n_tok} must be >= 0")
     if d % 8 or ff % 8:
         raise ValueError(f"D {d} and FF {ff} must be multiples of 8")
@@ -203,16 +213,17 @@ def _kernel_fn():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     return fn
 
 
-def launch_fused_conformer_group(p, x, pos_emb, ring_kv, ring_pk, n_tok: int,
-                                 x_out, scratch, heads: int,
+def launch_fused_conformer_group(p, x, pos_emb, ring_kv, ring_pk,
+                                 n_tok: Scalar, x_out, scratch, heads: int,
                                  head_dim: int) -> None:
     """Launches the kernel on the current stream; ``launches`` counts every
-    launch.  ``scratch`` holds C * (5 D + FF) elements of x's dtype.
-    Raises on a non-zero CUDA return code."""
+    launch.  ``scratch`` holds C * (5 D + FF) elements of x's dtype;
+    ``n_tok`` a host int or a device int32 (read by the kernel).  Raises on
+    a non-zero CUDA return code."""
     tensors = ([x, pos_emb] + [p[k] for k in CONF_KEYS]
                + [ring_kv, ring_pk, x_out, scratch])
     for t in tensors:
@@ -224,12 +235,13 @@ def launch_fused_conformer_group(p, x, pos_emb, ring_kv, ring_pk, n_tok: int,
             raise ValueError("kernel needs 16-byte aligned tensors")
     n_layers, _, rt, _ = ring_kv.shape
     _, c, d = x.shape
+    tensors.append(device_scalar(n_tok, x.device))
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(ptrs, _DTYPE_CODE[x.dtype], c, d, heads, head_dim,
-                p["w1b"].shape[-1], n_layers, rt, int(n_tok), stream)
+                p["w1b"].shape[-1], n_layers, rt, stream)
     launch_fused_conformer_group.launches += 1
     if rc != 0:
         raise RuntimeError(f"fused_conformer_group launch failed: CUDA error "
@@ -241,7 +253,7 @@ launch_fused_conformer_group.launches = 0
 
 def fused_conformer_group(p: Dict[str, torch.Tensor], x: torch.Tensor,
                           pos_emb: torch.Tensor, ring_kv: torch.Tensor,
-                          ring_pk: torch.Tensor, n_tok: int, *, heads: int,
+                          ring_pk: torch.Tensor, n_tok: Scalar, *, heads: int,
                           head_dim: int, act_fn: str = "swish"
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
@@ -251,10 +263,12 @@ def fused_conformer_group(p: Dict[str, torch.Tensor], x: torch.Tensor,
     p: the group's leaves (``CONF_KEYS``, leading L axis); x (1, C, D);
     pos_emb (1, C, D) the chunk's rows of the position table; ring_kv
     (L, 1, Rt, 2D) and ring_pk (L, 1, Rt, D), UPDATED IN PLACE; n_tok the
-    frames written so far (a host int).  Raises ValueError when C > Rt.
+    frames written so far, a host int or a device int32.  Raises ValueError
+    when C > Rt.
 
     Returns (x_out (1, C, D), ring_kv, ring_pk)."""
-    n_tok = int(n_tok)
+    if not torch.is_tensor(n_tok):
+        n_tok = int(n_tok)
     _check(p, x, pos_emb, ring_kv, ring_pk, n_tok, heads, head_dim, act_fn)
     if x.device.type == "cpu":
         return fused_conformer_group_plain(p, x, pos_emb, ring_kv, ring_pk,

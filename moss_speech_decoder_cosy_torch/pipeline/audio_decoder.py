@@ -187,7 +187,7 @@ class AudioDecoder:
                           write_mode: str = "auto", fused: bool = True,
                           stacked: bool = False, kernel="auto",
                           ring_quant: bool = False,
-                          enc_kernel: bool = False):
+                          enc_kernel: bool = False, graphs: bool = True):
         """KV-cached streaming decoder (``kv_session.KVStreamDecoder``):
         every token runs through the flow once; ``ring_tokens`` (default
         max_token_len - block_size) sets the attention's left context.
@@ -195,8 +195,10 @@ class AudioDecoder:
         runs each resnet + transformer group of the estimator as one
         ``fused_tf_group`` launch whenever the geometry allows (True/False
         force it); ``enc_kernel=True`` runs the wavefront's encoder hop with
-        each conformer stack as one ``fused_conformer_group`` launch.  The
-        other options of the JAX package raise."""
+        each conformer stack as one ``fused_conformer_group`` launch;
+        ``graphs`` (on a CUDA device) replays each wavefront iteration and
+        each per-hop step as a CUDA graph, ``graphs=False`` runs the same
+        steps eagerly.  The other options of the JAX package raise."""
         missing = {"batch > 1 (lockstep streams)": batch != 1,
                    "ring_quant (int8 rings)": ring_quant}
         for what, asked in missing.items():
@@ -219,7 +221,8 @@ class AudioDecoder:
         return KVStreamDecoder(self, prompt_token, prompt_feat, embedding,
                                hop, ring_tokens=ring_tokens,
                                token_cap=token_cap, fused=fused,
-                               kernel=kernel, enc_kernel=enc_kernel)
+                               kernel=kernel, enc_kernel=enc_kernel,
+                               graphs=graphs)
 
 
 class StreamSession:

@@ -21,35 +21,58 @@ The estimator rings live in HBM at 56 layers x (S*2B, ring + chunk,
 IN PLACE (the kernel writes each chunk into its ring), which takes the
 place of the JAX package's buffer donation.
 
+Stepped wavefront and hop (the JAX package's ``_wave_step[_k]`` and
+``_hop``): the session holds one set of persistent buffers (token buffer,
+enc and est caches, the extended est rings, the x / mu waves, the exit
+mels) and the positions ``w``, ``n_tok``, ``k_total`` and ``base_frames``
+as device scalars, reset in place by ``init_state`` and ``stream_decode``.
+One wavefront iteration (``_wave_step_impl``; with the encoder hop while
+w < k, without it after, where JAX had ``lax.cond``) and one per-hop step
+(``_hop_impl``, per ``(emit_tokens, finalize)``) read and write only those,
+so on CUDA each is captured once as a CUDA graph and replayed
+(``graphs=True``, the default): the first call of each runs eagerly on the
+capture stream, which is both its real work and the warm-up capture needs,
+then records it.  Every later call is one graph launch.  ``graphs=False``
+runs the same functions eagerly; on the CPU there are no graphs.  A failed
+capture raises.  Each graph's fused-kernel launches are counted at capture
+and added to the kernels' counters at every replay.  The prefill, the
+extend / shrink of the rings around the wavefront and the vocoders run
+eagerly.
+
 Engines of the wavefront: ``kernel=True`` runs each resnet + transformer
 group of the estimator as one ``fused_tf_group`` launch
 (``ops/fused_block.py``); ``kernel=False`` runs the unfused per-layer
 engine.  ``kernel="auto"`` picks the kernel engine whenever the geometry
-allows it (``fused_block.kernel_limit``: in bf16 a hop of at most 32
-frames), on every device: on the CPU its wrapper runs the plain version.
-``enc_kernel=True`` (opt-in, as in the JAX package) runs the wavefront's
-per-hop encoder with each conformer stack as one ``fused_conformer_group``
-launch (``ops/fused_conformer.py``); the prefill and the finalize hop keep
-the per-layer encoder step.
+allows it (``fused_block.kernel_limit`` for the down, mid and up groups: in
+bf16 a hop of at most 32 frames, and rings whose layout fits the kernel's
+shared memory), on every device: on the CPU its wrapper runs the plain
+version.  ``enc_kernel=True`` (opt-in, as in the JAX package) runs the
+wavefront's per-hop encoder with each conformer stack as one
+``fused_conformer_group`` launch (``ops/fused_conformer.py``); the prefill
+and the finalize hop keep the per-layer encoder step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.flow.kv_stream import (
-    encoder_hop_kernel, est_cache_from_flat, est_cache_to_flat,
-    extend_rings_for_fused, fuse_qkv_params, group_encoder_params,
-    group_est_flat, group_estimator_params, init_kv_cache,
-    kv_flow_encode_step, kv_flow_step, pe_tables, shrink_rings_from_fused,
-    noise_chunk, spk_embedding, ungroup_est_flat, wave_step,
+    dyn_slice, encoder_hop_kernel, est_cache_to_flat, extend_rings_for_fused,
+    fuse_qkv_params, group_encoder_params, group_estimator_params,
+    init_kv_cache, kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables,
+    shrink_rings_from_fused, spk_embedding, ungroup_est_flat, wave_step,
     wave_step_kernel)
-from ..ops.fused_block import kernel_limit
+from ..ops.fused_block import kernel_limit, launch_fused_tf_group
+from ..ops.fused_conformer import launch_fused_conformer_group
 from .bulk_voc import BulkVocoder
+
+# the wrappers whose launch counts a replayed graph adds to
+_COUNTERS = (launch_fused_tf_group, launch_fused_conformer_group)
 
 
 @dataclasses.dataclass
@@ -63,18 +86,21 @@ class KVVocState:
 class KVStreamDecoder:
     """Incremental streaming decoder bound to an ``AudioDecoder``'s modules,
     one stream.  Geometry: ``block_size`` tokens per hop, a ring of
-    ``ring_tokens`` tokens of left context; ``fused`` selects the
-    write-then-attend wavefront (needs ``ring_tokens % block_size == 0``,
-    the shared-offset write geometry)."""
+    ``ring_tokens`` tokens of left context, streams of at most
+    ``token_cap`` tokens; ``fused`` selects the write-then-attend wavefront
+    (needs ``ring_tokens % block_size == 0``, the shared-offset write
+    geometry); ``graphs`` replays the wavefront iteration and the per-hop
+    step as CUDA graphs on a CUDA device."""
 
     def __init__(self, dec, prompt_token: np.ndarray,
                  prompt_feat: np.ndarray, embedding: np.ndarray,
                  block_size: int, ring_tokens: int = 35,
                  token_cap: int = 2048, fused: bool = True, kernel="auto",
-                 enc_kernel: bool = False):
+                 enc_kernel: bool = False, graphs: bool = True):
         self.dec = dec
         self.hop = block_size
         self.ring_tokens = ring_tokens
+        self.token_cap = token_cap
         self.la = dec.lookahead
         self.ratio = dec.ratio
         self.p = int(prompt_token.shape[1])
@@ -97,7 +123,7 @@ class KVStreamDecoder:
         # prompt alignment of the shared write offset (frames % hop)
         self._align = (self.p * self.ratio) % self.cf
         est_cfg = cfg.estimator
-        why = kernel_limit(self.cf, est_cfg.attention_head_dim, self.est_dt)
+        why = self._kernel_limit(est_cfg)
         kernel_ok = self._fused and est_cfg.act_fn == "gelu" and not why
         if kernel == "auto":
             kernel = kernel_ok
@@ -106,6 +132,7 @@ class KVStreamDecoder:
                              "shared-offset geometry and exact GELU"
                              + (f"; {why}" if why else ""))
         self._kernel = bool(kernel)
+        self._graphs = bool(graphs) and self.dev.type == "cuda"
 
         self._prompt_tok = torch.as_tensor(np.asarray(prompt_token),
                                            dtype=torch.long).to(self.dev)
@@ -138,46 +165,245 @@ class KVStreamDecoder:
                     dec.flow, self._fw)
         self._spks = None
         self._bulk: Optional[BulkVocoder] = None
+        self._cache: Optional[Dict] = None   # persistent state, made at use
+        self._graph: Dict[tuple, tuple] = {}    # key -> (graph, launches)
+        self._capture_stream = None
+
+    def _kernel_limit(self, est_cfg) -> Optional[str]:
+        """``kernel_limit`` of the first of the down, mid and up groups (input
+        channels in_channels, ch and 2 ch) that the kernel cannot run."""
+        ch = est_cfg.channels[0]
+        rp = self.ring_tokens * self.ratio + self.cf
+        for cin in (est_cfg.in_channels, ch, 2 * ch):
+            why = kernel_limit(self.cf, rp, cin, ch, 4 * ch, 4 * ch,
+                               est_cfg.num_heads, est_cfg.attention_head_dim,
+                               self.est_dt)
+            if why:
+                return why
+        return None
 
     # ------------------------------------------------------------- state
+    def _alloc(self) -> None:
+        """The session's persistent buffers, made once: every graph reads and
+        writes these addresses."""
+        dev, cfg = self.dev, self.dec.flow_cfg
+        est_cfg = cfg.estimator
+        cache = init_kv_cache(cfg, self.ring_tokens, dtype=self.dt,
+                              est_dtype=self.est_dt, device=dev)
+        # the mid resnets' conv caches as views of one stacked tensor: the
+        # kernel engine's grouped layout and the canonical one share it
+        m = est_cfg.num_mid_blocks
+        convs = cache["est"]["convs"]
+        mids = {k: torch.stack([convs[f"mid_res_{i}"][k] for i in range(m)])
+                for k in ("block1", "block2")}
+        for i in range(m):
+            convs[f"mid_res_{i}"] = {k: mids[k][i] for k in mids}
+        cache["n_tok"] = torch.zeros((), dtype=torch.long, device=dev)
+        self._cache = cache
+
+        flat = est_cache_to_flat(cache["est"])
+        rows, _, d2 = flat["kv"][0].shape
+        rp = self.ring_tokens * self.ratio + self.cf
+        if self._kernel:
+            n = est_cfg.n_blocks
+
+            def rings():
+                return torch.zeros((n, rows, rp, d2), dtype=self.est_dt,
+                                   device=dev)
+
+            gconvs = {k: v for k, v in flat["convs"].items()
+                      if not k.startswith("mid_res_")}
+            gconvs["mid_res"] = {k: v.reshape((m, rows) + v.shape[3:])
+                                 for k, v in mids.items()}
+            self._ext_g = {"kv": {"down": rings(),
+                                  "mid": tuple(rings() for _ in range(m)),
+                                  "up": rings()},
+                           "convs": gconvs}
+            self._ext = ungroup_est_flat(self._ext_g, est_cfg)
+        else:
+            self._ext = {"kv": tuple(torch.zeros((rows, rp, d2),
+                                                 dtype=self.est_dt,
+                                                 device=dev)
+                                     for _ in flat["kv"]),
+                         "convs": flat["convs"]}
+        self._rot_dev = torch.tensor(self._rot(rp), device=dev)
+
+        s, cf, n_mel = self.s_steps, self.cf, self.n_mel
+        sd = (torch.float32 if cfg.cfm.solver_dtype == "float32"
+              else self.dt)
+        self._x_w = torch.zeros((s, 1, cf, n_mel), dtype=sd, device=dev)
+        self._mu_w = torch.zeros((s, 1, cf, n_mel), dtype=self.est_dt,
+                                 device=dev)
+        self._mu_zero = torch.zeros((1, cf, n_mel), dtype=self.dt,
+                                    device=dev)
+        self._w, self._k, self._base = (
+            torch.zeros((), dtype=torch.long, device=dev) for _ in range(3))
+        # exit mel of iteration w at row w
+        self._mels = torch.zeros((self.token_cap // self.hop + s, 1, cf,
+                                  n_mel), dtype=torch.float32, device=dev)
+        self._tok = torch.zeros((1, self.token_cap + self.hop + self.la + 1),
+                                dtype=torch.long, device=dev)
+        self._hop_out: Dict[Tuple[int, bool], torch.Tensor] = {}
+
+    @torch.inference_mode()
     def init_state(self) -> Tuple[Dict, KVVocState]:
-        cache = init_kv_cache(self.dec.flow_cfg, self.ring_tokens,
-                              dtype=self.dt, est_dtype=self.est_dt,
-                              device=self.dev)
+        """The session's cache, zeroed in place (n_tok 0), and fresh vocoder
+        caches."""
+        if self._cache is None:
+            self._alloc()
+        c = self._cache
+        for t in (list(c["enc"].values()) + list(c["est"]["kv"])
+                  + [c["n_tok"]]):
+            t.zero_()
+
+        def zero(tree):
+            for v in tree.values():
+                zero(v) if isinstance(v, dict) else v.zero_()
+        zero(c["est"]["convs"])
         z = lambda *s: torch.zeros(s, device=self.dev)  # noqa: E731
-        return cache, KVVocState(z(1, self.mel_cache_len, self.n_mel),
-                                 z(1, self.scl, 1), z(1, self.scl))
+        return c, KVVocState(z(1, self.mel_cache_len, self.n_mel),
+                             z(1, self.scl, 1), z(1, self.scl))
 
+    @torch.inference_mode()
     def _token_buf(self, tokens: np.ndarray) -> torch.Tensor:
+        """The session's token buffer holding ``tokens`` (1, n <= token_cap)
+        then zeros: one upload."""
         n = tokens.shape[1]
-        buf = np.zeros((1, n + self.hop + self.la + 1), np.int64)
-        buf[:, :n] = tokens
-        return torch.from_numpy(buf).to(self.dev)
+        if n > self.token_cap:
+            raise ValueError(f"{n} tokens exceed the session's token_cap "
+                             f"{self.token_cap}")
+        if self._cache is None:
+            self._alloc()
+        buf = torch.zeros(self._tok.shape, dtype=torch.long)
+        buf[:, :n] = torch.as_tensor(np.asarray(tokens))
+        return self._tok.copy_(buf)
 
-    def _slices(self, token_buf, n_tok: int, emit_tokens: int):
-        off = n_tok - self.p
-        return (token_buf[:, off:off + emit_tokens],
-                token_buf[:, off + emit_tokens:off + emit_tokens + self.la])
+    def _own(self, token_buf, cache) -> None:
+        if token_buf is not self._tok or cache is not self._cache:
+            raise ValueError("the steps run on the session's own buffers: "
+                             "pass _token_buf(tokens) and init_state()[0]")
+
+    def _commit(self, enc: Dict, n_tok=None) -> None:
+        """Copies a step's new conv caches (and token count) into the
+        persistent cache; the rings were written in place."""
+        for name in ("pre", "up_conv"):
+            self._cache["enc"][name].copy_(enc[name])
+        if n_tok is not None:
+            self._cache["n_tok"].copy_(n_tok)
+
+    def _slices(self, token_buf, n_tok, emit_tokens: int):
+        """The hop's chunk and lookahead tokens at ``n_tok`` (a host int or a
+        device scalar): a device gather, as JAX's dynamic_slice."""
+        seg = dyn_slice(token_buf, n_tok - self.p, emit_tokens + self.la,
+                        dim=1)
+        return seg[:, :emit_tokens], seg[:, emit_tokens:]
+
+    # ------------------------------------------------------------ graphs
+    def _run(self, key: tuple, fn: Callable[[], None]) -> None:
+        """Runs ``fn`` (a step on the persistent state): eagerly without
+        graphs; else the first call of each ``key`` runs it eagerly on the
+        capture stream and captures it, and later calls replay the graph."""
+        if not self._graphs:
+            fn()
+            return
+        got = self._graph.get(key)
+        if got is None:
+            self._graph[key] = self._capture(fn)
+            return
+        graph, launched = got
+        graph.replay()
+        for counter, n in launched:
+            counter.launches += n
+
+    def _capture(self, fn: Callable[[], None]):
+        """One eager call of ``fn`` on a side stream (this call's work, and
+        the warm-up that builds the kernels and sets up cuBLAS and cuDNN
+        before capture), then ``fn`` captured; returns (graph, [(counter,
+        launches per replay)]).  Capture records and does not run, so the
+        state stays as the eager call left it; the counters are restored."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.dev)
+        stream, main = self._capture_stream, torch.cuda.current_stream(
+            self.dev)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            fn()
+        main.wait_stream(stream)
+        before = [c.launches for c in _COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+        launched = [(c, c.launches - b) for c, b in zip(_COUNTERS, before)]
+        for c, b in zip(_COUNTERS, before):
+            c.launches = b
+        return graph, launched
+
+    # ------------------------------------------------------------- steps
+    def _hop_impl(self, emit_tokens: int, finalize: bool,
+                  out: torch.Tensor) -> None:
+        """One flow hop through the per-hop KV step at the cache's device
+        n_tok (the JAX package's ``_hop_impl``); the mel into ``out``."""
+        cache = self._cache
+        chunk, ctx = self._slices(self._tok, cache["n_tok"], emit_tokens)
+        cond = torch.zeros((1, emit_tokens * self.ratio, self.n_mel),
+                           dtype=self.dt, device=self.dev)
+        mel, new = kv_flow_step(self.dec.flow, self._fw, chunk, ctx, cond,
+                                self._emb, cache, self._pe_tok, self._pe_mel,
+                                finalize=finalize)
+        self._commit(new["enc"], new["n_tok"])
+        out.copy_(mel)
+
+    def _wave_step_impl(self, with_enc: bool) -> None:
+        """ONE wavefront iteration on the persistent state (the JAX package's
+        ``_wave_step[_kernel]_impl``): the encoder hop at device n_tok when
+        ``with_enc`` (w < k), the estimator over the x / mu waves, the exit
+        mel into row w of the exit mels, then w += 1."""
+        c = self._cache
+        mu_new = self._mu_zero
+        if with_enc:
+            mu_new, enc = self._encode_hop(self._tok, c["enc"], c["n_tok"])
+            self._commit(enc)
+            c["n_tok"].add_(self.hop)
+        flow = self.dec.flow
+        if self._kernel:
+            exit_mel, x_w, mu_w = wave_step_kernel(
+                self._gp, flow.decoder, self._x_w, self._mu_w, mu_new,
+                self._spks, self._ext_g, self._w, self._k, self._base)
+        else:
+            exit_mel, x_w, mu_w = wave_step(
+                flow.decoder, self._fw, self._x_w, self._mu_w, mu_new,
+                self._spks, self._ext, self._w, self._k, self._base)
+        self._x_w.copy_(x_w)
+        self._mu_w.copy_(mu_w)
+        self._mels.index_copy_(0, self._w.reshape(1), exit_mel[None])
+        self._w.add_(1)
 
     @torch.inference_mode()
     def _prefill(self, token_buf, cache):
         """The prompt as one chunk, with the first ``la`` stream tokens as
-        lookahead; warms every ring, emits nothing."""
-        _, cache = kv_flow_step(self.dec.flow, self._fw, self._prompt_tok,
-                                token_buf[:, :self.la], self._prompt_feat,
-                                self._emb, cache, self._pe_tok, self._pe_mel)
+        lookahead; warms every ring, emits nothing.  Eager."""
+        self._own(token_buf, cache)
+        _, new = kv_flow_step(self.dec.flow, self._fw, self._prompt_tok,
+                              token_buf[:, :self.la], self._prompt_feat,
+                              self._emb, cache, self._pe_tok, self._pe_mel)
+        self._commit(new["enc"], new["n_tok"])
         return cache
 
     @torch.inference_mode()
     def _hop(self, token_buf, cache, emit_tokens: int, finalize: bool):
         """One flow hop through the per-hop KV step: the next chunk (and its
-        lookahead) at the cache's own position.  Returns (mel f32, cache)."""
-        chunk, ctx = self._slices(token_buf, cache["n_tok"], emit_tokens)
-        cond = torch.zeros((1, emit_tokens * self.ratio, self.n_mel),
-                           dtype=self.dt, device=self.dev)
-        return kv_flow_step(self.dec.flow, self._fw, chunk, ctx, cond,
-                            self._emb, cache, self._pe_tok, self._pe_mel,
-                            finalize=finalize)
+        lookahead) at the cache's own position, replayed as a graph per
+        ``(emit_tokens, finalize)``.  Returns (mel f32, cache)."""
+        self._own(token_buf, cache)
+        key = (emit_tokens, bool(finalize))
+        out = self._hop_out.get(key)
+        if out is None:
+            out = self._hop_out[key] = torch.empty(
+                (1, emit_tokens * self.ratio, self.n_mel),
+                dtype=torch.float32, device=self.dev)
+        self._run(("hop",) + key, functools.partial(
+            self._hop_impl, emit_tokens, bool(finalize), out))
+        return out.clone(), cache
 
     @torch.inference_mode()
     def _voc(self, emit_mel, voc: KVVocState, first: bool, finalize: bool):
@@ -224,9 +450,11 @@ class KVStreamDecoder:
             mels.append(mel)
         return torch.cat(mels, dim=1), cache
 
-    def _encode_hop(self, token_buf, enc: Dict, n_tok: int):
-        """The encoder of one steady hop at ``n_tok`` (the kernel hop when
-        ``enc_kernel``): (mu chunk, new enc cache), rings written in place."""
+    @torch.inference_mode()
+    def _encode_hop(self, token_buf, enc: Dict, n_tok):
+        """The encoder of one steady hop at ``n_tok`` (a host int or a device
+        scalar; the kernel hop when ``enc_kernel``): (mu chunk, new enc
+        cache), rings written in place."""
         chunk, ctx = self._slices(token_buf, n_tok, self.hop)
         if self._enc_kernel:
             return encoder_hop_kernel(self._egp, self.dec.flow, chunk, ctx,
@@ -242,59 +470,36 @@ class KVStreamDecoder:
     @torch.inference_mode()
     def _flow_mels_wave(self, token_buf, cache, plan):
         """The wavefront: the encoder per steady hop, one batched estimator
-        forward per iteration, as one Python loop over the k + S - 1 live
-        iterations (the kernel writes each chunk into the rings in place,
-        where the JAX package donated the buffers).  Then the finalize tail
-        through the per-hop step.  Returns (mel (1, T, n_mel) f32, cache)."""
+        forward per iteration, over the k + S - 1 live iterations, each one
+        ``_wave_step_impl`` (a graph replay); the rings are extended before
+        and shrunk after, in place.  Then the finalize tail through the
+        per-hop step.  Returns (mel (1, T, n_mel) f32, cache)."""
         if not self._fused:
             raise NotImplementedError("the concat-dataflow wavefront is not "
                                       "ported: use fused=True")
-        dec, cf, s_steps = self.dec, self.cf, self.s_steps
-        flow = dec.flow
+        self._own(token_buf, cache)
+        flow, cf, s_steps = self.dec.flow, self.cf, self.s_steps
         k = sum(1 for _, fin in plan if not fin)
         base = self.p * self.ratio
         if self._spks is None:
             self._spks = spk_embedding(flow, self._emb)
-        sd = (torch.float32 if dec.flow_cfg.cfm.solver_dtype == "float32"
-              else self.dt)
-        x_w = torch.zeros((s_steps, 1, cf, self.n_mel), dtype=sd,
-                          device=self.dev)
-        x_w[0] = noise_chunk(flow.decoder, base, cf, self.n_mel,
-                             self.dev).to(sd)
-        mu_w = torch.zeros((s_steps, 1, cf, self.n_mel), dtype=self.est_dt,
-                           device=self.dev)
-
-        rp = self.ring_tokens * self.ratio + cf
-        rot = self._rot(rp)
-        est = extend_rings_for_fused(est_cache_to_flat(cache["est"]), base,
-                                     cf, rot)
-        if self._kernel:
-            est = group_est_flat(est, dec.flow_cfg.estimator)
-        enc, n_tok = cache["enc"], self.p
-        zeros = torch.zeros((1, cf, self.n_mel), dtype=self.dt,
-                            device=self.dev)
-        chunks = []
+        self._x_w.zero_()
+        self._x_w[0].copy_(noise_chunk(flow.decoder, base, cf, self.n_mel,
+                                       self.dev))
+        self._mu_w.zero_()
+        self._w.zero_()
+        self._k.fill_(k)
+        self._base.fill_(base)
+        canonical = est_cache_to_flat(cache["est"])
+        extend_rings_for_fused(canonical, base, cf, self._rot_dev,
+                               out=self._ext["kv"])
         for w in range(k + s_steps - 1):
-            mu_new = zeros
-            if w < k:
-                mu_new, enc = self._encode_hop(token_buf, enc, n_tok)
-                n_tok += self.hop
-            if self._kernel:
-                exit_mel, x_w, mu_w = wave_step_kernel(
-                    self._gp, flow.decoder, x_w, mu_w, mu_new, self._spks,
-                    est, w, k, base)
-            else:
-                exit_mel, x_w, mu_w = wave_step(
-                    flow.decoder, self._fw, x_w, mu_w, mu_new, self._spks,
-                    est, w, k, base)
-            if w >= s_steps - 1:
-                chunks.append(exit_mel)
-        if self._kernel:
-            est = ungroup_est_flat(est, dec.flow_cfg.estimator)
-        est = shrink_rings_from_fused(est, base + k * cf, cf, rot)
-        cache = {"enc": enc, "est": est_cache_from_flat(est, s_steps),
-                 "n_tok": n_tok}
-        mels = [torch.cat(chunks, dim=1)] if chunks else []
+            self._run(("wave", w < k),
+                      functools.partial(self._wave_step_impl, w < k))
+        shrink_rings_from_fused(self._ext, base + k * cf, cf, self._rot_dev,
+                                out=canonical["kv"])
+        mels = ([self._mels[s_steps - 1:s_steps - 1 + k].reshape(
+            1, k * cf, self.n_mel)] if k else [])
         if plan and plan[-1][1]:
             mel, cache = self._hop(token_buf, cache, plan[-1][0], True)
             mels.append(mel)

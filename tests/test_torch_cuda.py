@@ -312,3 +312,215 @@ def test_enc_kernel_wavefront_on_card_matches_cpu(card):
     assert mels["cuda"].shape == mels["cpu"].shape == (
         1, 30 * flow_cfg.token_mel_ratio, flow_cfg.output_size)
     np.testing.assert_allclose(mels["cuda"], mels["cpu"], atol=1e-4, rtol=0)
+
+
+def test_kernel_limit_matches_the_launchers_cluster_choice(card):
+    """``fused_block.cluster_size`` (the Python copy of the launcher's
+    shared-memory layout) against the compiled entry's choice over rings
+    and dtypes at the MOSS estimator's widths, hop 5, every group's cin."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    seen = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for ring in range(5, 125, 5):
+            for cin in (320, 256, 512):
+                geometry = (20, 4 * ring + 20, cin, 256, 1024, 1024, 8, 64,
+                            dtype)
+                want = fb.cluster_size(*geometry)
+                assert fb.kernel_cluster(*geometry) == want, geometry
+                assert (fb.kernel_limit(*geometry) is None) == (want > 0)
+                seen.add(want)
+    assert seen == {0, 4, 8}
+
+
+DEVICE_SCALAR_CASES = {"group_wrap": 150, "group_offset0": 0,
+                       "group_offset_past_rp": 160 + 37}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(DEVICE_SCALAR_CASES))
+def test_fused_tf_group_device_offset_matches_plain(card, case, dtype):
+    """The group kernel reading its shared write offset from device memory
+    (an int32 on the card, as the KV session passes it) against the plain
+    version at the same offset (taken modulo rp), at a wrapping write."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    rows, cf, rp = 8, 20, 160
+    offset = DEVICE_SCALAR_CASES[case]
+    p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
+        rows, cf, 256, 256, 8, 64, 2, rp, dtype, card, seed=offset)
+    scal = fb.group_scalars([180 - 20 * (r // 2) for r in range(rows)],
+                            [((r // 2) * cf) % rp for r in range(rows)],
+                            [r != 5 for r in range(rows)], card)
+    r_plain, r_kern = rings.clone(), rings.clone()
+    kw = dict(heads=8, head_dim=64)
+    want = fb.fused_tf_group_plain(p, rp_, mt, cc1, cc2, x, r_plain, scal,
+                                   offset % rp, **kw)
+    held = torch.tensor([offset], dtype=torch.int32, device=card)
+    before = fb.launch_fused_tf_group.launches
+    got = fb.fused_tf_group(p, rp_, mt, cc1, cc2, x, r_kern, scal, held, **kw)
+    torch.cuda.synchronize()
+    assert fb.launch_fused_tf_group.launches == before + 1
+    for g, w, what in zip(got, want, ("x", "rings", "cc1", "cc2")):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= fb.kernel_tolerance(w), (what, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_tok", [0, 37, 140 + 135, -4],
+                         ids=["empty", "rampup", "wrap", "negative_is_0"])
+def test_fused_conformer_group_device_n_tok_matches_plain(card, n_tok,
+                                                          dtype):
+    """The conformer kernel reading n_tok from device memory against the
+    plain version with the same device n_tok and with the host int (a
+    negative count is 0)."""
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    p, x, pe, kv, pk = fc.make_conformer_inputs(4, 20, 512, 8, 2048, 140,
+                                                dtype, card, seed=n_tok + 9)
+    kv_p, pk_p, kv_k, pk_k = kv.clone(), pk.clone(), kv.clone(), pk.clone()
+    kw = dict(heads=8, head_dim=64)
+    want = fc.fused_conformer_group_plain(p, x, pe, kv_p, pk_p, max(n_tok, 0),
+                                          **kw)
+    held = torch.tensor([n_tok], dtype=torch.int32, device=card)
+    got = fc.fused_conformer_group(p, x, pe, kv_k, pk_k, held, **kw)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("x", "ring_kv", "ring_pk")):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= fc.kernel_tolerance(w), (what, err)
+
+
+def test_captured_kernels_read_each_replays_scalars(card):
+    """Both kernels captured once in a CUDA graph with their scalars in
+    device memory, then replayed after the scalars changed: each replay
+    matches the plain version at the new value (a host int baked into the
+    launch would replay the first one)."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    rows, cf, rp = 4, 20, 160
+    p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
+        rows, cf, 256, 256, 8, 64, 1, rp, torch.float32, card, seed=1)
+    scal = fb.group_scalars([rp + cf] * rows, [0] * rows, [1] * rows, card)
+    cp, cx, cpe, ckv, cpk = fc.make_conformer_inputs(
+        2, 5, 512, 8, 2048, 35, torch.float32, card, seed=2)
+    offset = torch.zeros(1, dtype=torch.int32, device=card)
+    n_tok = torch.zeros(1, dtype=torch.int32, device=card)
+    g_rings, g_kv, g_pk = rings.clone(), ckv.clone(), cpk.clone()
+    kw = dict(heads=8, head_dim=64)
+
+    def step():
+        return (fb.fused_tf_group(p, rp_, mt, cc1, cc2, x, g_rings, scal,
+                                  offset, **kw)[0],
+                fc.fused_conformer_group(cp, cx, cpe, g_kv, g_pk, n_tok,
+                                         **kw)[0])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()                                       # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for off, nt in ((100, 7), (150, 60), (13, 33)):
+        offset.fill_(off)
+        n_tok.fill_(nt)
+        r_plain, kv_plain, pk_plain = g_rings.clone(), g_kv.clone(), \
+            g_pk.clone()
+        want = (fb.fused_tf_group_plain(p, rp_, mt, cc1, cc2, x, r_plain,
+                                        scal, off, **kw)[0],
+                fc.fused_conformer_group_plain(cp, cx, cpe, kv_plain,
+                                               pk_plain, nt, **kw)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w, got_ring, want_ring in zip(outs, want, (g_rings, g_kv),
+                                             (r_plain, kv_plain)):
+            assert (g - w).abs().max().item() <= 2e-5, (off, nt)
+            assert (got_ring - want_ring).abs().max().item() <= 2e-5
+
+
+def _tiny_kv_sessions(device, enc_kernel, **kw):
+    """The tiny f32 KV session (block 3, ring 6) on ``device``, graphed
+    (the default) and eager."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    flow_cfg, hift_cfg = C.tiny_flow_config(), C.tiny_hift_config()
+    dec = AudioDecoder(flow_cfg, hift_cfg, *seeded_states(flow_cfg, hift_cfg),
+                       C.PipelineConfig(block_size=3, mel_cache_len=2,
+                                        max_token_len=9), device=device)
+    return [dec.kv_stream_decoder(ring_tokens=6, token_cap=64,
+                                  enc_kernel=enc_kernel, graphs=graphs, **kw)
+            for graphs in (True, False)]
+
+
+@pytest.mark.parametrize("enc_kernel", [False, True],
+                         ids=["per_layer_encoder", "enc_kernel"])
+def test_graphed_steps_match_eager(card, enc_kernel):
+    """The wavefront (both iteration variants, graphed) and the per-hop
+    step (the first hop and the finalize tail, graphed) against the same
+    device-scalar steps run eagerly, f32 on the card, twice each so the
+    second pass replays every graph; exact fused-kernel launch counts."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    graphed, eager = _tiny_kv_sessions(card, enc_kernel)
+    tokens = np.random.RandomState(5).randint(
+        0, graphed.dec.flow_cfg.vocab_size, (1, 30))
+    assert graphed._graphs and not eager._graphs
+    plan = graphed.schedule(tokens.shape[1])
+    k = sum(1 for _, fin in plan if not fin)
+    want_launches = ((k + graphed.s_steps - 1) * 3, 2 * k if enc_kernel else 0)
+    mels = {}
+    for sess in (graphed, eager):
+        for rep in range(2):
+            cache, _ = sess.init_state()
+            buf = sess._token_buf(tokens)
+            fb.launch_fused_tf_group.launches = 0
+            fc.launch_fused_conformer_group.launches = 0
+            mel, _ = sess._flow_mels_wave(buf, cache, plan)
+            assert (fb.launch_fused_tf_group.launches,
+                    fc.launch_fused_conformer_group.launches) == want_launches
+            cache, _ = sess.init_state()
+            hops = torch.cat([sess._hop(buf, cache, e, f)[0]
+                              for e, f in plan], dim=1)
+            mels[sess._graphs, rep] = (mel.cpu().numpy(), hops.cpu().numpy())
+    assert {("wave", True), ("wave", False)} <= set(graphed._graph)
+    for rep in range(2):
+        for got, want in zip(mels[True, rep], mels[False, rep]):
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    for got, want in zip(mels[True, 1], mels[True, 0]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("enc_kernel", [False, True],
+                         ids=["per_layer_encoder", "enc_kernel"])
+def test_profiler_counts_the_graphed_kernels(card, enc_kernel):
+    """One graphed ``stream_decode`` (every graph already captured) under
+    torch.profiler: the fused kernels the card ran equal the launch
+    counters the session added at each replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    sess = _tiny_kv_sessions(card, enc_kernel)[0]
+    tokens = np.random.RandomState(6).randint(
+        0, sess.dec.flow_cfg.vocab_size, (1, 30))
+    sess.stream_decode(tokens)                      # captures every graph
+    torch.cuda.synchronize()
+    fb.launch_fused_tf_group.launches = 0
+    fc.launch_fused_conformer_group.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.stream_decode(tokens)
+        torch.cuda.synchronize()
+    ran = {"fused_tf_group_kernel": 0, "fused_conformer_group_kernel": 0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in ran:
+                if name in e.name:
+                    ran[name] += 1
+    counted = (fb.launch_fused_tf_group.launches,
+               fc.launch_fused_conformer_group.launches)
+    assert counted[0] > 0 and (counted[1] > 0) == enc_kernel
+    assert (ran["fused_tf_group_kernel"],
+            ran["fused_conformer_group_kernel"]) == counted

@@ -5,7 +5,9 @@ the per-row offset mode, disabled rows, rings in ramp-up and full.
 
 Tolerance 2e-5 on the activation, the updated rings and both conv caches:
 the two compute the same function in f32 and differ only in the order of
-their sums."""
+their sums.  A device-held offset gives the same outputs as the host int,
+bit for bit.  ``kernel_limit`` and ``cluster_size`` at the full-width
+geometries of the KV session (ROADMAP C1)."""
 
 import numpy as np
 import pytest
@@ -164,8 +166,58 @@ def test_kernel_tolerance_is_four_bf16_ulps_of_the_largest_output(top, tol):
     (20, 6, torch.float32, "head_dim % 4 == 0, got 6")])
 def test_kernel_limit_names_what_the_cuda_kernel_cannot_hold(cf, head_dim,
                                                              dtype, why):
-    got = fb.kernel_limit(cf, head_dim, dtype)
+    """A narrow geometry (ring 80, 64 channels, two heads) whose shared
+    memory fits a cluster of 4, so only the chunk and head limits bite."""
+    got = fb.kernel_limit(cf, 80, 64, 64, 256, 256, 2, head_dim, dtype)
     assert got is None if why is None else why in got
+
+
+# (dtype, ring tokens, cluster) at the MOSS estimator's widths, hop 5
+# (cf 20): ch 256, FF and time 1024, 8 x 64 heads, every group's cin
+SMEM_CASES = [(torch.bfloat16, 35, 4), (torch.bfloat16, 40, 8),
+              (torch.bfloat16, 80, 8), (torch.bfloat16, 85, 0),
+              (torch.float32, 20, 4), (torch.float32, 45, 8),
+              (torch.float32, 50, 0)]
+
+
+@pytest.mark.parametrize("dtype,ring,cluster", SMEM_CASES,
+                         ids=[f"{str(c[0])[6:]}_ring{c[1]}"
+                              for c in SMEM_CASES])
+def test_kernel_limit_follows_the_shared_memory_layout(dtype, ring, cluster):
+    """The launcher's cluster choice as ``cluster_size`` mirrors it, and a
+    reason naming shared memory exactly where no cluster fits."""
+    rp = 4 * ring + 20
+    for cin in (320, 256, 512):
+        geometry = (20, rp, cin, 256, 1024, 1024, 8, 64, dtype)
+        assert fb.cluster_size(*geometry) == cluster
+        why = fb.kernel_limit(*geometry)
+        assert (why is None) == (cluster > 0)
+        if why:
+            assert "shared memory" in why and f"ring {rp}" in why
+
+
+@pytest.mark.parametrize("case", ["shared_wrap", "shared_int64_0d",
+                                  "per_row"])
+def test_device_offset_matches_int_offset(case):
+    """The wrapper with the offset held in a tensor (as the KV session's
+    captured steps pass it) against the host int, at a wrapping shared
+    write: identical outputs and rings."""
+    shared = case != "per_row"
+    offset = 20
+    held = (torch.tensor(offset, dtype=torch.int64) if case.endswith("0d")
+            else torch.tensor([offset], dtype=torch.int32))
+    p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
+        S2, CF, CIN, CH, HEADS, HD, L, RP, torch.float32, "cpu", seed=5)
+    scal = fb.group_scalars([30, 24, 40, 26, 33, 24], [0, 0, 6, 6, 12, 12],
+                            [1, 0, 1, 1, 0, 1], "cpu")
+    r_int, r_dev = rings.clone(), rings.clone()
+    kw = dict(heads=HEADS, head_dim=HD, shared_offset=shared)
+    want = fb.fused_tf_group(p, rp_, mt, cc1, cc2, x, r_int, scal, offset,
+                             **kw)
+    got = fb.fused_tf_group(p, rp_, mt, cc1, cc2, x, r_dev, scal, held, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(r_dev, rings)
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_run():

@@ -11,7 +11,10 @@ Tolerances on x_out and both updated rings:
   round at the same points, but a sum taken in another order (or kept in
   f32 a step longer by XLA) can round the other way, by one ulp of an
   intermediate, and LayerNorm and the residual chain carry that into the
-  following layer."""
+  following layer.
+
+A device-held ``n_tok`` gives the same outputs as the host int, bit for
+bit, and a negative device ``n_tok`` counts as 0."""
 
 import numpy as np
 import pytest
@@ -178,3 +181,21 @@ def test_kernel_path_needs_cuda_tensors():
                                         torch.empty(3 * (5 * D + FF)),
                                         HEADS, HD)
     assert fc.launch_fused_conformer_group.launches == before
+
+
+@pytest.mark.parametrize("n_tok,held", [(10, 10), (0, -3)],
+                         ids=["wrap", "negative_is_0"])
+def test_device_n_tok_matches_int_n_tok(n_tok, held):
+    """The wrapper with ``n_tok`` held in a tensor (as the KV session's
+    captured steps pass it) against the host int: identical outputs and
+    rings, at a wrapping write and with a negative count clamped to 0."""
+    p, x, pe, kv, pk = _small_inputs()
+    kw = dict(heads=HEADS, head_dim=HD)
+    kv_i, pk_i, kv_d, pk_d = kv.clone(), pk.clone(), kv.clone(), pk.clone()
+    want = fc.fused_conformer_group(p, x, pe, kv_i, pk_i, n_tok, **kw)
+    got = fc.fused_conformer_group(p, x, pe, kv_d, pk_d,
+                                   torch.tensor([held], dtype=torch.int32),
+                                   **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(kv_d, kv)

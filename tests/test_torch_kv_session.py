@@ -4,15 +4,23 @@ ring 6, so the shared write offset is not hop-aligned (align 8 of a 12-frame
 chunk) as in tests/test_kv_stream.py:223-233.  The port's NSF source gets
 the JAX draws.
 
+On the CPU the session runs its device-scalar steps eagerly (no CUDA
+graphs), on its persistent buffers.
+
 Tolerances on the waveform:
 - 1e-4: the port's default wavefront (kernel engine, plain version on the
-  CPU) against the JAX default wavefront (its fused XLA engine), and the
+  CPU) against the JAX default wavefront (its fused XLA engine) and against
+  the JAX session's stepped wavefront (``wave_stepped=True``: one jitted
+  iteration with device scalars, the loop the port mirrors), and the
   port's ``enc_kernel=True`` wavefront against the JAX session with both
   Pallas kernels (interpret mode);
 - 2e-5: the port's kernel engine against its own unfused engine, and its
   kernel encoder hop against its per-layer encoder step (the tolerance the
   JAX package pins between its kernel and unfused engines);
-- 1e-5: bulk vocoding against the per-hop vocoder chain."""
+- 1e-5: bulk vocoding against the per-hop vocoder chain;
+- 0 (identical): one session decoding the same stream twice (its
+  persistent buffers are reset in full), and the session's per-hop step at
+  its device n_tok against ``kv_flow_step`` with a host-int cache."""
 
 import numpy as np
 import pytest
@@ -111,8 +119,18 @@ def setup():
                 wave_stepped=False))
         return wavs["jax_enc"]
 
+    def want_stepped():
+        """The JAX session's stepped wavefront (one jitted iteration per
+        step, device scalars), on the same session as ``want``."""
+        if "jax_stepped" not in wavs:
+            wavs["jax_stepped"] = np.asarray(jkv.stream_decode(
+                tokens[:, P:], bulk_voc=True, wavefront=True,
+                wave_stepped=True))
+        return wavs["jax_stepped"]
+
     return dict(want=want, session=session, decode=decode,
-                want_enc_kernel=want_enc_kernel, dec=tdec)
+                want_enc_kernel=want_enc_kernel, want_stepped=want_stepped,
+                dec=tdec, tokens=tokens)
 
 
 def test_wavefront_matches_jax_wavefront(setup):
@@ -125,6 +143,68 @@ def test_wavefront_matches_jax_wavefront(setup):
         got.dtype == np.float32
     assert np.abs(want).max() > 0.05, "trivial waveform"
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_wavefront_matches_jax_stepped_wavefront(setup):
+    """The port's wavefront (its device-scalar iteration, run eagerly on the
+    CPU) against the JAX session's donated-buffer stepped loop."""
+    got, want = setup["decode"](), setup["want_stepped"]()
+    assert got.shape == want.shape and np.abs(want).max() > 0.05
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kernel=False),
+                                dict(enc_kernel=True)],
+                         ids=["kernel", "unfused", "enc_kernel"])
+def test_decoding_twice_gives_identical_wavs(setup, kw):
+    """One session, the same stream twice: ``init_state`` and
+    ``stream_decode`` reset every persistent buffer (caches, rings, waves,
+    positions), so nothing of the first stream reaches the second."""
+    kv = setup["session"](**kw)
+    stream = setup["tokens"][:, P:]
+    first = kv.stream_decode(stream)
+    rings = kv._ext["kv"][0]
+    second = kv.stream_decode(stream)
+    assert kv._ext["kv"][0] is rings            # the same buffers, reused
+    np.testing.assert_array_equal(second, first)
+    np.testing.assert_allclose(first, setup["decode"](**kw), atol=0, rtol=0)
+
+
+def test_hop_with_device_n_tok_equals_int_path(setup):
+    """The session's per-hop step (device n_tok, persistent buffers) after
+    the prompt prefill, over two steady hops and the finalize tail, against
+    ``kv_flow_step`` on a fresh cache with host-int positions."""
+    from moss_speech_decoder_cosy_torch.models.flow import kv_stream as T
+    kv = setup["session"]()
+    stream = setup["tokens"][:, P:P + 2 * HOP + kv.la + 1]
+    buf = kv._token_buf(stream)
+    cache, _ = kv.init_state()
+    kv._prefill(buf, cache)
+    plan = kv.schedule(stream.shape[1])
+    assert [f for _, f in plan] == [False, False, True]
+    got = [kv._hop(buf, cache, e, f)[0] for e, f in plan]
+    assert torch.is_tensor(cache["n_tok"]) and int(cache["n_tok"]) == \
+        P + stream.shape[1]
+
+    flow = kv.dec.flow
+    icache = T.init_kv_cache(flow.cfg, RING)
+    ptok = torch.from_numpy(setup["tokens"][:, :P]).long()
+    toks = torch.from_numpy(stream).long()
+    la, r = kv.la, kv.ratio
+    with torch.inference_mode():
+        _, icache = T.kv_flow_step(flow, kv._fw, ptok, toks[:, :la],
+                                   kv._prompt_feat, kv._emb, icache,
+                                   kv._pe_tok, kv._pe_mel)
+        off = 0
+        for (e, f), g in zip(plan, got):
+            want, icache = T.kv_flow_step(
+                flow, kv._fw, toks[:, off:off + e],
+                toks[:, off + e:off + e + la],
+                torch.zeros((1, e * r, kv.n_mel)), kv._emb, icache,
+                kv._pe_tok, kv._pe_mel, finalize=f)
+            off += e
+            np.testing.assert_array_equal(g.numpy(), want.numpy())
+    assert icache["n_tok"] == int(cache["n_tok"])
 
 
 def test_kernel_engine_matches_unfused_engine(setup):
@@ -182,12 +262,43 @@ def test_auto_engine_follows_the_kernel_limit(setup, monkeypatch, hop,
                                               est_dtype, kernel_ok):
     """The bf16 kernel holds a hop of at most 32 frames (8 tokens at ratio
     4): past it ``kernel="auto"`` takes the unfused engine and
-    ``kernel=True`` raises a ValueError that names the limit."""
+    ``kernel=True`` raises a ValueError that names the limit.  The
+    expectation is the one ``kernel_limit`` gives for the geometry of the
+    session's down, mid and up groups."""
     monkeypatch.setattr(setup["dec"], "estimator_dtype", est_dtype)
     kw = dict(block_size=hop, ring_tokens=2 * hop)
+    e = tcfg.tiny_flow_config().estimator
+    ch, cf = e.channels[0], 4 * hop
+    assert kernel_ok == all(
+        fb.kernel_limit(cf, 4 * 2 * hop + cf, cin, ch, 4 * ch, 4 * ch,
+                        e.num_heads, e.attention_head_dim, est_dtype) is None
+        for cin in (e.in_channels, ch, 2 * ch))
     assert setup["session"](**kw)._kernel is kernel_ok
     if kernel_ok:
         assert setup["session"](kernel=True, **kw)._kernel
     else:
         with pytest.raises(ValueError, match="at most 32 frames, got 36"):
+            setup["session"](kernel=True, **kw)
+
+
+@pytest.mark.parametrize("est_dtype,ring", [(torch.bfloat16, 300),
+                                            (torch.bfloat16, 480),
+                                            (torch.float32, 480)])
+def test_auto_engine_avoids_what_the_kernel_cannot_lay_out(setup, monkeypatch,
+                                                           est_dtype, ring):
+    """A ring whose slots do not fit the kernel's shared memory in a
+    cluster of 4 or 8 CTAs: ``kernel="auto"`` takes the unfused engine and
+    ``kernel=True`` raises a ValueError naming shared memory, exactly where
+    ``cluster_size`` finds no cluster (the launcher would refuse it)."""
+    monkeypatch.setattr(setup["dec"], "estimator_dtype", est_dtype)
+    e = tcfg.tiny_flow_config().estimator
+    ch, cf = e.channels[0], 4 * HOP
+    fits = all(fb.cluster_size(cf, 4 * ring + cf, cin, ch, 4 * ch, 4 * ch,
+                               e.num_heads, e.attention_head_dim, est_dtype)
+               for cin in (e.in_channels, ch, 2 * ch))
+    assert fits == (ring == 300)
+    kw = dict(block_size=HOP, ring_tokens=ring)
+    assert setup["session"](**kw)._kernel is fits
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
             setup["session"](kernel=True, **kw)

@@ -12,7 +12,10 @@ JAX package's, f32 on the CPU, tiny config, same weights (``weights.py``):
   interpret mode.
 
 Tolerances: mel 2e-5, wave outputs 2e-5 and encoder hops 2e-5 (f32,
-summation order only); the extend / shrink gathers are exact."""
+summation order only); the extend / shrink gathers are exact.  Each step
+also runs with its positions (``n_tok``; ``w``, ``k_total``,
+``base_frames``) held in tensors, as the KV session's captured steps pass
+them, and must give the host-int path's outputs bit for bit."""
 
 import numpy as np
 import pytest
@@ -92,19 +95,24 @@ def test_kv_flow_step_matches_jax(models, p):
     jcache = J.init_kv_cache(cfg, ring_t)
     pe_tok, pe_mel = J.pe_tables(cfg, 64)
     tcache = T.init_kv_cache(tcfg.tiny_flow_config(), ring_t)
+    # the same step with n_tok held in a tensor
+    dcache = dict(T.init_kv_cache(tcfg.tiny_flow_config(), ring_t),
+                  n_tok=torch.tensor(0))
     tpe_tok, tpe_mel = T.pe_tables(tcfg.tiny_flow_config(), 64)
     emb = m["emb"]
 
     def both(chunk, ctx, cond, finalize):
-        nonlocal jcache, tcache
+        nonlocal jcache, tcache, dcache
         jm, jcache = apply(m["fparams"], chunk, ctx, cond, emb, jcache,
                            pe_tok, pe_mel, finalize=finalize)
+        args = (torch.from_numpy(chunk).long(), torch.from_numpy(ctx).long(),
+                torch.from_numpy(cond), torch.from_numpy(emb))
         with torch.inference_mode():
-            tm, tcache = T.kv_flow_step(
-                m["flow"], m["fused"], torch.from_numpy(chunk).long(),
-                torch.from_numpy(ctx).long(), torch.from_numpy(cond),
-                torch.from_numpy(emb), tcache, tpe_tok, tpe_mel,
-                finalize=finalize)
+            tm, tcache = T.kv_flow_step(m["flow"], m["fused"], *args, tcache,
+                                        tpe_tok, tpe_mel, finalize=finalize)
+            dm, dcache = T.kv_flow_step(m["flow"], m["fused"], *args, dcache,
+                                        tpe_tok, tpe_mel, finalize=finalize)
+        assert torch.equal(dm, tm)
         return tm.numpy(), np.asarray(jm)
 
     pairs = []
@@ -130,6 +138,9 @@ def test_kv_flow_step_matches_jax(models, p):
     assert tcache["n_tok"] == int(jcache["n_tok"]) == p + n
     assert_tree_close(tcache["est"], jcache["est"], TOL, "est")
     assert_tree_close(tcache["enc"], jcache["enc"], TOL, "enc")
+    assert torch.is_tensor(dcache["n_tok"]) and int(dcache["n_tok"]) == p + n
+    assert_tree_close(dcache["est"], tcache["est"], 0.0, "device n_tok est")
+    assert_tree_close(dcache["enc"], tcache["enc"], 0.0, "device n_tok enc")
 
 
 def _random_est(cfg, ring_t, seed):
@@ -181,22 +192,31 @@ def test_wave_iteration_matches_jax(models, kernel, w):
     jout = wave.apply(m["fparams"], x_wave, mu_wave, mu_new, spks, est,
                       jnp.asarray(w), jnp.asarray(k), jnp.asarray(base))
 
-    test = to_torch(est)
     dec = m["flow"].decoder
-    with torch.inference_mode():
-        args = (torch.from_numpy(x_wave), torch.from_numpy(mu_wave),
-                torch.from_numpy(mu_new), torch.from_numpy(spks))
-        if kernel:
-            gp = T.group_estimator_params(m["flow"], m["fused"])
-            est_g = T.group_est_flat(test, dec.estimator.cfg)
-            tout = T.wave_step_kernel(gp, dec, *args, est_g, w, k, base)
-            test = T.ungroup_est_flat(est_g, dec.estimator.cfg)
-        else:
-            tout = T.wave_step(dec, m["fused"], *args, test, w, k, base)
+
+    def run(w, k, base):
+        test = to_torch(est)
+        with torch.inference_mode():
+            args = (torch.from_numpy(x_wave), torch.from_numpy(mu_wave),
+                    torch.from_numpy(mu_new), torch.from_numpy(spks))
+            if kernel:
+                gp = T.group_estimator_params(m["flow"], m["fused"])
+                est_g = T.group_est_flat(test, dec.estimator.cfg)
+                tout = T.wave_step_kernel(gp, dec, *args, est_g, w, k, base)
+                test = T.ungroup_est_flat(est_g, dec.estimator.cfg)
+            else:
+                tout = T.wave_step(dec, m["fused"], *args, test, w, k, base)
+        return tout, test
+
+    tout, test = run(w, k, base)
     for got, want, what in zip(tout, jout[:3], ("exit", "x", "mu")):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                    rtol=0, err_msg=what)
     assert_tree_close(test, jout[3], TOL, "est")
+    dout, dtest = run(*(torch.tensor(v) for v in (w, k, base)))
+    for got, want in zip(dout, tout):
+        assert torch.equal(got, want)
+    assert_tree_close(dtest, test, 0.0, "est, device scalars")
 
 
 def test_encoder_hop_kernel_matches_jax(models):
@@ -211,6 +231,7 @@ def test_encoder_hop_kernel_matches_jax(models):
         rng.randn(*a.shape).astype(np.float32)),
         J.init_kv_cache(cfg, ring_t)["enc"])
     tcache = to_torch(jcache)
+    dcache = to_torch(jcache)           # the same hops with a device n_tok
     pe_tok, pe_mel = J.pe_tables(cfg, 64)
     tpe_tok, tpe_mel = T.pe_tables(tcfg.tiny_flow_config(), 64)
     egp = J.group_encoder_params(m["fparams"], cfg.encoder)
@@ -223,10 +244,15 @@ def test_encoder_hop_kernel_matches_jax(models):
             egp, m["fparams"], cfg, jnp.asarray(chunk), jnp.asarray(ctx),
             jcache, n_tok, pe_tok, pe_mel, interpret=True)
         with torch.inference_mode():
+            toks = (torch.from_numpy(chunk).long(),
+                    torch.from_numpy(ctx).long())
             tmu, tcache = T.encoder_hop_kernel(
-                tegp, m["flow"], torch.from_numpy(chunk).long(),
-                torch.from_numpy(ctx).long(), tcache, n_tok, tpe_tok,
+                tegp, m["flow"], *toks, tcache, n_tok, tpe_tok, tpe_mel)
+            dmu, dcache = T.encoder_hop_kernel(
+                tegp, m["flow"], *toks, dcache, torch.tensor(n_tok), tpe_tok,
                 tpe_mel)
+        assert torch.equal(dmu, tmu)
+        assert_tree_close(dcache, tcache, 0.0, f"device n_tok, hop {i}")
         assert tmu.shape == (1, hop * cfg.token_mel_ratio, cfg.output_size)
         np.testing.assert_allclose(tmu.numpy(), np.asarray(jmu), atol=TOL,
                                    rtol=0, err_msg=f"mu, hop {i}")
