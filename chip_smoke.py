@@ -357,7 +357,8 @@ def conformer_phase(torch, fc) -> list:
     the up group with an empty ring, in ramp-up, full, and with a write
     that wraps.  Checks x_out and both rings (``kernel_tolerance``), that
     only the chunk's slots change and that no input changes.  Times each
-    case cold (L2 flushed before each launch) and warm."""
+    case cold (L2 flushed before each launch) and warm, and records the
+    launcher's grid and shared bytes a block."""
     d, heads, ff = 512, 8, 2048
     records = []
     for group, (n_layers, c, rt) in CONFORMER_GROUPS.items():
@@ -399,9 +400,16 @@ def conformer_phase(torch, fc) -> list:
                     p, x, pe, kv_p, pk_p, held, **kw))
                 bound, bound_by = conformer_bound_ms(n_layers, c, d, ff, rt,
                                                      n_tok, dname)
+                rc, grid, smem = fc.launch_config(c, d, heads, d // heads, ff,
+                                                  n_layers, rt, dtype)
+                if rc:
+                    raise AssertionError(f"fused_conformer_group_config "
+                                         f"returned {rc} for a shape that "
+                                         f"launched")
                 rec = dict(group=group, mode=mode, dtype=dname,
                            shape=dict(L=n_layers, C=c, Rt=rt, D=d,
                                       heads=heads, FF=ff, n_tok=n_tok),
+                           grid=grid, smem_bytes=smem,
                            max_abs_err=errs, tol=tols,
                            other_slots_kept=kept_ok,
                            inputs_untouched=untouched, ms=ms_cold,

@@ -27,10 +27,16 @@
 // a group is bound by bytes in both dtypes, and at B = 1 the weights are
 // nearly all of the bytes.
 //
-// Design (simple and correct first): one cooperative launch whose grid is
-// no larger than the blocks the card holds at once.  It walks the layers
-// phase by phase with a grid-wide barrier between phases, and every phase
-// splits its work over all blocks:
+// What bounds it in practice is latency, not bytes: every phase of a layer
+// is a chain of dependent L2 / HBM reads between grid barriers, and a block
+// that waits at a barrier has nothing in flight.  The structure is the
+// first port's; only how the operands reach the arithmetic is redesigned,
+// so that every global read is in flight before the arithmetic needs it.
+//
+// Structure: one cooperative launch whose grid is no larger than the blocks
+// the card holds at once.  It walks the layers phase by phase with a
+// grid-wide barrier between phases, and every phase splits its work over
+// all blocks:
 //   1. LayerNorm + QKV and the position projection: work items are 16-column
 //      tiles of W_qkv and W_pos;
 //   2. attention: one (head, query row) per work item;
@@ -44,8 +50,21 @@
 // memory as f32 holding T-rounded values.  The activation, q | k | v, pk,
 // the attention output and the FF hidden layer live in a scratch buffer in
 // global memory (L2); data written inside the launch is read with __ldcg,
-// past L1.  Everything runs on CUDA cores in f32: wgmma, TMA and fewer
-// barriers are later work.
+// past L1.  Everything runs on CUDA cores in f32.
+//
+// Operand delivery:
+//   - weights: each block streams its own sequence of weight slabs (16 KB,
+//     [k][16 columns]) through a 4-stage cp.async ring in shared memory
+//     (WeightRing).  The sequence is known in advance, so the copies run 3
+//     slabs ahead across items, phases, layers and grid barriers: a block
+//     arrives at a product with its first tiles landed, also after a phase
+//     in which it had no item;
+//   - staged rows: 16-byte loads, up to 8 in flight per lane;
+//   - attention: each slot's k and p rows of the head as 16-byte loads, 8 of
+//     each in flight, and 8 V loads in flight per thread in A V.
+// Every sum keeps the first port's order, so the outputs are the same bits.
+// Fewer barriers, tensor cores and a split of the score work across lanes
+// are later work.
 
 #include <atomic>
 #include <cmath>
@@ -64,6 +83,11 @@ constexpr int kRows = kWarps;  // query rows per register tile, one warp each
 constexpr int kCols = 16;      // output columns per product work item
 constexpr float kNeg = -1.0e10f;
 constexpr int kMaxSmem = 232448;
+constexpr int kStageVecs = 8;  // 16-byte loads in flight per lane, staging
+constexpr int kScoreVecs = 8;  // per row and slot thread, scores
+constexpr int kAvSlots = 8;    // per thread, A V
+constexpr int kStages = 4;     // weight slabs in the shared-memory ring
+constexpr int kSlabBytes = 16384;  // one slab: 512 (bf16) or 256 (f32) k rows
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -103,19 +127,24 @@ template <> __device__ __forceinline__ void copy_bits<__nv_bfloat16>(
       __ldcg(reinterpret_cast<const unsigned short*>(src));
 }
 
-// one 16-byte vector of a weight row: V consecutive columns as f32
+// One 16-byte vector of T: V consecutive values as f32.  ldcg() reads a
+// vector written earlier in the launch (through L2, as ld), unpack() turns
+// one in registers or in shared memory into f32.
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int V = 4;
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  using Raw = float4;
+  static __device__ __forceinline__ void unpack(const float4 v, float* out) {
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  static __device__ __forceinline__ float4 ldcg(const float* p) {
+    return __ldcg(reinterpret_cast<const float4*>(p));
   }
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int V = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  using Raw = uint4;
+  static __device__ __forceinline__ void unpack(const uint4 v, float* out) {
     const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // little-endian: the lower column first
@@ -123,7 +152,35 @@ template <> struct Vec<__nv_bfloat16> {
       out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
+  static __device__ __forceinline__ uint4 ldcg(const __nv_bfloat16* p) {
+    return __ldcg(reinterpret_cast<const uint4*>(p));
+  }
 };
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// async copy of 16 bytes into shared memory; ok == false writes zeros (src
+// is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 template <typename T>
 struct Params {
@@ -135,7 +192,104 @@ struct Params {
   T *qkv, *pk, *att, *ffh;  // scratch: C x 3D, C x D, C x D, C x FF
   const int* n_tok;      // (1,): frames written so far, read on the device
   int C, D, heads, dk, FF, L, Rt, kmax;
+  int nq, nd, nf;  // column tiles of W_qkv, of a D-wide and an FF-wide W
+  int ring_off;    // byte offset of the weight ring in shared memory
   float scale;
+};
+
+// The block's weight tiles, streamed through a ring of kStages slabs in
+// shared memory.  A slab is kSlabRows k rows x kCols columns of one column
+// tile, laid out [k][kCols].  A block knows its whole sequence of slabs in
+// advance: layer by layer, the product phases 1, 3, 4 and 5, its items
+// it = blockIdx.x, + gridDim.x, ..., each pass of kRows query rows, then K
+// in slabs.  So the copies run kStages - 1 slabs ahead of the arithmetic,
+// across items, passes, phases, layers and the grid barriers between them:
+// the weights are read-only in the launch, so no barrier orders them, and a
+// block that waits at a barrier, or has no item in a phase, has its next
+// tiles landing meanwhile.  tile_product consumes the slabs in the same
+// order through next().
+template <typename T>
+struct WeightRing {
+  static constexpr int kSlabRows = kSlabBytes / (kCols * (int)sizeof(T));
+  static constexpr int kSlabElems = kSlabRows * kCols;
+  T* buf;
+  int head;               // the stage of the next slab to consume
+  int l, ph, it, r0, k0;  // the next slab to copy (ph 0-3: phases 1, 3, 4,
+                          // 5); l == L once none is left
+
+  __device__ __forceinline__ static int items(const Params<T>& p, int ph) {
+    return ph == 0 ? p.nq + p.nd : ph == 2 ? p.nf : p.nd;
+  }
+  // from the cursor's phase on, the first in which this block has an item
+  __device__ __forceinline__ void settle(const Params<T>& p) {
+    while (l < p.L && it >= items(p, ph)) {
+      if (++ph == 4) {
+        ph = 0;
+        ++l;
+      }
+      it = blockIdx.x;
+    }
+  }
+  // copies the cursor's slab into stage st (zeros for columns past N),
+  // advances the cursor and commits one group, empty once none is left
+  __device__ __forceinline__ void issue(const Params<T>& p, int st) {
+    if (l < p.L) {
+      const int D = p.D, FF = p.FF;
+      const T* W = p.outk + (size_t)l * D * D;  // ph 1
+      int N = D, K = D, col0 = it * kCols;
+      if (ph == 0 && it < p.nq) {
+        W = p.qkvk + (size_t)l * D * 3 * D;
+        N = 3 * D;
+      } else if (ph == 0) {
+        W = p.posk + (size_t)l * D * D;
+        col0 = (it - p.nq) * kCols;
+      } else if (ph == 2) {
+        W = p.w1k + (size_t)l * D * FF;
+        N = FF;
+      } else if (ph == 3) {
+        W = p.w2k + (size_t)l * FF * D;
+        K = FF;
+      }
+      constexpr int VE = 16 / (int)sizeof(T);  // values per 16-byte copy
+      constexpr int CPR = kCols / VE;          // copies per slab row
+      const int rows = min(kSlabRows, K - k0);
+      T* dst = buf + st * kSlabElems;
+      for (int q = threadIdx.x; q < rows * CPR; q += kThreads) {
+        const int c = col0 + (q % CPR) * VE;
+        cp_async16(dst + q * VE, c < N ? W + (size_t)(k0 + q / CPR) * N + c : W,
+                   c < N);
+      }
+      k0 += kSlabRows;
+      if (k0 >= K) {
+        k0 = 0;
+        r0 += kRows;
+        if (r0 >= p.C) {
+          r0 = 0;
+          it += gridDim.x;
+          settle(p);
+        }
+      }
+    }
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void start(const Params<T>& p, T* ring) {
+    buf = ring;
+    head = l = ph = r0 = k0 = 0;
+    it = blockIdx.x;
+    settle(p);
+    for (int st = 0; st < kStages - 1; ++st) issue(p, st);
+  }
+  // the next slab, landed and visible to the whole block; the stage of the
+  // slab before it (done with, behind the barrier) takes the slab
+  // kStages - 1 ahead
+  __device__ __forceinline__ const T* next(const Params<T>& p) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const T* slab = buf + head * kSlabElems;
+    issue(p, head == 0 ? kStages - 1 : head - 1);
+    head = head + 1 == kStages ? 0 : head + 1;
+    return slab;
+  }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -169,51 +323,81 @@ __device__ float block_sum(float v, float* red) {
 // Rows r0 .. r0 + kRows - 1 of src (C x K) into As (kRows x K, f32), one
 // warp per row: flax LayerNorm (f32 statistics, fast variance clipped at 0,
 // eps 1e-12, rounded to T) when scale is given, else as they are.  Rows past
-// C are zeros.
+// C are zeros.  The warp reads its row as 16-byte vectors, lane l taking
+// vectors l, l + 32, ..., kStageVecs of them issued before any is stored;
+// the statistics then sum As with the lane-to-k mapping k = l, l + 32, ...,
+// so warp_sum meets the same partial sums as a scalar walk of the row.
 template <typename T>
 __device__ void stage_rows(float* As, const T* src, int C, int K, int r0,
                            const T* scale, const T* bias) {
+  constexpr int V = Vec<T>::V;
+  using Raw = typename Vec<T>::Raw;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = r0 + warp;
   float* a = As + warp * K;
   if (r >= C) {
     for (int k = lane; k < K; k += 32) a[k] = 0.f;
-  } else if (scale == nullptr) {
-    for (int k = lane; k < K; k += 32) a[k] = ld<T>(src + (size_t)r * K + k);
   } else {
-    float s = 0.f, s2 = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float v = ld<T>(src + (size_t)r * K + k);
-      a[k] = v;
-      s += v;
-      s2 += v * v;
+    // K is a multiple of 8, so every row starts on 16 bytes
+    const Raw* row = reinterpret_cast<const Raw*>(src + (size_t)r * K);
+    const int nv = K / V;
+    for (int v0 = lane; v0 < nv; v0 += 32 * kStageVecs) {
+      Raw buf[kStageVecs];
+#pragma unroll
+      for (int i = 0; i < kStageVecs; ++i)
+        if (v0 + 32 * i < nv) buf[i] = __ldcg(row + v0 + 32 * i);
+#pragma unroll
+      for (int i = 0; i < kStageVecs; ++i) {
+        if (v0 + 32 * i >= nv) break;
+        float f[V];
+        Vec<T>::unpack(buf[i], f);
+        float4* dst = reinterpret_cast<float4*>(a + (v0 + 32 * i) * V);
+#pragma unroll
+        for (int j = 0; j < V / 4; ++j)
+          dst[j] = make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2],
+                               f[4 * j + 3]);
+      }
     }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    const float mean = s / K;
-    const float var = fmaxf(s2 / K - mean * mean, 0.f);
-    const float inv = 1.f / sqrtf(var + 1e-12f);
-    for (int k = lane; k < K; k += 32)
-      a[k] = rnd<T>((a[k] - mean) * (inv * to_f<T>(scale[k])) +
-                    to_f<T>(bias[k]));
+    if (scale != nullptr) {
+      __syncwarp();
+      float s = 0.f, s2 = 0.f;
+      for (int k = lane; k < K; k += 32) {
+        const float v = a[k];
+        s += v;
+        s2 += v * v;
+      }
+      s = warp_sum(s);
+      s2 = warp_sum(s2);
+      const float mean = s / K;
+      const float var = fmaxf(s2 / K - mean * mean, 0.f);
+      const float inv = 1.f / sqrtf(var + 1e-12f);
+      for (int k = lane; k < K; k += 32)
+        a[k] = rnd<T>((a[k] - mean) * (inv * to_f<T>(scale[k])) +
+                      to_f<T>(bias[k]));
+    }
   }
   __syncthreads();
 }
 
 // One product work item: epi(r, n, acc) with acc = sum_k As[r][k] W[k][n]
 // for the kRows staged rows and the kCols columns from col0 of W (K x N,
-// row-major; N a multiple of the vector width).  A thread owns one 16-byte
-// column vector and the k rows kg, kg + KG, ...; the k-groups' partial sums
-// meet through warp shuffles, then through red (kWarps x kRows x kCols) in
-// a fixed order.  epi is called for every (r, n) of the tile: it checks the
-// bounds.
+// row-major; N a multiple of the vector width), W's tile coming from the
+// ring, slab by slab.  A thread owns one 16-byte column vector and the k
+// rows kg, kg + KG, ...; a slab holds a multiple of KG rows, so each thread
+// meets its k rows in that order across the slabs.  The k-groups' partial
+// sums meet through warp shuffles, then through red (kWarps x kRows x
+// kCols) in a fixed order.  epi is called for every (r, n) of the tile: it
+// checks the bounds.
 template <typename T, typename Epi>
 __device__ __forceinline__ void tile_product(const float* As, int K,
-                                             const T* W, int N, int col0,
-                                             float* red, Epi epi) {
+                                             WeightRing<T>& ring,
+                                             const Params<T>& p, int N,
+                                             int col0, float* red, Epi epi) {
   constexpr int V = Vec<T>::V;
   constexpr int NV = kCols / V;       // vectors across the tile
   constexpr int KG = kThreads / NV;   // k-groups
+  constexpr int SR = WeightRing<T>::kSlabRows;
+  static_assert(SR % KG == 0, "a slab keeps each thread's k order");
   const int cv = threadIdx.x % NV, kg = threadIdx.x / NV;
   const int n0 = col0 + cv * V;
   float acc[kRows][V];
@@ -221,17 +405,21 @@ __device__ __forceinline__ void tile_product(const float* As, int K,
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
-  if (n0 < N) {
-    const T* w = W + n0;
+  for (int k0 = 0; k0 < K; k0 += SR) {
+    const T* w = ring.next(p) + cv * V;
+    if (n0 < N) {
+      const int kn = min(SR, K - k0);
 #pragma unroll 4
-    for (int k = kg; k < K; k += KG) {
-      float wv[V];
-      Vec<T>::load(w + (size_t)k * N, wv);
+      for (int k = kg; k < kn; k += KG) {
+        float wv[V];
+        Vec<T>::unpack(
+            *reinterpret_cast<const typename Vec<T>::Raw*>(w + k * kCols), wv);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float a = As[r * K + k];
+        for (int r = 0; r < kRows; ++r) {
+          const float a = As[r * K + k0 + k];
 #pragma unroll
-        for (int j = 0; j < V; ++j) acc[r][j] = fmaf(a, wv[j], acc[r][j]);
+          for (int j = 0; j < V; ++j) acc[r][j] = fmaf(a, wv[j], acc[r][j]);
+        }
       }
     }
   }
@@ -266,6 +454,8 @@ __device__ __forceinline__ void tile_product(const float* As, int K,
 template <typename T>
 __device__ void attend(const Params<T>& p, int l, int h, int r, int n_tok,
                        float* sm) {
+  constexpr int V = Vec<T>::V;
+  using Raw = typename Vec<T>::Raw;
   const int D = p.D, dk = p.dk, Rt = p.Rt, Tk = Rt + p.C, D3 = 3 * D;
   float* sc = sm;             // Tk scores, then weights
   float* qs = sc + Tk;        // q + u | q + v
@@ -290,7 +480,32 @@ __device__ void attend(const Params<T>& p, int l, int h, int r, int n_tok,
       const T* pr = s < Rt ? ring_pk + (size_t)s * D
                            : p.pk + (size_t)(s - Rt) * D + h * dk;
       float s1 = 0.f, s2 = 0.f;
-      for (int d = 0; d < dk; ++d) {
+      // the vector prefix: kScoreVecs vectors of the k row and of the p row
+      // in flight, then the two fmaf chains over them in d order
+      const int dv = aligned16(kr) && aligned16(pr) ? dk / V * V : 0;
+      for (int d = 0; d < dv; d += kScoreVecs * V) {
+        const int nv = min(kScoreVecs, (dv - d) / V);
+        Raw kb[kScoreVecs], pb[kScoreVecs];
+#pragma unroll
+        for (int i = 0; i < kScoreVecs; ++i)
+          if (i < nv) {
+            kb[i] = Vec<T>::ldcg(kr + d + i * V);
+            pb[i] = Vec<T>::ldcg(pr + d + i * V);
+          }
+#pragma unroll
+        for (int i = 0; i < kScoreVecs; ++i) {
+          if (i >= nv) break;
+          float kf[V], pf[V];
+          Vec<T>::unpack(kb[i], kf);
+          Vec<T>::unpack(pb[i], pf);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            s1 = fmaf(qs[d + i * V + j], kf[j], s1);
+            s2 = fmaf(qs[dk + d + i * V + j], pf[j], s2);
+          }
+        }
+      }
+      for (int d = dv; d < dk; ++d) {  // a row off 16 bytes, or dk's tail
         s1 = fmaf(qs[d], ld<T>(kr + d), s1);
         s2 = fmaf(qs[dk + d], ld<T>(pr + d), s2);
       }
@@ -314,12 +529,21 @@ __device__ void attend(const Params<T>& p, int l, int h, int r, int n_tok,
   const int G = kThreads / dk;
   const int g = threadIdx.x / dk, d = threadIdx.x % dk;
   if (g < G) {
+    auto vrow = [&](int s) {
+      return s < Rt ? ring_kv + (size_t)s * 2 * D + D
+                    : p.qkv + (size_t)(s - Rt) * D3 + 2 * D + h * dk;
+    };
+    // kAvSlots loads in flight, then the acc chain in slot order
     float acc = 0.f;
-    for (int s = g; s < Tk; s += G) {
-      const T* vr = s < Rt ? ring_kv + (size_t)s * 2 * D + D
-                           : p.qkv + (size_t)(s - Rt) * D3 + 2 * D + h * dk;
-      acc = fmaf(sc[s], ld<T>(vr + d), acc);
+    int s = g;
+    for (; s + (kAvSlots - 1) * G < Tk; s += kAvSlots * G) {
+      float v[kAvSlots];
+#pragma unroll
+      for (int i = 0; i < kAvSlots; ++i) v[i] = ld<T>(vrow(s + i * G) + d);
+#pragma unroll
+      for (int i = 0; i < kAvSlots; ++i) acc = fmaf(sc[s + i * G], v[i], acc);
     }
+    for (; s < Tk; s += G) acc = fmaf(sc[s], ld<T>(vrow(s) + d), acc);
     part[g * dk + d] = acc;
   }
   __syncthreads();
@@ -331,10 +555,6 @@ __device__ void attend(const Params<T>& p, int l, int h, int r, int n_tok,
   __syncthreads();
 }
 
-__host__ __device__ __forceinline__ int cdiv(int a, int b) {
-  return (a + b - 1) / b;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_conformer_group_kernel(const Params<T> p) {
@@ -343,7 +563,10 @@ fused_conformer_group_kernel(const Params<T> p) {
   const int C = p.C, D = p.D, D3 = 3 * D, FF = p.FF;
   float* As = smem;                   // kRows x (D or FF), staged rows
   float* red = As + kRows * p.kmax;   // kWarps x kRows x kCols
-  const int nq = cdiv(D3, kCols), nd = cdiv(D, kCols), nf = cdiv(FF, kCols);
+  const int nq = p.nq, nd = p.nd, nf = p.nf;
+  WeightRing<T> ring;
+  ring.start(p, reinterpret_cast<T*>(reinterpret_cast<char*>(smem) +
+                                     p.ring_off));
   // n_tok from device memory (the TPU kernel's scalar prefetch), so a
   // captured launch reads each replay's value; a negative count is 0
   const int n_tok = max(__ldg(p.n_tok), 0);
@@ -360,14 +583,14 @@ fused_conformer_group_kernel(const Params<T> p) {
       for (int r0 = 0; r0 < C; r0 += kRows) {
         if (pos) {
           stage_rows<T>(As, p.pe, C, D, r0, nullptr, nullptr);
-          tile_product<T>(As, D, p.posk + lD * D, D, col0, red,
+          tile_product<T>(As, D, ring, p, D, col0, red,  // W_pos
                           [&](int r, int n, float acc) {
                             if (r0 + r < C && n < D)
                               p.pk[(size_t)(r0 + r) * D + n] = from_f<T>(acc);
                           });
         } else {
           stage_rows<T>(As, xsrc, C, D, r0, p.nms + lD, p.nmb + lD);
-          tile_product<T>(As, D, p.qkvk + lD * D3, D3, col0, red,
+          tile_product<T>(As, D, ring, p, D3, col0, red,  // W_qkv
                           [&](int r, int n, float acc) {
                             if (r0 + r < C && n < D3)
                               p.qkv[(size_t)(r0 + r) * D3 + n] = from_f<T>(
@@ -404,7 +627,7 @@ fused_conformer_group_kernel(const Params<T> p) {
     for (int it = blockIdx.x; it < nd; it += gridDim.x) {
       for (int r0 = 0; r0 < C; r0 += kRows) {
         stage_rows<T>(As, p.att, C, D, r0, nullptr, nullptr);
-        tile_product<T>(As, D, p.outk + lD * D, D, it * kCols, red,
+        tile_product<T>(As, D, ring, p, D, it * kCols, red,  // W_out
                         [&](int r, int n, float acc) {
                           if (r0 + r < C && n < D) {
                             const size_t i = (size_t)(r0 + r) * D + n;
@@ -420,7 +643,7 @@ fused_conformer_group_kernel(const Params<T> p) {
     for (int it = blockIdx.x; it < nf; it += gridDim.x) {
       for (int r0 = 0; r0 < C; r0 += kRows) {
         stage_rows<T>(As, p.x_out, C, D, r0, p.nfs + lD, p.nfb + lD);
-        tile_product<T>(As, D, p.w1k + lD * FF, FF, it * kCols, red,
+        tile_product<T>(As, D, ring, p, FF, it * kCols, red,  // W_1
                         [&](int r, int n, float acc) {
                           if (r0 + r < C && n < FF) {
                             const float v =
@@ -437,7 +660,7 @@ fused_conformer_group_kernel(const Params<T> p) {
     for (int it = blockIdx.x; it < nd; it += gridDim.x) {
       for (int r0 = 0; r0 < C; r0 += kRows) {
         stage_rows<T>(As, p.ffh, C, FF, r0, nullptr, nullptr);
-        tile_product<T>(As, FF, p.w2k + lF * D, D, it * kCols, red,
+        tile_product<T>(As, FF, ring, p, D, it * kCols, red,  // W_2
                         [&](int r, int n, float acc) {
                           if (r0 + r < C && n < D) {
                             const size_t i = (size_t)(r0 + r) * D + n;
@@ -450,6 +673,7 @@ fused_conformer_group_kernel(const Params<T> p) {
     }
     if (l + 1 < p.L) grid.sync();
   }
+  cp_async_wait<0>();  // every group is empty by now
 }
 
 // Per device and dtype: the dynamic shared-memory limit raised once, and
@@ -483,6 +707,40 @@ cudaError_t device_setup(int* sms) {
   return err;
 }
 
+// Dynamic shared memory of a launch: the staged rows and red (products) or
+// the attention's scratch, whichever is larger, then the weight ring on 16
+// bytes.  Returns the ring's byte offset; *bytes gets the total.
+size_t smem_layout(int C, int dk, int kmax, int Rt, size_t* bytes) {
+  const size_t prod = (size_t)kRows * kmax + (size_t)kWarps * kRows * kCols;
+  const size_t attn = (size_t)(Rt + C) + 2 * dk + kThreads + kWarps;
+  const size_t ring = (sizeof(float) * (prod > attn ? prod : attn) + 15) /
+                      16 * 16;
+  *bytes = ring + (size_t)kStages * kSlabBytes;
+  return ring;
+}
+
+// The launch's grid and shared memory: no more blocks than the card holds
+// at once, nor than the largest phase has work items.
+template <typename T>
+int plan(int C, int D, int heads, int dk, int FF, int Rt, int* grid,
+         size_t* smem) {
+  smem_layout(C, dk, D > FF ? D : FF, Rt, smem);
+  if (*smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = device_setup<T>(&sms);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_conformer_group_kernel<T>, kThreads, *smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  int items = cdiv(3 * D, kCols) + cdiv(D, kCols);
+  if (heads * C > items) items = heads * C;
+  if (cdiv(FF, kCols) > items) items = cdiv(FF, kCols);
+  *grid = per_sm * sms < items ? per_sm * sms : items;
+  return 0;
+}
+
 template <typename T>
 int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
            int Rt, cudaStream_t stream) {
@@ -503,26 +761,16 @@ int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
   p.C = C; p.D = D; p.heads = heads; p.dk = dk; p.FF = FF; p.L = L;
   p.Rt = Rt;
   p.kmax = D > FF ? D : FF;
+  p.nq = cdiv(3 * D, kCols);
+  p.nd = cdiv(D, kCols);
+  p.nf = cdiv(FF, kCols);
   p.scale = 1.f / sqrtf((float)dk);
 
-  const size_t prod = (size_t)kRows * p.kmax + (size_t)kWarps * kRows * kCols;
-  const size_t attn = (size_t)(Rt + C) + 2 * dk + kThreads + kWarps;
-  const size_t smem = sizeof(float) * (prod > attn ? prod : attn);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = device_setup<T>(&sms);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_conformer_group_kernel<T>, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // no more blocks than the largest phase has work items
-  int items = cdiv(3 * D, kCols) + cdiv(D, kCols);
-  if (heads * C > items) items = heads * C;
-  if (cdiv(FF, kCols) > items) items = cdiv(FF, kCols);
-  int grid = per_sm * sms;
-  if (grid > items) grid = items;
+  int grid = 0;
+  size_t smem = 0;
+  const int rc = plan<T>(C, D, heads, dk, FF, Rt, &grid, &smem);
+  if (rc) return rc;
+  p.ring_off = (int)smem_layout(C, dk, p.kmax, Rt, &smem);
   // a cooperative launch (the grid barrier needs every block resident; the
   // grid is no larger than the card holds) through cudaLaunchKernelEx, which
   // stream capture records as a cooperative graph node
@@ -536,9 +784,15 @@ int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_conformer_group_kernel<T>, p);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, fused_conformer_group_kernel<T>, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int C, int D, int heads, int head_dim, int FF, int L, int Rt) {
+  return C <= 0 || C > Rt || heads <= 0 || head_dim <= 0 ||
+         head_dim > kThreads || heads * head_dim != D || D % 8 || FF <= 0 ||
+         FF % 8 || L <= 0;
 }
 
 }  // namespace
@@ -551,9 +805,7 @@ int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
 extern "C" int fused_conformer_group(void* const* ptrs, int dtype, int C,
                                      int D, int heads, int head_dim, int FF,
                                      int L, int Rt, void* stream) {
-  if (C <= 0 || C > Rt || heads <= 0 || head_dim <= 0 ||
-      head_dim > kThreads || heads * head_dim != D || D % 8 || FF <= 0 ||
-      FF % 8 || L <= 0)
+  if (bad_shape(C, D, heads, head_dim, FF, L, Rt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -561,4 +813,23 @@ extern "C" int fused_conformer_group(void* const* ptrs, int dtype, int C,
   if (dtype == 1)
     return launch<__nv_bfloat16>(ptrs, C, D, heads, head_dim, FF, L, Rt, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launcher's choice for this shape, without a launch: out[0] the grid,
+// out[1] the dynamic shared memory of a block in bytes.  Returns what a
+// launch would return before launching (cudaErrorInvalidValue for a shape
+// the kernel refuses, its shared memory included).
+extern "C" int fused_conformer_group_config(int dtype, int C, int D,
+                                            int heads, int head_dim, int FF,
+                                            int L, int Rt, int* out) {
+  if (bad_shape(C, D, heads, head_dim, FF, L, Rt))
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int rc = (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    rc = plan<float>(C, D, heads, head_dim, FF, Rt, &out[0], &smem);
+  else if (dtype == 1)
+    rc = plan<__nv_bfloat16>(C, D, heads, head_dim, FF, Rt, &out[0], &smem);
+  out[1] = (int)smem;
+  return rc;
 }

@@ -64,6 +64,8 @@ from .fused_block import (_DTYPE_CODE, _NEG, Scalar, _dot,  # noqa: F401
 CONF_KEYS = ("nms", "nmb", "qkvk", "qkvb", "posk", "pbu", "pbv", "outk",
              "outb", "nfs", "nfb", "w1k", "w1b", "w2k", "w2b")
 _LN_EPS = 1e-12
+_MAX_SMEM = 232448              # bytes a block may use on an H100
+_RING_BYTES = 4 * 16384         # the kernel's weight ring: 4 slabs of 16 KB
 
 
 # ------------------------------------------------------------ plain version
@@ -206,6 +208,22 @@ def _check(p, x, pos_emb, ring_kv, ring_pk, n_tok, heads, head_dim,
         raise ValueError(f"D {d} and FF {ff} must be multiples of 8")
     if head_dim > 256:
         raise ValueError(f"head_dim {head_dim} must be at most 256")
+    need = kernel_smem_bytes(c, d, head_dim, ff, rt)
+    if need > _MAX_SMEM:
+        raise ValueError(f"the kernel's shared memory for D {d}, FF {ff}, "
+                         f"ring {rt} needs {need} bytes a block, over the "
+                         f"{_MAX_SMEM} an H100 block may use")
+
+
+def kernel_smem_bytes(c: int, d: int, head_dim: int, ff: int, rt: int
+                      ) -> int:
+    """Dynamic shared memory of one block of ``csrc/fused_conformer_group.cu``
+    (its ``smem_layout``, byte for byte): 8 staged f32 rows of max(D, FF)
+    and the products' reduction, or the attention's scratch, whichever is
+    larger, then the weight ring on 16 bytes.  The same in both dtypes."""
+    prod = 8 * max(d, ff) + 8 * 8 * 16
+    attn = rt + c + 2 * head_dim + 256 + 8
+    return -(-4 * max(prod, attn) // 16) * 16 + _RING_BYTES
 
 
 def _kernel_fn():
@@ -215,6 +233,21 @@ def _kernel_fn():
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     return fn
+
+
+def launch_config(c: int, d: int, heads: int, head_dim: int, ff: int,
+                  n_layers: int, rt: int, dtype: torch.dtype
+                  ) -> Tuple[int, int, int]:
+    """The compiled launcher's choice for this shape on the current card,
+    without a launch: (return code, grid, shared bytes a block); a code
+    other than 0 is what a launch would return.  Builds the kernel if
+    needed."""
+    fn = cuda_build.load("fused_conformer_group").fused_conformer_group_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 2)()
+    rc = fn(_DTYPE_CODE[dtype], c, d, heads, head_dim, ff, n_layers, rt, out)
+    return rc, out[0], out[1]
 
 
 def launch_fused_conformer_group(p, x, pos_emb, ring_kv, ring_pk,

@@ -219,6 +219,14 @@ CONFORMER_CASES = {
     "more_slots_than_threads": (1, 4, 64, 1, 64, 300, 290),
     "blocks_group_full_width": (6, 5, 512, 8, 2048, 35, 100),
     "up_group_full_width_wrap": (4, 20, 512, 8, 2048, 140, 410),
+    # two layers at full width: 96 of the 128 blocks have no item in
+    # phases 3 and 5 and reach the next phase with slabs prefetched
+    "full_width_two_layers": (2, 5, 512, 8, 2048, 35, 35),
+    # 256 column tiles in phases 1 and 4 over at most 132 blocks, so blocks
+    # take several items a phase; W_2's K of 4096 is 8 or 16 slabs
+    "wide_several_items_a_block": (2, 20, 1024, 16, 4096, 60, 75),
+    # FF neither a multiple of a slab's rows nor of 16 columns
+    "wide_ff_ragged_slab_and_tile": (2, 9, 1024, 16, 3000, 40, 33),
 }
 
 
@@ -259,6 +267,39 @@ def test_fused_conformer_group_matches_plain(card, case, dtype):
     assert torch.equal(pk_kern[:, :, kept], pk[:, :, kept])
     for before_t, after_t in zip(inputs, (x, pe)):
         assert torch.equal(before_t, after_t)
+
+
+def test_conformer_smem_limit_matches_the_launcher(card):
+    """``fused_conformer.kernel_smem_bytes`` (the Python copy of the
+    launcher's layout) against the compiled entry over widths and rings in
+    both dtypes: the same bytes, and the entry refuses exactly the shapes
+    the wrapper refuses, so the KV session never meets a bare CUDA error
+    there.  The full-width groups fit one block an SM."""
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    seen = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, heads, ff in ((512, 8, 2048), (512, 8, 5088), (512, 8, 5096),
+                             (1024, 16, 4096), (64, 2, 7000), (24, 3, 40)):
+            for c, rt in ((5, 35), (20, 140), (1, 3000)):
+                want = fc.kernel_smem_bytes(c, d, d // heads, ff, rt)
+                rc, grid, smem = fc.launch_config(c, d, heads, d // heads,
+                                                  ff, 2, rt, dtype)
+                assert smem == want, (dtype, d, ff, c, rt)
+                fits = want <= 232448
+                assert (rc == 0) == fits and (grid > 0) == fits
+                seen.add(fits)
+    assert seen == {True, False}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c, rt, items in ((5, 35, 128), (20, 140, 160)):
+        rc, grid, _ = fc.launch_config(c, 512, 8, 64, 2048, 4, rt,
+                                       torch.bfloat16)
+        assert rc == 0 and grid == min(items, sms)
+    p, x, pe, kv, pk = fc.make_conformer_inputs(1, 1, 512, 8, 5096, 1,
+                                                torch.bfloat16, card)
+    before = fc.launch_fused_conformer_group.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fc.fused_conformer_group(p, x, pe, kv, pk, 0, heads=8, head_dim=64)
+    assert fc.launch_fused_conformer_group.launches == before
 
 
 def test_fused_conformer_group_rejects_what_it_cannot_run(card):

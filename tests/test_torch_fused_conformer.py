@@ -171,6 +171,44 @@ def test_wrapper_rejects_what_the_kernel_cannot_run():
         fc.fused_conformer_group(p, x, pe, kv, pk, -1, **kw)
 
 
+@pytest.mark.parametrize("n_layers,c,d,heads,ff,rt,fits", [
+    (6, 5, 512, 8, 2048, 35, True),
+    (4, 20, 512, 8, 2048, 140, True),
+    (1, 1, 512, 8, 5088, 1, True),
+    (1, 1, 512, 8, 5096, 1, False),
+], ids=["blocks_group", "up_group", "widest_ff", "past_widest_ff"])
+def test_wrapper_names_the_kernels_shared_memory(n_layers, c, d, heads, ff,
+                                                 rt, fits):
+    """The kernel's block holds 8 staged f32 rows of max(D, FF) and a 64 KB
+    weight ring: the encoder's two full-width groups fit, FF 5088 fills the
+    H100's 232448 bytes exactly, and the next FF is refused by the wrapper
+    with a ValueError naming shared memory, on any device."""
+    p, x, pe, kv, pk = fc.make_conformer_inputs(n_layers, c, d, heads, ff,
+                                                rt, torch.bfloat16, "cpu")
+    need = fc.kernel_smem_bytes(c, d, d // heads, ff, rt)
+    assert (need <= 232448) == fits
+    if fits:
+        fc._check(p, x, pe, kv, pk, 0, heads, d // heads, "swish")
+    else:
+        with pytest.raises(ValueError, match=f"shared memory .* needs {need}"):
+            fc.fused_conformer_group(p, x, pe, kv, pk, 0, heads=heads,
+                                     head_dim=d // heads)
+
+
+def test_phase_stamps_find_every_barrier():
+    """``bin/conformer_phases`` stamps the kernel source by its text: a
+    stamp at the start, before and after each of the five grid barriers of
+    a layer, and at the end."""
+    from pathlib import Path
+    from moss_speech_decoder_cosy_torch.bin import conformer_phases as cp
+    from moss_speech_decoder_cosy_torch.ops import cuda_build
+    src = Path(cuda_build.CSRC / "fused_conformer_group.cu").read_text()
+    assert src.count("grid.sync();") == 5
+    stamped = cp.instrument(src)
+    assert stamped.count("PHASE_STAMP();") == 1 + 2 * 5 + 1
+    assert "g_phase_grid = (int)cfg.gridDim.x;" in stamped
+
+
 def test_kernel_path_needs_cuda_tensors():
     """A CPU tensor never reaches the kernel's launcher."""
     p, x, pe, kv, pk = _small_inputs()
