@@ -28,10 +28,13 @@
 // nearly all of the bytes.
 //
 // What bounds it in practice is latency, not bytes: every phase of a layer
-// is a chain of dependent L2 / HBM reads between grid barriers, and a block
-// that waits at a barrier has nothing in flight.  The structure is the
-// first port's; only how the operands reach the arithmetic is redesigned,
-// so that every global read is in flight before the arithmetic needs it.
+// is a short chain of dependent L2 / HBM reads (rows to stage, LayerNorm
+// parameters, a weight tile, the epilogue's bias and residual) between
+// grid barriers: on an H100 the blocks group took 47 us a layer in the
+// first port and takes 39 us here, against the 2 us its bytes need.
+// The structure is the first port's; what is redesigned is how the operands
+// reach the arithmetic, so that the reads of a step are in flight together
+// instead of one after another.
 //
 // Structure: one cooperative launch whose grid is no larger than the blocks
 // the card holds at once.  It walks the layers phase by phase with a
@@ -49,22 +52,23 @@
 // The query rows (LayerNorm'd where the layer asks) are staged in shared
 // memory as f32 holding T-rounded values.  The activation, q | k | v, pk,
 // the attention output and the FF hidden layer live in a scratch buffer in
-// global memory (L2); data written inside the launch is read with __ldcg,
-// past L1.  Everything runs on CUDA cores in f32.
+// global memory (L2); data written inside the launch is read with __ldcg or
+// cp.async.cg, past L1.  Everything runs on CUDA cores in f32.
 //
 // Operand delivery:
-//   - weights: each block streams its own sequence of weight slabs (16 KB,
-//     [k][16 columns]) through a 4-stage cp.async ring in shared memory
-//     (WeightRing).  The sequence is known in advance, so the copies run 3
-//     slabs ahead across items, phases, layers and grid barriers: a block
-//     arrives at a product with its first tiles landed, also after a phase
-//     in which it had no item;
-//   - staged rows: 16-byte loads, up to 8 in flight per lane;
-//   - attention: each slot's k and p rows of the head as 16-byte loads, 8 of
-//     each in flight, and 8 V loads in flight per thread in A V.
+//   - staged rows: 16-byte loads, kStageVecs in flight per lane; a
+//     LayerNorm's scale and bias copied into shared memory by cp.async
+//     while the rows arrive;
+//   - products: the weight vectors 4 k rows at a time, as before; the
+//     epilogue's bias and residual copied into shared memory by cp.async
+//     when the item starts, so they have landed when its sum is done;
+//   - attention: each slot's k and p rows of the head as 16-byte loads,
+//     kScoreVecs of each in flight, and kAvSlots V loads in flight in A V.
 // Every sum keeps the first port's order, so the outputs are the same bits.
-// Fewer barriers, tensor cores and a split of the score work across lanes
-// are later work.
+// A cp.async ring that streamed each block's weight tiles ahead across the
+// grid barriers measured slower than reading them in place, at every depth
+// and slab size tried (PERF.md), and is not used.  Fewer barriers, tensor
+// cores and a split of the score work across lanes are later work.
 
 #include <atomic>
 #include <cmath>
@@ -86,8 +90,6 @@ constexpr int kMaxSmem = 232448;
 constexpr int kStageVecs = 8;  // 16-byte loads in flight per lane, staging
 constexpr int kScoreVecs = 8;  // per row and slot thread, scores
 constexpr int kAvSlots = 8;    // per thread, A V
-constexpr int kStages = 4;     // weight slabs in the shared-memory ring
-constexpr int kSlabBytes = 16384;  // one slab: 512 (bf16) or 256 (f32) k rows
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -192,104 +194,7 @@ struct Params {
   T *qkv, *pk, *att, *ffh;  // scratch: C x 3D, C x D, C x D, C x FF
   const int* n_tok;      // (1,): frames written so far, read on the device
   int C, D, heads, dk, FF, L, Rt, kmax;
-  int nq, nd, nf;  // column tiles of W_qkv, of a D-wide and an FF-wide W
-  int ring_off;    // byte offset of the weight ring in shared memory
   float scale;
-};
-
-// The block's weight tiles, streamed through a ring of kStages slabs in
-// shared memory.  A slab is kSlabRows k rows x kCols columns of one column
-// tile, laid out [k][kCols].  A block knows its whole sequence of slabs in
-// advance: layer by layer, the product phases 1, 3, 4 and 5, its items
-// it = blockIdx.x, + gridDim.x, ..., each pass of kRows query rows, then K
-// in slabs.  So the copies run kStages - 1 slabs ahead of the arithmetic,
-// across items, passes, phases, layers and the grid barriers between them:
-// the weights are read-only in the launch, so no barrier orders them, and a
-// block that waits at a barrier, or has no item in a phase, has its next
-// tiles landing meanwhile.  tile_product consumes the slabs in the same
-// order through next().
-template <typename T>
-struct WeightRing {
-  static constexpr int kSlabRows = kSlabBytes / (kCols * (int)sizeof(T));
-  static constexpr int kSlabElems = kSlabRows * kCols;
-  T* buf;
-  int head;               // the stage of the next slab to consume
-  int l, ph, it, r0, k0;  // the next slab to copy (ph 0-3: phases 1, 3, 4,
-                          // 5); l == L once none is left
-
-  __device__ __forceinline__ static int items(const Params<T>& p, int ph) {
-    return ph == 0 ? p.nq + p.nd : ph == 2 ? p.nf : p.nd;
-  }
-  // from the cursor's phase on, the first in which this block has an item
-  __device__ __forceinline__ void settle(const Params<T>& p) {
-    while (l < p.L && it >= items(p, ph)) {
-      if (++ph == 4) {
-        ph = 0;
-        ++l;
-      }
-      it = blockIdx.x;
-    }
-  }
-  // copies the cursor's slab into stage st (zeros for columns past N),
-  // advances the cursor and commits one group, empty once none is left
-  __device__ __forceinline__ void issue(const Params<T>& p, int st) {
-    if (l < p.L) {
-      const int D = p.D, FF = p.FF;
-      const T* W = p.outk + (size_t)l * D * D;  // ph 1
-      int N = D, K = D, col0 = it * kCols;
-      if (ph == 0 && it < p.nq) {
-        W = p.qkvk + (size_t)l * D * 3 * D;
-        N = 3 * D;
-      } else if (ph == 0) {
-        W = p.posk + (size_t)l * D * D;
-        col0 = (it - p.nq) * kCols;
-      } else if (ph == 2) {
-        W = p.w1k + (size_t)l * D * FF;
-        N = FF;
-      } else if (ph == 3) {
-        W = p.w2k + (size_t)l * FF * D;
-        K = FF;
-      }
-      constexpr int VE = 16 / (int)sizeof(T);  // values per 16-byte copy
-      constexpr int CPR = kCols / VE;          // copies per slab row
-      const int rows = min(kSlabRows, K - k0);
-      T* dst = buf + st * kSlabElems;
-      for (int q = threadIdx.x; q < rows * CPR; q += kThreads) {
-        const int c = col0 + (q % CPR) * VE;
-        cp_async16(dst + q * VE, c < N ? W + (size_t)(k0 + q / CPR) * N + c : W,
-                   c < N);
-      }
-      k0 += kSlabRows;
-      if (k0 >= K) {
-        k0 = 0;
-        r0 += kRows;
-        if (r0 >= p.C) {
-          r0 = 0;
-          it += gridDim.x;
-          settle(p);
-        }
-      }
-    }
-    cp_async_commit();
-  }
-  __device__ __forceinline__ void start(const Params<T>& p, T* ring) {
-    buf = ring;
-    head = l = ph = r0 = k0 = 0;
-    it = blockIdx.x;
-    settle(p);
-    for (int st = 0; st < kStages - 1; ++st) issue(p, st);
-  }
-  // the next slab, landed and visible to the whole block; the stage of the
-  // slab before it (done with, behind the barrier) takes the slab
-  // kStages - 1 ahead
-  __device__ __forceinline__ const T* next(const Params<T>& p) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const T* slab = buf + head * kSlabElems;
-    issue(p, head == 0 ? kStages - 1 : head - 1);
-    head = head + 1 == kStages ? 0 : head + 1;
-    return slab;
-  }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -325,22 +230,29 @@ __device__ float block_sum(float v, float* red) {
 // eps 1e-12, rounded to T) when scale is given, else as they are.  Rows past
 // C are zeros.  The warp reads its row as 16-byte vectors, lane l taking
 // vectors l, l + 32, ..., kStageVecs of them issued before any is stored;
-// the statistics then sum As with the lane-to-k mapping k = l, l + 32, ...,
-// so warp_sum meets the same partial sums as a scalar walk of the row.
+// a LayerNorm's scale and bias are copied into lnp (2 x K values) with
+// cp.async meanwhile.  The statistics sum As with the lane-to-k mapping
+// k = l, l + 32, ..., so warp_sum meets the same partial sums as a scalar
+// walk of the row.
 template <typename T>
-__device__ void stage_rows(float* As, const T* src, int C, int K, int r0,
-                           const T* scale, const T* bias) {
+__device__ void stage_rows(float* As, T* lnp, const T* src, int C, int K,
+                           int r0, const T* scale, const T* bias) {
   constexpr int V = Vec<T>::V;
   using Raw = typename Vec<T>::Raw;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = r0 + warp;
+  const int nv = K / V;  // K is a multiple of 8: rows start on 16 bytes
   float* a = As + warp * K;
+  if (scale != nullptr) {
+    for (int v = threadIdx.x; v < 2 * nv; v += kThreads)
+      cp_async16(lnp + v * V, v < nv ? scale + v * V : bias + (v - nv) * V,
+                 true);
+    cp_async_commit();
+  }
   if (r >= C) {
     for (int k = lane; k < K; k += 32) a[k] = 0.f;
   } else {
-    // K is a multiple of 8, so every row starts on 16 bytes
     const Raw* row = reinterpret_cast<const Raw*>(src + (size_t)r * K);
-    const int nv = K / V;
     for (int v0 = lane; v0 < nv; v0 += 32 * kStageVecs) {
       Raw buf[kStageVecs];
 #pragma unroll
@@ -358,7 +270,10 @@ __device__ void stage_rows(float* As, const T* src, int C, int K, int r0,
                                f[4 * j + 3]);
       }
     }
-    if (scale != nullptr) {
+  }
+  if (scale != nullptr) {
+    float mean = 0.f, inv = 0.f;
+    if (r < C) {
       __syncwarp();
       float s = 0.f, s2 = 0.f;
       for (int k = lane; k < K; k += 32) {
@@ -368,36 +283,58 @@ __device__ void stage_rows(float* As, const T* src, int C, int K, int r0,
       }
       s = warp_sum(s);
       s2 = warp_sum(s2);
-      const float mean = s / K;
+      mean = s / K;
       const float var = fmaxf(s2 / K - mean * mean, 0.f);
-      const float inv = 1.f / sqrtf(var + 1e-12f);
-      for (int k = lane; k < K; k += 32)
-        a[k] = rnd<T>((a[k] - mean) * (inv * to_f<T>(scale[k])) +
-                      to_f<T>(bias[k]));
+      inv = 1.f / sqrtf(var + 1e-12f);
     }
+    cp_async_wait<0>();
+    __syncthreads();  // lnp has landed for every thread
+    if (r < C)
+      for (int k = lane; k < K; k += 32)
+        a[k] = rnd<T>((a[k] - mean) * (inv * to_f<T>(lnp[k])) +
+                      to_f<T>(lnp[K + k]));
   }
   __syncthreads();
 }
 
-// One product work item: epi(r, n, acc) with acc = sum_k As[r][k] W[k][n]
-// for the kRows staged rows and the kCols columns from col0 of W (K x N,
-// row-major; N a multiple of the vector width), W's tile coming from the
-// ring, slab by slab.  A thread owns one 16-byte column vector and the k
-// rows kg, kg + KG, ...; a slab holds a multiple of KG rows, so each thread
-// meets its k rows in that order across the slabs.  The k-groups' partial
-// sums meet through warp shuffles, then through red (kWarps x kRows x
-// kCols) in a fixed order.  epi is called for every (r, n) of the tile: it
-// checks the bounds.
+// The epilogue's operands of one product item: the layer's bias (indexed
+// by column) and the residual, rows r0 .. r0 + kRows - 1 of a C x N
+// activation written earlier in the launch; either may be null.
+template <typename T>
+struct EpiSrc {
+  const T *bias, *resid;
+  int r0, C;
+};
+
+// One product work item: epi(r, n, acc, b, x) with acc = sum_k As[r][k]
+// W[k][n] for the kRows staged rows and the kCols columns from col0 of W
+// (K x N, row-major; N a multiple of the vector width), b the bias of
+// column n and x the residual of (r, n) from src (0 where src has none).
+// b and x are copied into eps ((kRows + 1) x kCols values) with cp.async at
+// the start, so they arrive while the product runs.  A thread owns one
+// 16-byte column vector and the k rows kg, kg + KG, ...; the k-groups'
+// partial sums meet through warp shuffles, then through red (kWarps x
+// kRows x kCols) in a fixed order.  epi is called for every (r, n) of the
+// tile: it checks the bounds.
 template <typename T, typename Epi>
 __device__ __forceinline__ void tile_product(const float* As, int K,
-                                             WeightRing<T>& ring,
-                                             const Params<T>& p, int N,
-                                             int col0, float* red, Epi epi) {
+                                             const T* W, int N, int col0,
+                                             float* red, T* eps,
+                                             EpiSrc<T> src, Epi epi) {
   constexpr int V = Vec<T>::V;
   constexpr int NV = kCols / V;       // vectors across the tile
   constexpr int KG = kThreads / NV;   // k-groups
-  constexpr int SR = WeightRing<T>::kSlabRows;
-  static_assert(SR % KG == 0, "a slab keeps each thread's k order");
+  if (threadIdx.x < (kRows + 1) * NV) {  // vector q: bias, then row q / NV - 1
+    const int row = (int)threadIdx.x / NV - 1;
+    const int c = col0 + (int)threadIdx.x % NV * V;
+    const T* from = row < 0 ? src.bias : src.resid;
+    const bool ok = from != nullptr && c < N && src.r0 + row < src.C;
+    cp_async16(eps + threadIdx.x * V,
+               !ok ? W : row < 0 ? from + c
+                                 : from + (size_t)(src.r0 + row) * N + c,
+               ok);
+  }
+  cp_async_commit();
   const int cv = threadIdx.x % NV, kg = threadIdx.x / NV;
   const int n0 = col0 + cv * V;
   float acc[kRows][V];
@@ -405,21 +342,19 @@ __device__ __forceinline__ void tile_product(const float* As, int K,
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += SR) {
-    const T* w = ring.next(p) + cv * V;
-    if (n0 < N) {
-      const int kn = min(SR, K - k0);
+  if (n0 < N) {
+    const T* w = W + n0;
 #pragma unroll 4
-      for (int k = kg; k < kn; k += KG) {
-        float wv[V];
-        Vec<T>::unpack(
-            *reinterpret_cast<const typename Vec<T>::Raw*>(w + k * kCols), wv);
+    for (int k = kg; k < K; k += KG) {
+      float wv[V];
+      Vec<T>::unpack(__ldg(reinterpret_cast<const typename Vec<T>::Raw*>(
+                         w + (size_t)k * N)),
+                     wv);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float a = As[r * K + k0 + k];
+      for (int r = 0; r < kRows; ++r) {
+        const float a = As[r * K + k];
 #pragma unroll
-          for (int j = 0; j < V; ++j) acc[r][j] = fmaf(a, wv[j], acc[r][j]);
-        }
+        for (int j = 0; j < V; ++j) acc[r][j] = fmaf(a, wv[j], acc[r][j]);
       }
     }
   }
@@ -438,12 +373,13 @@ __device__ __forceinline__ void tile_product(const float* As, int K,
       for (int j = 0; j < V; ++j)
         red[(warp * kRows + r) * kCols + lane * V + j] = acc[r][j];
   }
+  cp_async_wait<0>();
   __syncthreads();
   if (threadIdx.x < kRows * kCols) {
     const int r = threadIdx.x / kCols, c = threadIdx.x % kCols;
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += red[(w * kRows + r) * kCols + c];
-    epi(r, col0 + c, s);
+    epi(r, col0 + c, s, to_f<T>(eps[c]), to_f<T>(eps[(r + 1) * kCols + c]));
   }
   __syncthreads();
 }
@@ -563,10 +499,12 @@ fused_conformer_group_kernel(const Params<T> p) {
   const int C = p.C, D = p.D, D3 = 3 * D, FF = p.FF;
   float* As = smem;                   // kRows x (D or FF), staged rows
   float* red = As + kRows * p.kmax;   // kWarps x kRows x kCols
-  const int nq = p.nq, nd = p.nd, nf = p.nf;
-  WeightRing<T> ring;
-  ring.start(p, reinterpret_cast<T*>(reinterpret_cast<char*>(smem) +
-                                     p.ring_off));
+  // the epilogue's operands ((kRows + 1) x kCols) and a LayerNorm's scale
+  // and bias (2 x D), as T, in areas sized for f32
+  T* eps = reinterpret_cast<T*>(red + kWarps * kRows * kCols);
+  T* lnp = reinterpret_cast<T*>(red + kWarps * kRows * kCols +
+                                (kRows + 1) * kCols);
+  const int nq = cdiv(D3, kCols), nd = cdiv(D, kCols), nf = cdiv(FF, kCols);
   // n_tok from device memory (the TPU kernel's scalar prefetch), so a
   // captured launch reads each replay's value; a negative count is 0
   const int n_tok = max(__ldg(p.n_tok), 0);
@@ -582,20 +520,21 @@ fused_conformer_group_kernel(const Params<T> p) {
       const int col0 = (pos ? it - nq : it) * kCols;
       for (int r0 = 0; r0 < C; r0 += kRows) {
         if (pos) {
-          stage_rows<T>(As, p.pe, C, D, r0, nullptr, nullptr);
-          tile_product<T>(As, D, ring, p, D, col0, red,  // W_pos
-                          [&](int r, int n, float acc) {
+          stage_rows<T>(As, lnp, p.pe, C, D, r0, nullptr, nullptr);
+          tile_product<T>(As, D, p.posk + lD * D, D, col0, red, eps,
+                          EpiSrc<T>{nullptr, nullptr, r0, C},
+                          [&](int r, int n, float acc, float, float) {
                             if (r0 + r < C && n < D)
                               p.pk[(size_t)(r0 + r) * D + n] = from_f<T>(acc);
                           });
         } else {
-          stage_rows<T>(As, xsrc, C, D, r0, p.nms + lD, p.nmb + lD);
-          tile_product<T>(As, D, ring, p, D3, col0, red,  // W_qkv
-                          [&](int r, int n, float acc) {
+          stage_rows<T>(As, lnp, xsrc, C, D, r0, p.nms + lD, p.nmb + lD);
+          tile_product<T>(As, D, p.qkvk + lD * D3, D3, col0, red, eps,
+                          EpiSrc<T>{p.qkvb + (size_t)l * D3, nullptr, r0, C},
+                          [&](int r, int n, float acc, float b, float) {
                             if (r0 + r < C && n < D3)
-                              p.qkv[(size_t)(r0 + r) * D3 + n] = from_f<T>(
-                                  rnd<T>(acc) +
-                                  to_f<T>(p.qkvb[(size_t)l * D3 + n]));
+                              p.qkv[(size_t)(r0 + r) * D3 + n] =
+                                  from_f<T>(rnd<T>(acc) + b);
                           });
         }
       }
@@ -626,13 +565,14 @@ fused_conformer_group_kernel(const Params<T> p) {
     }
     for (int it = blockIdx.x; it < nd; it += gridDim.x) {
       for (int r0 = 0; r0 < C; r0 += kRows) {
-        stage_rows<T>(As, p.att, C, D, r0, nullptr, nullptr);
-        tile_product<T>(As, D, ring, p, D, it * kCols, red,  // W_out
-                        [&](int r, int n, float acc) {
+        stage_rows<T>(As, lnp, p.att, C, D, r0, nullptr, nullptr);
+        tile_product<T>(As, D, p.outk + lD * D, D, it * kCols, red, eps,
+                        EpiSrc<T>{p.outb + lD, xsrc, r0, C},
+                        [&](int r, int n, float acc, float b, float x) {
                           if (r0 + r < C && n < D) {
-                            const size_t i = (size_t)(r0 + r) * D + n;
-                            const float x = rnd<T>(ld<T>(xsrc + i) + rnd<T>(acc));
-                            p.x_out[i] = from_f<T>(x + to_f<T>(p.outb[lD + n]));
+                            const float y = rnd<T>(x + rnd<T>(acc));
+                            p.x_out[(size_t)(r0 + r) * D + n] =
+                                from_f<T>(y + b);
                           }
                         });
       }
@@ -642,12 +582,12 @@ fused_conformer_group_kernel(const Params<T> p) {
     // 4. LayerNorm -> W_1 (+ bias) -> swish
     for (int it = blockIdx.x; it < nf; it += gridDim.x) {
       for (int r0 = 0; r0 < C; r0 += kRows) {
-        stage_rows<T>(As, p.x_out, C, D, r0, p.nfs + lD, p.nfb + lD);
-        tile_product<T>(As, D, ring, p, FF, it * kCols, red,  // W_1
-                        [&](int r, int n, float acc) {
+        stage_rows<T>(As, lnp, p.x_out, C, D, r0, p.nfs + lD, p.nfb + lD);
+        tile_product<T>(As, D, p.w1k + lD * FF, FF, it * kCols, red, eps,
+                        EpiSrc<T>{p.w1b + lF, nullptr, r0, C},
+                        [&](int r, int n, float acc, float b, float) {
                           if (r0 + r < C && n < FF) {
-                            const float v =
-                                rnd<T>(rnd<T>(acc) + to_f<T>(p.w1b[lF + n]));
+                            const float v = rnd<T>(rnd<T>(acc) + b);
                             p.ffh[(size_t)(r0 + r) * FF + n] =
                                 from_f<T>(v * (1.f / (1.f + expf(-v))));
                           }
@@ -659,21 +599,20 @@ fused_conformer_group_kernel(const Params<T> p) {
     // 5. x += W_2 (+ bias)
     for (int it = blockIdx.x; it < nd; it += gridDim.x) {
       for (int r0 = 0; r0 < C; r0 += kRows) {
-        stage_rows<T>(As, p.ffh, C, FF, r0, nullptr, nullptr);
-        tile_product<T>(As, FF, ring, p, D, it * kCols, red,  // W_2
-                        [&](int r, int n, float acc) {
+        stage_rows<T>(As, lnp, p.ffh, C, FF, r0, nullptr, nullptr);
+        tile_product<T>(As, FF, p.w2k + lF * D, D, it * kCols, red, eps,
+                        EpiSrc<T>{p.w2b + lD, p.x_out, r0, C},
+                        [&](int r, int n, float acc, float b, float x) {
                           if (r0 + r < C && n < D) {
-                            const size_t i = (size_t)(r0 + r) * D + n;
-                            const float x =
-                                rnd<T>(ld<T>(p.x_out + i) + rnd<T>(acc));
-                            p.x_out[i] = from_f<T>(x + to_f<T>(p.w2b[lD + n]));
+                            const float y = rnd<T>(x + rnd<T>(acc));
+                            p.x_out[(size_t)(r0 + r) * D + n] =
+                                from_f<T>(y + b);
                           }
                         });
       }
     }
     if (l + 1 < p.L) grid.sync();
   }
-  cp_async_wait<0>();  // every group is empty by now
 }
 
 // Per device and dtype: the dynamic shared-memory limit raised once, and
@@ -707,16 +646,14 @@ cudaError_t device_setup(int* sms) {
   return err;
 }
 
-// Dynamic shared memory of a launch: the staged rows and red (products) or
-// the attention's scratch, whichever is larger, then the weight ring on 16
-// bytes.  Returns the ring's byte offset; *bytes gets the total.
-size_t smem_layout(int C, int dk, int kmax, int Rt, size_t* bytes) {
-  const size_t prod = (size_t)kRows * kmax + (size_t)kWarps * kRows * kCols;
+// Dynamic shared memory of a launch: the staged rows, red, the epilogue's
+// operands and a LayerNorm's scale and bias (products), or the attention's
+// scratch, whichever is larger.
+size_t smem_bytes(int C, int D, int dk, int kmax, int Rt) {
+  const size_t prod = (size_t)kRows * kmax + (size_t)kWarps * kRows * kCols +
+                      (size_t)(kRows + 1) * kCols + 2 * (size_t)D;
   const size_t attn = (size_t)(Rt + C) + 2 * dk + kThreads + kWarps;
-  const size_t ring = (sizeof(float) * (prod > attn ? prod : attn) + 15) /
-                      16 * 16;
-  *bytes = ring + (size_t)kStages * kSlabBytes;
-  return ring;
+  return sizeof(float) * (prod > attn ? prod : attn);
 }
 
 // The launch's grid and shared memory: no more blocks than the card holds
@@ -724,7 +661,7 @@ size_t smem_layout(int C, int dk, int kmax, int Rt, size_t* bytes) {
 template <typename T>
 int plan(int C, int D, int heads, int dk, int FF, int Rt, int* grid,
          size_t* smem) {
-  smem_layout(C, dk, D > FF ? D : FF, Rt, smem);
+  *smem = smem_bytes(C, D, dk, D > FF ? D : FF, Rt);
   if (*smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = device_setup<T>(&sms);
@@ -761,16 +698,12 @@ int launch(void* const* ptrs, int C, int D, int heads, int dk, int FF, int L,
   p.C = C; p.D = D; p.heads = heads; p.dk = dk; p.FF = FF; p.L = L;
   p.Rt = Rt;
   p.kmax = D > FF ? D : FF;
-  p.nq = cdiv(3 * D, kCols);
-  p.nd = cdiv(D, kCols);
-  p.nf = cdiv(FF, kCols);
   p.scale = 1.f / sqrtf((float)dk);
 
   int grid = 0;
   size_t smem = 0;
   const int rc = plan<T>(C, D, heads, dk, FF, Rt, &grid, &smem);
   if (rc) return rc;
-  p.ring_off = (int)smem_layout(C, dk, p.kmax, Rt, &smem);
   // a cooperative launch (the grid barrier needs every block resident; the
   // grid is no larger than the card holds) through cudaLaunchKernelEx, which
   // stream capture records as a cooperative graph node

@@ -35,7 +35,9 @@ holds 3.42 M parameters; the blocks group (L 6, C 5, Rt 35) moves about
 about 29.3 MB, 8.7 us; their 0.2-0.3 GFLOP take a few us even on f32 CUDA
 cores.  The kernel is one cooperative launch whose thread blocks split each
 product's output columns, so the weight read is spread over the card; see
-the source's header.
+the source's header.  A block holds 8 staged f32 rows of max(D, FF) in
+shared memory, so at D 512 FF is at most 6984 (``kernel_smem_bytes``;
+``_check`` refuses wider shapes on any device).
 
 ``n_tok`` is read from device memory, as the TPU kernel reads its scalar
 prefetch, so a launch captured in a CUDA graph reads each replay's value:
@@ -65,7 +67,6 @@ CONF_KEYS = ("nms", "nmb", "qkvk", "qkvb", "posk", "pbu", "pbv", "outk",
              "outb", "nfs", "nfb", "w1k", "w1b", "w2k", "w2b")
 _LN_EPS = 1e-12
 _MAX_SMEM = 232448              # bytes a block may use on an H100
-_RING_BYTES = 4 * 16384         # the kernel's weight ring: 4 slabs of 16 KB
 
 
 # ------------------------------------------------------------ plain version
@@ -218,12 +219,13 @@ def _check(p, x, pos_emb, ring_kv, ring_pk, n_tok, heads, head_dim,
 def kernel_smem_bytes(c: int, d: int, head_dim: int, ff: int, rt: int
                       ) -> int:
     """Dynamic shared memory of one block of ``csrc/fused_conformer_group.cu``
-    (its ``smem_layout``, byte for byte): 8 staged f32 rows of max(D, FF)
-    and the products' reduction, or the attention's scratch, whichever is
-    larger, then the weight ring on 16 bytes.  The same in both dtypes."""
-    prod = 8 * max(d, ff) + 8 * 8 * 16
+    (its ``smem_bytes``, byte for byte): 8 staged f32 rows of max(D, FF),
+    the products' reduction, the epilogue's operands and a LayerNorm's scale
+    and bias, or the attention's scratch, whichever is larger.  The same in
+    both dtypes."""
+    prod = 8 * max(d, ff) + 8 * 8 * 16 + 9 * 16 + 2 * d
     attn = rt + c + 2 * head_dim + 256 + 8
-    return -(-4 * max(prod, attn) // 16) * 16 + _RING_BYTES
+    return 4 * max(prod, attn)
 
 
 def _kernel_fn():

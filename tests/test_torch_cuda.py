@@ -216,17 +216,20 @@ CONFORMER_CASES = {
     "wrap": (2, 6, 64, 2, 96, 10, 7),
     "ring_written_exactly_full": (2, 5, 64, 2, 96, 10, 5),
     "ragged_column_tiles": (2, 7, 24, 3, 40, 9, 4),
+    # dk 12: in bf16 the second head's rows start 24 bytes into a row, so
+    # its scores take the scalar path
+    "head_off_16_bytes": (2, 7, 24, 2, 40, 9, 4),
     "more_slots_than_threads": (1, 4, 64, 1, 64, 300, 290),
     "blocks_group_full_width": (6, 5, 512, 8, 2048, 35, 100),
     "up_group_full_width_wrap": (4, 20, 512, 8, 2048, 140, 410),
     # two layers at full width: 96 of the 128 blocks have no item in
-    # phases 3 and 5 and reach the next phase with slabs prefetched
+    # phases 3 and 5 and wait at the barrier
     "full_width_two_layers": (2, 5, 512, 8, 2048, 35, 35),
     # 256 column tiles in phases 1 and 4 over at most 132 blocks, so blocks
-    # take several items a phase; W_2's K of 4096 is 8 or 16 slabs
+    # take several items a phase; three passes of 8 rows; W_2's K is 4096
     "wide_several_items_a_block": (2, 20, 1024, 16, 4096, 60, 75),
-    # FF neither a multiple of a slab's rows nor of 16 columns
-    "wide_ff_ragged_slab_and_tile": (2, 9, 1024, 16, 3000, 40, 33),
+    # FF not a multiple of 16 columns: a ragged last tile in W_1
+    "wide_ff_ragged_tile": (2, 9, 1024, 16, 3000, 40, 33),
 }
 
 
@@ -278,8 +281,8 @@ def test_conformer_smem_limit_matches_the_launcher(card):
     from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
     seen = set()
     for dtype in (torch.float32, torch.bfloat16):
-        for d, heads, ff in ((512, 8, 2048), (512, 8, 5088), (512, 8, 5096),
-                             (1024, 16, 4096), (64, 2, 7000), (24, 3, 40)):
+        for d, heads, ff in ((512, 8, 2048), (512, 8, 6984), (512, 8, 6992),
+                             (1024, 16, 4096), (64, 2, 7304), (24, 3, 40)):
             for c, rt in ((5, 35), (20, 140), (1, 3000)):
                 want = fc.kernel_smem_bytes(c, d, d // heads, ff, rt)
                 rc, grid, smem = fc.launch_config(c, d, heads, d // heads,
@@ -294,7 +297,7 @@ def test_conformer_smem_limit_matches_the_launcher(card):
         rc, grid, _ = fc.launch_config(c, 512, 8, 64, 2048, 4, rt,
                                        torch.bfloat16)
         assert rc == 0 and grid == min(items, sms)
-    p, x, pe, kv, pk = fc.make_conformer_inputs(1, 1, 512, 8, 5096, 1,
+    p, x, pe, kv, pk = fc.make_conformer_inputs(1, 1, 512, 8, 6992, 1,
                                                 torch.bfloat16, card)
     before = fc.launch_fused_conformer_group.launches
     with pytest.raises(ValueError, match="shared memory"):

@@ -174,15 +174,15 @@ def test_wrapper_rejects_what_the_kernel_cannot_run():
 @pytest.mark.parametrize("n_layers,c,d,heads,ff,rt,fits", [
     (6, 5, 512, 8, 2048, 35, True),
     (4, 20, 512, 8, 2048, 140, True),
-    (1, 1, 512, 8, 5088, 1, True),
-    (1, 1, 512, 8, 5096, 1, False),
+    (1, 1, 512, 8, 6984, 1, True),
+    (1, 1, 512, 8, 6992, 1, False),
 ], ids=["blocks_group", "up_group", "widest_ff", "past_widest_ff"])
 def test_wrapper_names_the_kernels_shared_memory(n_layers, c, d, heads, ff,
                                                  rt, fits):
-    """The kernel's block holds 8 staged f32 rows of max(D, FF) and a 64 KB
-    weight ring: the encoder's two full-width groups fit, FF 5088 fills the
-    H100's 232448 bytes exactly, and the next FF is refused by the wrapper
-    with a ValueError naming shared memory, on any device."""
+    """The kernel's block holds 8 staged f32 rows of max(D, FF): the
+    encoder's two full-width groups fit, so does FF 6984 at D 512, and the
+    next FF is refused by the wrapper with a ValueError naming shared
+    memory, on any device."""
     p, x, pe, kv, pk = fc.make_conformer_inputs(n_layers, c, d, heads, ff,
                                                 rt, torch.bfloat16, "cpu")
     need = fc.kernel_smem_bytes(c, d, d // heads, ff, rt)
