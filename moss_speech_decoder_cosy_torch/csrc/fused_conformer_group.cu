@@ -180,10 +180,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__host__ __device__ __forceinline__ int cdiv(int a, int b) {
-  return (a + b - 1) / b;
-}
-
 template <typename T>
 struct Params {
   const T *x_in, *pe;
@@ -491,6 +487,10 @@ __device__ void attend(const Params<T>& p, int l, int h, int r, int n_tok,
   __syncthreads();
 }
 
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_conformer_group_kernel(const Params<T> p) {
@@ -755,6 +755,7 @@ extern "C" int fused_conformer_group(void* const* ptrs, int dtype, int C,
 extern "C" int fused_conformer_group_config(int dtype, int C, int D,
                                             int heads, int head_dim, int FF,
                                             int L, int Rt, int* out) {
+  out[0] = out[1] = 0;
   if (bad_shape(C, D, heads, head_dim, FF, L, Rt))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
