@@ -225,7 +225,7 @@ __device__ float block_sum(float v, float* red) {
 // warp per row: flax LayerNorm (f32 statistics, fast variance clipped at 0,
 // eps 1e-12, rounded to T) when scale is given, else as they are.  Rows past
 // C are zeros.  The warp reads its row as 16-byte vectors, lane l taking
-// vectors l, l + 32, ..., kStageVecs of them issued before any is stored;
+// vectors l, l + 32, ..., kStageVecs of them in flight before any is stored;
 // a LayerNorm's scale and bias are copied into lnp (2 x K values) with
 // cp.async meanwhile.  The statistics sum As with the lane-to-k mapping
 // k = l, l + 32, ..., so warp_sum meets the same partial sums as a scalar
