@@ -16,8 +16,9 @@ Phases (any failure raises and the script exits non-zero):
    card's bound.  ``flash_chunk_attention``: both entries, f32 and bf16.
    ``fused_tf_group``: the down, mid and up groups (L = 4) in f32 and
    bf16, a shared write offset with and without a wrap, the per-row mode,
-   disabled rows, rings in ramp-up and full; timed with the L2 cache
-   flushed and warm.  Both group kernels take their scalar (write offset,
+   disabled rows, rings in ramp-up and full, and the mid group as the
+   continuous batcher's tick runs it (per-row mode, rot 0, 20 to 80 rows);
+   timed with the L2 cache flushed and warm.  Both group kernels take their scalar (write offset,
    ``n_tok``) as an int32 on the card, as the KV session passes it.
    ``fused_conformer_group``:
    the encoder's blocks group (L 6, C 5, Rt 35) and up group (L 4, C 20,
@@ -42,12 +43,21 @@ Phases (any failure raises and the script exits non-zero):
    hop's latency (a warm ``_hop`` + ``_voc``) graphed and eager.  Then the
    same through ``kv_stream_decoder(enc_kernel=True)``: exactly two
    ``fused_conformer_group`` launches per steady hop and the same
-   ``fused_tf_group`` launches, graphed, eager, graphed.
+   ``fused_tf_group`` launches, graphed, eager, graphed.  Then the
+   continuous batcher on the same decoder geometry: ``kv_batcher(n_lanes=
+   4)`` (kernel engine, per-row writes, CUDA graphs) serving four
+   250-token streams admitted one pump apart and fed 5 tokens a pump:
+   aggregate x-realtime, each stream's completion RTF, the first chunk of
+   the stream admitted into a busy pool, exactly 14 ``fused_tf_group``
+   launches a tick, host and graph launches; the same eager and through
+   one lane; each stream's wav against ``kv_stream_decoder()`` (reported).
 6. Cross-device: the flow mel in f32 on the card (kernels) and on the CPU
    (plain versions), same weights: offline over 50 tokens, one 40-token
-   streaming window, and the KV wavefront over 40 tokens with the
-   per-layer encoder and with the kernel encoder hop, the card's side
-   graphed; and on the card the graphed KV mels against the eager ones.
+   streaming window, the KV wavefront over 40 tokens with the per-layer
+   encoder and with the kernel encoder hop, and every exit mel of the
+   batcher serving two staggered 40-token streams, the card's side
+   graphed; and on the card the graphed KV and batcher mels against the
+   eager ones.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +74,8 @@ import statistics
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "moss_speech_decoder_cosy_torch"
@@ -246,44 +258,74 @@ def group_bound_ms(rows: int, cf: int, cin: int, ch: int, inner: int,
                                        else "operations")
 
 
+# lanes of the batcher's per-row cases: (w, avail, k_total, base frames)
+# at 10 ODE steps and hop 20: a full ring, ramp-up (slots 0..3 valid),
+# draining (slots 7..9 valid) and a stalled lane (every row disabled)
+LANE_STATES = ((40, 41, 1 << 30, 0), (3, 4, 1 << 30, 40),
+               (18, 21, 12, 0), (5, 5, 1 << 30, 20))
+
+
+def lanes_rows(n_lanes: int, s_steps: int, cf: int):
+    """The per-row scalars of a lanes tick of the first ``n_lanes`` of
+    ``LANE_STATES``, rows ordered (s, cfg, lane) as ``wave_lanes_step``
+    orders them: ([n_done + cf], [enable])."""
+    nd, enable = [], []
+    for s in range(s_steps):
+        for _ in range(2):
+            for w, avail, k_total, base in LANE_STATES[:n_lanes]:
+                h = w - s
+                nd.append(base + max(h, 0) * cf + cf)
+                enable.append(int(0 <= h < k_total and w < avail))
+    return nd, enable
+
+
 def fused_group_phase(torch, fb) -> list:
     """``fused_tf_group`` against its plain version at the KV slice's shapes
     (20 wavefront rows, hop 20 frames, ring 160 slots, 8 x 64 heads, L 4):
     the down (cin 320), mid (256) and up (512) groups in their steady state
     (shared offset on the hop grid, full rings, every row enabled), and for
     the mid group a wrapping write at align 12 into ramp-up rings with two
-    rows drained, the per-row mode, and disabled rows.  Checks x_out, the
-    rings and both conv caches (``fused_block.kernel_tolerance``), that
-    disabled rows keep their rings and that no input changes.  Times each
-    case with the L2 cache flushed before each launch (as the stream finds
-    it: each wavefront iteration streams 367 MB of rings through L2) and
-    warm."""
-    rows, cf, rp, heads, hd, ch, n_layers = 20, 20, 160, 8, 64, 256, 4
+    rows drained, the per-row mode, and disabled rows.  Then the mid group
+    as the batcher's lanes tick runs it: the per-row mode with rot 0 at 20,
+    40, 60 and 80 rows (1 to 4 lanes of ``LANE_STATES``: full and ramp-up
+    rings, draining and stalled lanes).  Checks x_out, the rings and both
+    conv caches (``fused_block.kernel_tolerance``), that disabled rows keep
+    their rings and that no input changes.  Times each case with the L2
+    cache flushed before each launch (as the stream finds it: each
+    wavefront iteration streams 367 MB of rings through L2) and warm."""
+    cf, rp, heads, hd, ch, n_layers = 20, 160, 8, 64, 256, 4
     ff = tdim = 4 * ch
+    rows = 20
+    rot = [((r // 2) * cf) % rp for r in range(rows)]
     steady = dict(shared=True, offset=100, nd=[rp + cf] * rows,
-                  enable=[1] * rows)
+                  enable=[1] * rows, rot=rot)
     cases = [("down", 320, "steady", steady), ("mid", 256, "steady", steady),
              ("up", 512, "steady", steady),
              ("mid", 256, "wrap_rampup", dict(
                  shared=True, offset=152,
                  nd=[cf * (1 + r // 2) for r in range(rows)],
-                 enable=[1] * (rows - 2) + [0, 0])),
+                 enable=[1] * (rows - 2) + [0, 0], rot=rot)),
              ("mid", 256, "per_row", dict(
                  shared=False, offset=0,
                  nd=[20, 45, 160, 171, 213, 300, 20, 99, 140, 180] * 2,
-                 enable=[1, 1, 1, 0, 1, 1, 0, 1, 1, 1] * 2)),
+                 enable=[1, 1, 1, 0, 1, 1, 0, 1, 1, 1] * 2, rot=rot)),
              ("mid", 256, "disabled_rows", dict(
                  shared=True, offset=0, nd=[rp + cf] * rows,
-                 enable=[int(r % 3 != 0) for r in range(rows)]))]
-    rot = [((r // 2) * cf) % rp for r in range(rows)]
+                 enable=[int(r % 3 != 0) for r in range(rows)], rot=rot))]
+    for n_lanes in range(1, len(LANE_STATES) + 1):
+        nd, enable = lanes_rows(n_lanes, 10, cf)
+        cases.append(("mid", 256, f"lanes_{n_lanes}", dict(
+            shared=False, offset=0, nd=nd, enable=enable,
+            rot=[0] * len(nd))))
     records = []
     for group, cin, mode, c in cases:
+        rows = len(c["nd"])
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
                 rows, cf, cin, ch, heads, hd, n_layers, rp, dtype, "cuda",
                 seed=cin + len(mode))
-            scal = fb.group_scalars(c["nd"], rot, c["enable"], "cuda")
+            scal = fb.group_scalars(c["nd"], c["rot"], c["enable"], "cuda")
             # the write offset held on the card, as the KV session passes it
             # (a host int would be uploaded by every timed call)
             offset = torch.tensor([c["offset"]], dtype=torch.int32,
@@ -478,7 +520,6 @@ def slice_phase(torch, fa) -> dict:
     """Full-width token2wav and stream_inference through the port's entry
     points; returns the measurements."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
-    import numpy as np
 
     n_tokens, n_stream = 250, 100
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models()
@@ -599,7 +640,6 @@ def kv_slice_phase(torch, fb, fc) -> dict:
     graphed (the default), eager (``graphs=False``) and graphed again in
     one call, with the launch counts checked around every timed call;
     the first hop graphed and eager.  Returns the measurements."""
-    import numpy as np
 
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
     kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
@@ -659,7 +699,6 @@ def cross_kv_phase(fb, fc) -> dict:
     tail, with the per-layer encoder and with the kernel encoder hop
     (``enc_kernel=True``).  The wav is not compared: the NSF source's
     random draws differ between devices."""
-    import numpy as np
 
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
     n_tokens = 40
@@ -713,12 +752,265 @@ def cross_kv_phase(fb, fc) -> dict:
     return out
 
 
+def batcher(dec, n_lanes: int, n_tokens: int, graphs: bool = True):
+    """``dec.kv_batcher(n_lanes)`` with its defaults (ring 35 tokens, the
+    kernel engine when ``kernel_limit`` allows it, CUDA graphs on the
+    card); checks that it took them."""
+    b = dec.kv_batcher(n_lanes=n_lanes, token_cap=n_tokens + 16,
+                       graphs=graphs)
+    if not (b._kernel and b.ring_tokens == 35
+            and b._graphs == (graphs and b.dev.type == "cuda")):
+        raise AssertionError(f"kv_batcher(n_lanes={n_lanes}, graphs="
+                             f"{graphs}) did not select the kernel engine "
+                             f"over a 35-token ring")
+    return b
+
+
+def drive(b, streams, piece: int = 5, max_iters: int = 8,
+          on_pump=None) -> dict:
+    """Serves ``streams`` [(embedding, tokens (1, n))] through batcher ``b``
+    as a speech LM would feed it: stream i is admitted after i pumps (and
+    once a lane is free), each admitted stream gets its next ``piece``
+    tokens before every ``pump(max_iters)`` and is finished with its last
+    piece; pumps until every stream has drained.  ``on_pump(b, n_ticks)``
+    runs after each pump.  Returns the wavs, the host walls of each
+    stream's admission, first chunk and last chunk from the start, the
+    wall, pumps and ticks."""
+    n = len(streams)
+    lane_of, stream_of = {}, {}
+    pushed, chunks = [0] * n, [[] for _ in range(n)]
+    t_admit, t_first, t_done = [None] * n, [None] * n, [None] * n
+    pumps, ticks0 = 0, b.ticks
+    t0 = time.perf_counter()
+    while any(t is None for t in t_done):
+        nxt = len(lane_of)
+        if nxt < n and pumps >= nxt and b.free_lanes:
+            emb, toks = streams[nxt]
+            lane = b.admit(np.zeros((1, 0), np.int32),
+                           np.zeros((1, 0, b.n_mel), np.float32), emb)
+            lane_of[nxt], stream_of[lane] = lane, nxt
+            t_admit[nxt] = time.perf_counter() - t0
+        for i, lane in lane_of.items():
+            toks = streams[i][1]
+            if t_done[i] is None and pushed[i] < toks.shape[1]:
+                b.push(lane, toks[:, pushed[i]:pushed[i] + piece])
+                pushed[i] = min(pushed[i] + piece, toks.shape[1])
+                if pushed[i] == toks.shape[1]:
+                    b.finish(lane)
+        before = b.ticks
+        out = b.pump(max_iters)
+        pumps += 1
+        if on_pump is not None:
+            on_pump(b, b.ticks - before)
+        now = time.perf_counter() - t0
+        for lane, wav in out.items():
+            i = stream_of[lane]
+            chunks[i].append(wav)
+            if t_first[i] is None:
+                t_first[i] = now
+            if not b._lanes[lane].active:
+                t_done[i] = now
+                del stream_of[lane]
+        if pumps > 10_000:
+            raise AssertionError("the batcher never drained its streams")
+    return dict(wavs=[np.concatenate(c, axis=1) for c in chunks],
+                wall_s=time.perf_counter() - t0, admit_s=t_admit,
+                first_chunk_s=t_first, done_s=t_done, pumps=pumps,
+                ticks=b.ticks - ticks0)
+
+
+def host_launches(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the host's launch calls
+    (``cudaLaunchKernel*``, ``cudaGraphLaunch``), the kernels the card ran,
+    device time and its share of the wall (the profiler's own host cost
+    lowers that share), the device time of ``fused_tf_group`` and the ten
+    kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return dict(
+        wall_s=wall, device_s=device_s, busy_share=device_s / wall,
+        kernels_run=int(sum(e.count for e in kernels)),
+        fused_tf_group_device_s=sum(
+            e.self_device_time_total for e in kernels
+            if "fused_tf_group" in e.key) / 1e6,
+        host_launch_calls={e.key: int(e.count) for e in avg
+                           if e.key.startswith("cuda") and "Launch" in e.key},
+        top=[dict(name=e.key[:80], calls=int(e.count),
+                  device_ms=e.self_device_time_total / 1e3)
+             for e in kernels[:10]])
+
+
+def batcher_phase(torch, fb) -> dict:
+    """The continuous batcher at full width, bf16: four streams of 250
+    tokens (no prompt, seeded speaker embeddings) through
+    ``kv_batcher(n_lanes=4)`` (kernel engine, CUDA graphs), staggered and
+    LM-paced (``drive``): 1 warm-up + median of 3, with exactly 14
+    ``fused_tf_group`` launches per tick checked around every run; one
+    profiled graphed run (host launch calls, graph launches, device time);
+    the same traffic eager (``graphs=False``) and through one lane
+    (``n_lanes=1``: the streams one after another, 20-row ticks); and each
+    stream's wav against the same stream through ``kv_stream_decoder()``
+    (reported: the two number the ring slots differently)."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                       PipelineConfig(block_size=5, mel_cache_len=8,
+                                      max_token_len=40),
+                       compute_dtype=torch.bfloat16)
+    rng = np.random.RandomState(3)
+    streams = [(rng.randn(1, flow_cfg.spk_embed_dim).astype(np.float32),
+                rng.randint(0, flow_cfg.vocab_size, (1, KV_TOKENS)))
+               for _ in range(4)]
+    samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    audio_s = samples / hift_cfg.sampling_rate
+    groups = 2 + flow_cfg.estimator.num_mid_blocks
+    counter = fb.launch_fused_tf_group
+
+    def run(b):
+        counter.launches = 0
+        got = drive(b, streams)
+        if counter.launches != groups * got["ticks"]:
+            raise AssertionError(f"the batcher launched fused_tf_group "
+                                 f"{counter.launches} times in "
+                                 f"{got['ticks']} ticks, expected "
+                                 f"{groups} a tick")
+        for wav in got["wavs"]:
+            if wav.shape != (1, samples) or not np.isfinite(wav).all() or \
+                    np.abs(wav).max() > hift_cfg.audio_limit:
+                raise AssertionError(f"bad batcher output {wav.shape}")
+        return got
+
+    def timed(b, what):
+        run(b)                                            # warm-up
+        runs = [run(b) for _ in range(3)]
+        mid = sorted(runs, key=lambda r: r["wall_s"])[1]
+        rec = dict(
+            lanes=b.lanes, graphs=b._graphs, walls_s=[r["wall_s"]
+                                                      for r in runs],
+            wall_s=mid["wall_s"], ticks=mid["ticks"], pumps=mid["pumps"],
+            fused_tf_group_launches=groups * mid["ticks"],
+            tick_ms=1e3 * mid["wall_s"] / mid["ticks"],
+            aggregate_x_realtime=len(streams) * audio_s / mid["wall_s"],
+            completion_rtf=[(d - a) / audio_s for a, d in
+                            zip(mid["admit_s"], mid["done_s"])],
+            first_chunk_s=[f - a for a, f in zip(mid["admit_s"],
+                                                 mid["first_chunk_s"])])
+        print(f"batcher_{what}", json.dumps(rec), flush=True)
+        return rec, mid
+
+    out = dict(tokens=KV_TOKENS, streams=len(streams), audio_s=audio_s,
+               piece_tokens=5, max_iters=8)
+    b = batcher(dec, 4, KV_TOKENS)
+    out["graphed"], got = timed(b, "graphed")
+    prof = host_launches(torch, lambda: run(b))
+    out["graphed"]["profiled"] = prof
+    out["graphed"]["graph_keys"] = sorted(str(k) for k in b._steps.graphs)
+    print("batcher_profile", json.dumps(prof), flush=True)
+    # the first chunk of the stream admitted last, into three busy lanes
+    out["first_chunk_busy_pool_s"] = out["graphed"]["first_chunk_s"][-1]
+    diffs = []
+    for (emb, toks), wav in zip(streams, got["wavs"]):
+        ref = dec.kv_stream_decoder(embedding=emb, token_cap=KV_TOKENS + 16
+                                    ).stream_decode(toks)
+        diffs.append(dict(max_abs_diff=float(np.abs(wav - ref).max()),
+                          ref_max_abs=float(np.abs(ref).max())))
+    out["vs_kv_stream_decoder"] = diffs
+    print("batcher_vs_session", json.dumps(diffs), flush=True)
+    del b
+    eager = batcher(dec, 4, KV_TOKENS, graphs=False)
+    out["eager"], _ = timed(eager, "eager")
+    del eager
+    one = batcher(dec, 1, KV_TOKENS)
+    out["one_lane"], _ = timed(one, "one_lane")
+    return out
+
+
+def cross_batcher_phase(fb) -> dict:
+    """f32 batcher, two lanes x 40 tokens, staggered and LM-paced
+    (``drive``): every valid exit mel of every tick on the card (kernel
+    engine, graphed; and eager) against the CPU (plain versions), same
+    weights, the card's ``fused_tf_group`` launches exactly 14 a tick.
+    The wav is not compared: the NSF source's random draws differ between
+    devices."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    n_tokens = 40
+    rng = np.random.RandomState(4)
+    streams = [(rng.randn(1, flow_cfg.spk_embed_dim).astype(np.float32),
+                rng.randint(0, flow_cfg.vocab_size, (1, n_tokens)))
+               for _ in range(2)]
+    groups = 2 + flow_cfg.estimator.num_mid_blocks
+    mels, session_diff = {}, []
+    for dev, graphs in (("cuda", True), ("cuda", False), ("cpu", False)):
+        dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                           PipelineConfig(block_size=5, mel_cache_len=8,
+                                          max_token_len=40), device=dev)
+        b = batcher(dec, 2, n_tokens, graphs=graphs)
+        got = []
+
+        def keep(b, n_ticks):
+            if n_ticks:
+                m, ok = b._burst_out
+                ok = ok[:n_ticks].cpu().numpy()
+                got.append(m[:n_ticks].float().cpu().numpy()[ok])
+        fb.launch_fused_tf_group.launches = 0
+        served = drive(b, streams, on_pump=keep)
+        ticks = served["ticks"]
+        want = groups * ticks if dev == "cuda" else 0
+        if fb.launch_fused_tf_group.launches != want:
+            raise AssertionError(f"{dev} batcher (graphs={graphs}) launched "
+                                 f"fused_tf_group "
+                                 f"{fb.launch_fused_tf_group.launches} "
+                                 f"times, expected {want}")
+        mels[dev, graphs] = np.concatenate(got)
+        if dev == "cuda" and graphs:
+            # the same streams through the single-stream session, f32
+            # (reported: the two number the ring slots differently)
+            for (emb, toks), wav in zip(streams, served["wavs"]):
+                ref = dec.kv_stream_decoder(
+                    embedding=emb, token_cap=n_tokens + 16).stream_decode(toks)
+                session_diff.append(dict(
+                    max_abs_diff=float(np.abs(wav - ref).max()),
+                    ref_max_abs=float(np.abs(ref).max())))
+        del b, dec
+    card, cpu = mels["cuda", True], mels["cpu", False]
+    err = float(np.abs(card - cpu).max())
+    graph_err = float(np.abs(card - mels["cuda", False]).max())
+    rec = dict(tokens=n_tokens, lanes=2, exit_mels=list(card.shape),
+               mel_max_abs=float(np.abs(cpu).max()), max_abs_diff=err,
+               tol=CROSS_TOL, graphed_vs_eager_max_abs_diff=graph_err,
+               graphed_vs_eager_tol=GRAPH_TOL,
+               card_wav_vs_kv_stream_decoder=session_diff)
+    print("cross_batcher", json.dumps(rec), flush=True)
+    if card.shape != cpu.shape or card.shape[0] != 2 * ((n_tokens - 3) // 5) \
+            or not np.isfinite(card).all() or not err <= CROSS_TOL \
+            or not graph_err <= GRAPH_TOL:
+        raise AssertionError(f"card (graphed), card (eager) and CPU batcher "
+                             f"mels disagree: {rec}")
+    return rec
+
+
 def cross_phase(torch) -> dict:
     """f32 flow mel on the card (kernel) vs on the CPU (plain path):
     offline over 50 tokens (chunk 0) and streaming over one 40-token
     window (chunk 50)."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
-    import numpy as np
 
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models()
     rng = np.random.RandomState(1)
@@ -784,20 +1076,31 @@ def main(argv=None) -> int:
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
     print(f"built {sorted(libs)} in {build_s:.1f} s", flush=True)
 
+    phase_s = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        got = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return got
+
     # 3. kernels
-    records = kernel_phase(torch, fa)
-    group_records = fused_group_phase(torch, fb)
-    conf_records = conformer_phase(torch, fc)
+    records = phase("flash", kernel_phase, torch, fa)
+    group_records = phase("fused_group", fused_group_phase, torch, fb)
+    conf_records = phase("conformer", conformer_phase, torch, fc)
 
     # 4. offline and windowed slice
-    sl = slice_phase(torch, fa)
+    sl = phase("slice", slice_phase, torch, fa)
 
-    # 5. KV slice
-    kv_sl = kv_slice_phase(torch, fb, fc)
+    # 5. KV slice, and the continuous batcher
+    kv_sl = phase("kv", kv_slice_phase, torch, fb, fc)
+    bat = phase("batcher", batcher_phase, torch, fb)
 
     # 6. cross-device
-    cross = cross_phase(torch)
-    cross["kv"] = cross_kv_phase(fb, fc)
+    cross = phase("cross", cross_phase, torch)
+    cross["kv"] = phase("cross_kv", cross_kv_phase, fb, fc)
+    cross["batcher"] = phase("cross_batcher", cross_batcher_phase, fb)
 
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
@@ -806,6 +1109,12 @@ def main(argv=None) -> int:
                     and r["qk_scale"] == 0.3)
     group_rec = next(r for r in group_records if r["group"] == "mid"
                      and r["mode"] == "steady" and r["dtype"] == "bfloat16")
+    # the batcher's per-row launches, one lane (20 rows) to four (80 rows)
+    per_row = [dict(rows=r["shape"]["rows"], dtype=r["dtype"], ms=r["ms"],
+                    ms_warm_l2=r["ms_warm_l2"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    max_abs_err=max(r["max_abs_err"].values()))
+               for r in group_records if r["mode"].startswith("lanes_")]
     kernels = [dict(
         name="flash_chunk_attention", route="cuda",
         source=f"{PACKAGE}/csrc/flash_chunk_attention.cu",
@@ -822,7 +1131,9 @@ def main(argv=None) -> int:
         ms=group_rec["ms"], ms_warm_l2=group_rec["ms_warm_l2"],
         plain_ms=group_rec["plain_ms"],
         bound_ms=group_rec["bound_ms"], bound_by=group_rec["bound_by"],
-        library_ms=None, library_note=FUSED_NOTE)]
+        library_ms=None, library_note=FUSED_NOTE,
+        batcher_launches=bat["graphed"]["fused_tf_group_launches"],
+        per_row=per_row)]
     # the blocks group (the larger read) with a full ring, as the steady
     # stream runs it, timed with L2 flushed: each hop streams the
     # estimator's rings between two encoder launches
@@ -842,11 +1153,12 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                 build_s=build_s, kernels=kernels,
+                 build_s=build_s, phase_s=phase_s, kernels=kernels,
                  cases=dict(flash_chunk_attention=records,
                             fused_tf_group=group_records,
                             fused_conformer_group=conf_records),
-                 slice=sl, kv_slice=kv_sl, cross=cross), indent=1))
+                 slice=sl, kv_slice=kv_sl, batcher=bat, cross=cross),
+            indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,9 +42,11 @@ one ``fused_conformer_group`` launch (the session's ``enc_kernel`` option).
 
 Two estimator dataflows are ported: concat (``write=None``: attend over
 [ring ++ chunk], the caller writes the chunk afterwards) and fused
-write-then-attend with one shared write offset (``write`` dict: the chunk
-is written into a ring of capacity ring + chunk before attention).  The
-int8-ring and one-hot fused variants are not ported.
+write-then-attend (``write`` dict: the chunk is written into a ring of
+capacity ring + chunk before attention), at one shared write offset
+(``{"offset", "enable"}``, the single-stream wavefront) or at each row's
+own position (``{"nd", "enable"}``, the continuous batcher's lanes
+wavefront, ``wave_lanes_step``).  The int8-ring variant is not ported.
 """
 
 from __future__ import annotations
@@ -148,6 +150,26 @@ def ring_mask(ring_len: int, chunk_len: int, n_done, rot=None,
                         torch.ones((b, chunk_len), dtype=torch.bool,
                                    device=nd.device)], dim=1)
     return ok[:, None, None, :].expand(b, 1, chunk_len, ok.shape[-1])
+
+
+def ring_write_rows(ring: torch.Tensor, chunk: torch.Tensor,
+                    n_done: torch.Tensor, enable: torch.Tensor
+                    ) -> torch.Tensor:
+    """Write each row's ``chunk`` (B, C, d) into ``ring`` (B, R, d) at the
+    row's own position: frame f of row b at slot ``(n_done[b] + f) % R``,
+    in place; rows with ``enable`` False keep their content, and a chunk
+    longer than the ring writes only its tail.  The JAX package's
+    ``ring_write_batched`` (a one-hot product, a TPU device) as an exact
+    index write; ``n_done`` (B,) a tensor on the ring's device."""
+    b, r, d = ring.shape
+    c = chunk.shape[-2]
+    m = min(c, r)
+    idx = torch.remainder(n_done.reshape(b, 1) + (c - m)
+                          + torch.arange(m, device=ring.device), r)
+    idx3 = idx[:, :, None].expand(b, m, d)
+    new = torch.where(enable[:, None, None], chunk[:, c - m:].to(ring.dtype),
+                      torch.gather(ring, 1, idx3))
+    return ring.scatter_(1, idx3, new)
 
 
 def ring_write_dus(ring: torch.Tensor, chunk: torch.Tensor, offset,
@@ -316,8 +338,10 @@ def attend_stored(q: torch.Tensor, kvs: torch.Tensor, mask: torch.Tensor,
 def unet_attention_step(attn, w_qkv, x, ring, mask, write=None):
     """UNetAttention over the KV ring.  ``write=None``: attend over
     [ring ++ chunk], return the chunk's [k | v] for the caller to write;
-    ``write`` {"offset", "enable"}: write the chunk into the ring first (in
-    place), attend over the ring, return the ring."""
+    ``write`` {"offset", "enable"} (one shared offset) or {"nd", "enable"}
+    (each row at its own position, the JAX package's ``{"mode": "onehot"}``):
+    write the chunk into the ring first (in place), attend over the ring,
+    return the ring."""
     inner = attn.heads * attn.head_dim
     qkv = F.linear(x, w_qkv)
     q, kv_c = qkv[..., :inner], qkv[..., inner:]
@@ -325,7 +349,11 @@ def unet_attention_step(attn, w_qkv, x, ring, mask, write=None):
         kvs = torch.cat([ring.to(kv_c.dtype), kv_c], dim=1)
         ret = kv_c
     else:
-        ret = ring_write_dus(ring, kv_c, write["offset"], write["enable"])
+        if "nd" in write:
+            ret = ring_write_rows(ring, kv_c, write["nd"], write["enable"])
+        else:
+            ret = ring_write_dus(ring, kv_c, write["offset"],
+                                 write["enable"])
         kvs = ret.to(kv_c.dtype)
     out = attend_stored(q, kvs, mask, attn.heads, attn.head_dim)
     return attn.to_out(out), ret
@@ -369,8 +397,9 @@ def estimator_step(est, fused, x, mu, t, spks, cond, rings: Sequence,
                    convs: Dict, n_done, rot=None, write=None):
     """One chunk through CausalConditionalDecoder (the unfused engine).
     rings: L (B2, Rf, 2*inner) K/V rings in walk order; convs keyed by
-    ``estimator_conv_cache_names``.  Returns (out, chunk kvs (concat) or the
-    updated rings (``write``), new convs)."""
+    ``estimator_conv_cache_names``; ``write`` as ``unet_attention_step``'s.
+    Returns (out, chunk kvs (concat) or the updated rings (``write``), new
+    convs)."""
     c = est.cfg
     _check_single_level(c)
     t_emb, h = _embed_inputs(est, x, mu, t, spks, cond)
@@ -498,18 +527,33 @@ def cfm_step(cfm, fused, mu, spks, cond, est_cache: Dict, n_done,
     return x.float()
 
 
+def _flat_inputs(cfm, x_wave, mu_wave, spks):
+    """The CFG-doubled flat estimator inputs of a wavefront iteration (row
+    order s * 2B + cfg * B + b; the CFG half sees zero mu, speaker and
+    cond): (x_in, mu_in, t_in, spks_in) in the compute dtype."""
+    s_steps, b, cf, d = x_wave.shape
+    cd = _compute_dtype(cfm.cfg, mu_wave)
+    mu_in = torch.stack([mu_wave, torch.zeros_like(mu_wave)], dim=1).reshape(
+        s_steps * 2 * b, cf, d).to(cd)
+    x_in = torch.stack([x_wave, x_wave], dim=1).reshape(
+        s_steps * 2 * b, cf, d).to(cd)
+    spks_in = torch.cat([spks, torch.zeros_like(spks)], dim=0).repeat(
+        s_steps, 1).to(cd)
+    t = _solver_consts(cfm, x_wave.dtype, x_wave.device)["t"][:-1]
+    t_in = t[:, None].expand(s_steps, 2 * b).reshape(-1).to(cd)
+    return x_in, mu_in, t_in, spks_in
+
+
 def _wave_inputs(cfm, x_wave, mu_wave, mu_new, spks, w, k_total,
                  base_frames, ring_len: int):
     """Shared front half of a wavefront iteration: the shifted mu wave, the
     CFG-doubled flat estimator inputs (row order s * 2B + cfg * B + b) and
     the per-row scalars, computed on the device from ``w``, ``k_total`` and
     ``base_frames`` (host ints or device scalars)."""
-    cfg = cfm.cfg
     s_steps, b, cf, d = x_wave.shape
-    dev = x_wave.device
-    cd = _compute_dtype(cfg, mu_wave)
+    cd = _compute_dtype(cfm.cfg, mu_wave)
     mu_wave = torch.cat([mu_new[None].to(cd), mu_wave[:-1].to(cd)], dim=0)
-    slot = torch.arange(s_steps, device=dev)
+    slot = torch.arange(s_steps, device=x_wave.device)
     h_idx = w - slot
     valid = (h_idx >= 0) & (h_idx < k_total)
     n_dones = base_frames + torch.clamp(h_idx, min=0) * cf
@@ -517,20 +561,30 @@ def _wave_inputs(cfm, x_wave, mu_wave, mu_new, spks, w, k_total,
     def per_row(a):                    # (S,) -> (S * 2B,), row s * 2B + j
         return a[:, None].expand(s_steps, 2 * b).reshape(-1)
 
-    def flat(a):
-        return torch.stack([a, torch.zeros_like(a)], dim=1).reshape(
-            s_steps * 2 * b, cf, d)
-
-    mu_in = flat(mu_wave)
-    x_in = torch.stack([x_wave, x_wave], dim=1).reshape(
-        s_steps * 2 * b, cf, d).to(cd)
-    spks_in = torch.cat([spks, torch.zeros_like(spks)], dim=0).repeat(
-        s_steps, 1).to(cd)
-    t_in = per_row(_solver_consts(cfm, x_wave.dtype, dev)["t"][:-1]).to(cd)
+    x_in, mu_in, t_in, spks_in = _flat_inputs(cfm, x_wave, mu_wave, spks)
     rows = dict(nd=per_row(n_dones), rot=per_row((slot * cf) % ring_len),
                 enable=per_row(valid))
     return (mu_wave, x_in, mu_in, torch.zeros_like(mu_in), t_in, spks_in,
             rows, (base_frames + w * cf) % ring_len)
+
+
+def _cfg_euler(cfm, x_wave, dphi):
+    """CFG combine of the estimator's (S * 2B, cf, d) output and the Euler
+    step of every slot: x_next (S, B, cf, d)."""
+    s_steps, b, cf, d = x_wave.shape
+    consts = _solver_consts(cfm, x_wave.dtype, x_wave.device)
+    rate, dts = consts["rate"], consts["dts"]
+    dphi = dphi.reshape(s_steps, 2, b, cf, d).to(x_wave.dtype)
+    dphi = (1.0 + rate) * dphi[:, 0] - rate * dphi[:, 1]
+    return x_wave + dts[:, None, None, None] * dphi
+
+
+def _commit_convs(convs, new_convs, enable) -> None:
+    """The new conv caches of the enabled rows, in place."""
+    en = enable[:, None, None]
+    _tree_map(lambda old, new: old.copy_(torch.where(en, new.to(old.dtype),
+                                                     old)),
+              convs, new_convs)
 
 
 def _wave_finish(cfm, x_wave, dphi, convs, new_convs, enable, w,
@@ -538,15 +592,8 @@ def _wave_finish(cfm, x_wave, dphi, convs, new_convs, enable, w,
     """Shared back half: CFG combine, Euler step, masked conv-cache update
     (in place), the exiting chunk and the noise entering slot 0."""
     s_steps, b, cf, d = x_wave.shape
-    consts = _solver_consts(cfm, x_wave.dtype, x_wave.device)
-    rate, dts = consts["rate"], consts["dts"]
-    dphi = dphi.reshape(s_steps, 2, b, cf, d).to(x_wave.dtype)
-    dphi = (1.0 + rate) * dphi[:, 0] - rate * dphi[:, 1]
-    x_next = x_wave + dts[:, None, None, None] * dphi
-    en = enable[:, None, None]
-    _tree_map(lambda old, new: old.copy_(torch.where(en, new.to(old.dtype),
-                                                     old)),
-              convs, new_convs)
+    x_next = _cfg_euler(cfm, x_wave, dphi)
+    _commit_convs(convs, new_convs, enable)
     n_enter = base_frames + _clamp(w + 1, 0) * cf
     z = noise_chunk(cfm, n_enter, cf, d, x_wave.device)[None].expand(
         b, cf, d).to(x_wave.dtype)
@@ -575,6 +622,83 @@ def wave_step(cfm, fused, x_wave, mu_wave, mu_new, spks, est_flat: Dict,
     exit_mel, x_shift = _wave_finish(cfm, x_wave, dphi, est_flat["convs"],
                                      new_convs, en, w, base_frames)
     return exit_mel, x_shift, mu_wave
+
+
+def _lanes_inputs(cfm, x_wave, mu_wave, mu_buf, spks, w, avail_iters,
+                  k_total, base_frames):
+    """Front half of a lanes tick (the JAX package's
+    ``CausalConditionalCFMWaveLanes.__call__``, fused dataflow): lane l
+    advances iff ``w[l] < avail_iters[l]``; an advancing lane's mu wave
+    shifts in its chunk ``mu_buf[l, w[l] % cap]``, a stalled lane's stays.
+    Returns (mu wave, x_in, mu_in, t_in, spks_in, nd, enable, advance,
+    exit_valid): the flat inputs and the per-row nd and enable in row order
+    (s, cfg, lane)."""
+    s_steps, lanes, cf, _ = x_wave.shape
+    dev = x_wave.device
+    cd = _compute_dtype(cfm.cfg, mu_wave)
+    advance = w < avail_iters                                 # (lanes,)
+    mu_new = mu_buf[torch.arange(lanes, device=dev),
+                    torch.remainder(torch.clamp(w, min=0), mu_buf.shape[1])]
+    mu_wave = torch.where(advance[None, :, None, None],
+                          torch.cat([mu_new[None].to(cd), mu_wave[:-1].to(cd)],
+                                    dim=0), mu_wave.to(cd))
+    h_idx = w[None, :] - torch.arange(s_steps, device=dev)[:, None]
+    valid = (h_idx >= 0) & (h_idx < k_total[None, :]) & advance[None, :]
+    n_dones = base_frames[None, :] + torch.clamp(h_idx, min=0) * cf
+
+    def per_row(a):                   # (S, lanes) -> (S * 2 * lanes,)
+        return a[:, None, :].expand(s_steps, 2, lanes).reshape(-1)
+
+    x_in, mu_in, t_in, spks_in = _flat_inputs(cfm, x_wave, mu_wave, spks)
+    return (mu_wave, x_in, mu_in, t_in, spks_in, per_row(n_dones),
+            per_row(valid), advance, valid[-1])
+
+
+def _lanes_finish(cfm, x_wave, dphi, convs, new_convs, enable, advance, w,
+                  base_frames):
+    """Back half of a lanes tick: CFG combine, Euler step, the enabled rows'
+    conv caches (in place), each advancing lane's noise entering slot 0 at
+    ``base + (w + 1) * cf`` (clamped so the slice fits the noise buffer);
+    a stalled lane's x wave stays.  Returns (exit mel (lanes, cf, d) f32,
+    x wave shifted, w + advance)."""
+    s_steps, lanes, cf, d = x_wave.shape
+    x_next = _cfg_euler(cfm, x_wave, dphi)
+    _commit_convs(convs, new_convs, enable)
+    noise = cfm._z(cfm.cfg.max_noise_len, d, x_wave.device)[0]
+    n_enter = torch.clamp(base_frames + torch.clamp(w + 1, min=0) * cf, 0,
+                          noise.shape[0] - cf)
+    z = noise[n_enter[:, None] + torch.arange(cf, device=x_wave.device)]
+    x_shift = torch.where(advance[None, :, None, None],
+                          torch.cat([z[None].to(x_wave.dtype), x_next[:-1]],
+                                    dim=0), x_wave)
+    return x_next[-1].float(), x_shift, w + advance.to(w.dtype)
+
+
+def wave_lanes_step(cfm, fused, x_wave, mu_wave, mu_buf, spks,
+                    est_flat: Dict, w, avail_iters, k_total, base_frames):
+    """One tick of the continuous batcher's lanes wavefront (the JAX
+    package's ``CausalConditionalCFMWaveLanes`` with ``fused=True``, under
+    ``KVLaneWaveStep``): each lane an independent stream at its own
+    position, all lanes' S slots in one estimator forward whose rows (s,
+    cfg, lane) write their chunk K/V at their own positions
+    (``ring_write_rows``) before attending.  x / mu waves (S, lanes, cf,
+    d); ``mu_buf`` (lanes, cap, cf, d) the lanes' encoded chunks;
+    ``est_flat`` extended flat rings (rot 0: frame f at slot f % rp),
+    updated in place, disabled rows' rings and conv caches kept; ``w``,
+    ``avail_iters``, ``k_total``, ``base_frames`` (lanes,) tensors.
+    Returns (exit mel (lanes, cf, d) f32, exit valid (lanes,) bool, x wave
+    shifted, mu wave, w + advance)."""
+    mu_wave, x_in, mu_in, t_in, spks_in, nd, en, advance, exit_valid = \
+        _lanes_inputs(cfm, x_wave, mu_wave, mu_buf, spks, w, avail_iters,
+                      k_total, base_frames)
+    dphi, _, new_convs = estimator_step(
+        cfm.estimator, fused, x_in, mu_in, t_in, spks_in,
+        torch.zeros_like(mu_in), est_flat["kv"], est_flat["convs"], nd,
+        write={"nd": nd, "enable": en})
+    exit_mel, x_shift, w_next = _lanes_finish(
+        cfm, x_wave, dphi, est_flat["convs"], new_convs, en, advance, w,
+        base_frames)
+    return exit_mel, exit_valid, x_shift, mu_wave, w_next
 
 
 # --------------------------------------------------------------------------
@@ -635,11 +759,20 @@ def init_kv_cache(cfg: FlowConfig, ring_tokens: int, batch: int = 1,
            "upk": z(e.num_up_blocks, 1, rt * s, d)}
     est_cfg = cfg.estimator
     edt = est_dtype or dtype
-    ch = est_cfg.channels[0]
     inner = est_cfg.num_heads * est_cfg.attention_head_dim
     n_attn = est_cfg.n_blocks * (2 + est_cfg.num_mid_blocks)
     steps, b2 = cfg.cfm.n_timesteps, 2 * batch
     rf = ring_tokens * cfg.token_mel_ratio
+    convs = _est_convs(est_cfg, (steps, b2), edt, device)
+    kv = tuple(z(steps, b2, rf, 2 * inner, dt=edt) for _ in range(n_attn))
+    return {"enc": enc, "est": {"kv": kv, "convs": convs}, "n_tok": 0}
+
+
+def _est_convs(est_cfg: EstimatorConfig, lead: Tuple[int, ...], dtype,
+               device) -> Dict:
+    """Zero estimator conv caches {name: lead + (2, cin)} keyed by
+    ``estimator_conv_cache_names``."""
+    ch = est_cfg.channels[0]
     convs: Dict = {}
     for name, sub in estimator_conv_cache_names(est_cfg):
         cin = ch
@@ -647,13 +780,34 @@ def init_kv_cache(cfg: FlowConfig, ring_tokens: int, batch: int = 1,
             cin = est_cfg.in_channels
         elif name == "up_res_0" and sub == "block1":
             cin = 2 * ch
-        arr = z(steps, b2, 2, cin, dt=edt)
+        arr = torch.zeros(lead + (2, cin), dtype=dtype, device=device)
         if sub is None:
             convs[name] = arr
         else:
             convs.setdefault(name, {})[sub] = arr
-    kv = tuple(z(steps, b2, rf, 2 * inner, dt=edt) for _ in range(n_attn))
-    return {"enc": enc, "est": {"kv": kv, "convs": convs}, "n_tok": 0}
+    return convs
+
+
+def init_est_pool(cfg: FlowConfig, rows: int, rp: int, dtype,
+                  device=None) -> Dict:
+    """Zero estimator cache of ``rows`` flat wavefront rows in the kernel's
+    grouped layout (``group_est_flat``): rings of ``rp`` slots, the mid
+    resnets' conv caches stacked.  ``ungroup_est_flat`` of it gives the
+    flat layout as views of the same tensors."""
+    est_cfg = cfg.estimator
+    n, m = est_cfg.n_blocks, est_cfg.num_mid_blocks
+    d2 = 2 * est_cfg.num_heads * est_cfg.attention_head_dim
+
+    def rings():
+        return torch.zeros((n, rows, rp, d2), dtype=dtype, device=device)
+
+    convs = _est_convs(est_cfg, (rows,), dtype, device)
+    mids = [convs.pop(f"mid_res_{i}") for i in range(m)]
+    convs["mid_res"] = {k: torch.stack([md[k] for md in mids])
+                        for k in ("block1", "block2")}
+    return {"kv": {"down": rings(), "mid": tuple(rings() for _ in range(m)),
+                   "up": rings()},
+            "convs": convs}
 
 
 def pe_tables(cfg: FlowConfig, max_tokens: int, device=None):
@@ -670,6 +824,15 @@ def est_cache_to_flat(est: Dict) -> Dict:
         return a.reshape((a.shape[0] * a.shape[1],) + tuple(a.shape[2:]))
     return {"kv": tuple(flat(a) for a in est["kv"]),
             "convs": _tree_map(flat, est["convs"])}
+
+
+def est_cache_from_flat(flat: Dict, s_steps: int) -> Dict:
+    """Inverse of est_cache_to_flat: (S*B2, ...) leaves -> (S, B2, ...)
+    views (the JAX package's ``est_cache_from_flat``)."""
+    def unflat(a):
+        return a.reshape((s_steps, a.shape[0] // s_steps) + tuple(a.shape[1:]))
+    return {"kv": tuple(unflat(a) for a in flat["kv"]),
+            "convs": _tree_map(unflat, flat["convs"])}
 
 
 def _regather(est: Dict, idx: torch.Tensor, ok: torch.Tensor,
@@ -827,19 +990,22 @@ def ungroup_est_flat(est_g: Dict, cfg: EstimatorConfig) -> Dict:
 
 
 def estimator_step_kernel(gp: Dict, est, x, mu, t, spks, cond, kv_g: Dict,
-                          convs: Dict, scal: torch.Tensor, offset):
+                          convs: Dict, scal: torch.Tensor, offset,
+                          shared_offset: bool = True):
     """The estimator with each resnet + transformer group run by
     ``fused_tf_group`` (the JAX package's ``estimator_step_pallas``); the
     glue (skip concat, down/up convs, final block) stays in PyTorch.
     ``scal`` (3, rows) int32 [n_done + cf; rot; enable], ``offset`` the
-    shared write offset (a host int or a device scalar).  Rings are updated
-    in place; returns (out, new convs in the grouped layout, unmasked)."""
+    shared write offset (a host int or a device scalar; ignored when
+    ``shared_offset`` is False: each row then writes at its own n_done).
+    Rings are updated in place; returns (out, new convs in the grouped
+    layout, unmasked)."""
     c = est.cfg
     _check_single_level(c)
     t_emb, h = _embed_inputs(est, x, mu, t, spks, cond)
     mt = mish(t_emb)[:, None, :].contiguous()
     kw = dict(heads=c.num_heads, head_dim=c.attention_head_dim,
-              act_fn=c.act_fn)
+              act_fn=c.act_fn, shared_offset=shared_offset)
 
     def rn_group(p, rp_, cc, h, rings):
         h, _, c1, c2 = fused_tf_group(p, rp_, mt, cc["block1"],
@@ -892,6 +1058,31 @@ def wave_step_kernel(gp: Dict, cfm, x_wave, mu_wave, mu_new, spks,
                                      new_convs, scal[2] != 0, w,
                                      base_frames)
     return exit_mel, x_shift, mu_wave
+
+
+def wave_lanes_step_kernel(gp: Dict, cfm, x_wave, mu_wave, mu_buf, spks,
+                           est_g: Dict, w, avail_iters, k_total, base_frames):
+    """``wave_lanes_step`` with the kernel engine (the JAX package's
+    ``wave_lanes_step_pallas``): the same tick, one ``fused_tf_group``
+    launch per resnet + transformer group in its per-row write mode
+    (``shared_offset=False``: row r writes at ``n_done[r] % rp``, rot 0).
+    ``est_g`` in the ``group_est_flat`` layout, updated in place."""
+    mu_wave, x_in, mu_in, t_in, spks_in, nd, en, advance, exit_valid = \
+        _lanes_inputs(cfm, x_wave, mu_wave, mu_buf, spks, w, avail_iters,
+                      k_total, base_frames)
+    dev = x_wave.device
+    scal = group_scalars(nd + x_wave.shape[2], torch.zeros_like(nd), en, dev)
+    # the ignored shared offset, held on the device so a capture uploads
+    # nothing
+    offset = torch.zeros((1,), dtype=torch.int32, device=dev)
+    dphi, new_convs = estimator_step_kernel(
+        gp, cfm.estimator, x_in, mu_in, t_in, spks_in,
+        torch.zeros_like(mu_in), est_g["kv"], est_g["convs"], scal, offset,
+        shared_offset=False)
+    exit_mel, x_shift, w_next = _lanes_finish(
+        cfm, x_wave, dphi, est_g["convs"], new_convs, scal[2] != 0, advance,
+        w, base_frames)
+    return exit_mel, exit_valid, x_shift, mu_wave, w_next
 
 
 # --------------------------------------------------------------------------

@@ -10,6 +10,7 @@ Conventions: audio (B, L); spectra (B, T, F) with F = n_fft//2 + 1.
 from __future__ import annotations
 
 import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -47,8 +48,19 @@ def _idft_bases(n_fft: int):
             (np.sin(ang) * w).astype(np.float32))
 
 
+# (id(array), device) -> (array, its copy on the device)
+_ON_DEVICE: Dict[Tuple[int, str], Tuple[np.ndarray, torch.Tensor]] = {}
+
+
 def _t(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(a).to(device)
+    """``a`` (a window or a DFT basis) on ``device``, uploaded once per
+    array and device, so a vocoder step captured in a CUDA graph uploads
+    nothing."""
+    key = (id(a), str(torch.device(device)))
+    got = _ON_DEVICE.get(key)
+    if got is None or got[0] is not a:
+        got = _ON_DEVICE[key] = (a, torch.from_numpy(a).to(device))
+    return got[1]
 
 
 def frame(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:

@@ -6,6 +6,8 @@ GLM_modules/flow_inference.py:48-243):
 - ``StreamSession.push``  chunked streaming over a sliding token window with
                           the HiFT mel/source/speech caches and Hamming
                           cross-fades
+- ``kv_stream_decoder``   the KV-cached streaming session, one stream
+- ``kv_batcher``          the continuous batcher, concurrent streams
 
 Model work runs on the decoder's device (CUDA unless ``device="cpu"``);
 session state (token buffer, offsets, HiFT caches) is host-side numpy.
@@ -203,7 +205,7 @@ class AudioDecoder:
                    "ring_quant (int8 rings)": ring_quant}
         for what, asked in missing.items():
             if asked:
-                raise NotImplementedError(f"{what} is ROADMAP item A7")
+                raise NotImplementedError(f"{what} is ROADMAP item A3")
         if stacked:
             raise NotImplementedError("the stacked-scan engine is not "
                                       "ported (measured slower in "
@@ -223,6 +225,26 @@ class AudioDecoder:
                                token_cap=token_cap, fused=fused,
                                kernel=kernel, enc_kernel=enc_kernel,
                                graphs=graphs)
+
+    def kv_batcher(self, n_lanes: int = 4, block_size: Optional[int] = None,
+                   ring_tokens: Optional[int] = None, token_cap: int = 1024,
+                   fused: bool = True, ring_quant: bool = False,
+                   kernel="auto", graphs: bool = True):
+        """Continuous-batching KV decoder (``kv_batcher.KVContinuousBatcher``,
+        the JAX package's ``AudioDecoder.kv_batcher``): a pool of
+        ``n_lanes`` lanes shares one batched estimator wavefront, and
+        streams are admitted and finished at any time.  ``kernel`` as in
+        ``kv_stream_decoder`` (the per-row write mode of
+        ``fused_tf_group``); ``graphs`` (on a CUDA device) replays the
+        wavefront tick, the encoder hop, the steady vocoder hop and the
+        finalize hop as CUDA graphs.  ``ring_quant`` and ``fused=False`` raise."""
+        from .kv_batcher import KVContinuousBatcher
+        return KVContinuousBatcher(self, n_lanes=n_lanes,
+                                   block_size=block_size,
+                                   ring_tokens=ring_tokens,
+                                   token_cap=token_cap, fused=fused,
+                                   ring_quant=ring_quant, kernel=kernel,
+                                   graphs=graphs)
 
 
 class StreamSession:

@@ -72,7 +72,7 @@ class BulkVocoder:
         Returns the wav (1, sum(plan) * u) f32 on the device."""
         if mel.shape[0] != 1:
             raise NotImplementedError("bulk vocoding of several lockstep "
-                                      "streams is ROADMAP item A7")
+                                      "streams is ROADMAP item A3")
         if any(p != self.F for p in plan[:-1]):
             raise ValueError(f"every hop but the last emits {self.F} frames, "
                              f"got {list(plan)}")

@@ -1,0 +1,600 @@
+"""Continuous-batching KV flow decoding (a pool of lanes serving concurrent
+streams), after the JAX package's ``pipeline/kv_batcher.py``
+(``KVContinuousBatcher``).
+
+A fixed pool of LANES shares one batched estimator wavefront.  A stream is
+admitted into a free lane at any time (its prompt prefilled, its cache rows
+scattered into the pool), advances only while it has encoded chunks, stalls
+otherwise, drains when finished, and frees its lane.  N live streams cost
+one wavefront forward per tick whatever their positions:
+
+- the estimator's attention has no positional term and each flat row
+  (ODE step s, CFG half, lane) attends only within its own ring, so lanes
+  at different stream positions batch into one forward; each row writes
+  its chunk K/V at its own position (``kv_stream.wave_lanes_step``; the
+  kernel engine runs ``fused_tf_group`` in its per-row write mode,
+  ``wave_lanes_step_kernel``), and stalled or invalid rows keep their
+  rings;
+- the encoder is position-dependent (rel-pos tables), so it runs per lane,
+  one hop per chunk, into a per-lane buffer of mu chunks that the wavefront
+  reads by index.
+
+State lives on the device in pools made once: the extended est rings
+(``(ring + hop) * ratio`` slots, canonical numbering frame f -> slot
+f % rp) in the kernel's grouped layout, the x / mu waves, the mu chunks,
+each lane's ``w``, speaker vector and base frame, the token buffer, the
+per-lane encoder caches and token counts, and the per-lane vocoder caches.
+A pump runs a burst of wavefront ticks, each tick one estimator forward
+over every lane's S slots (``S * 2 * lanes`` rows).  The host mirrors each
+lane's tick count ``w`` exactly (``w += w < avail``), so a pump runs only
+the ticks in which some lane advances, at most ``max_iters``: a tick in
+which no lane advances changes nothing, and the JAX package's burst of
+``max_iters`` ticks gives the same state and audio.
+
+On CUDA (``graphs=True``, the default) four steps replay as CUDA graphs
+(``kv_session.StepGraphs``), each reading its per-call values from device
+tensors: one wavefront tick (``avail`` and ``k_total`` uploaded once per
+pump, the tick index counted on the device, each tick's exit mel and
+valid flag written into persistent ``(max_iters, lanes, cf, n_mel)`` and
+``(max_iters, lanes)`` buffers), one lane's encoder hop (its lane index a
+device scalar), one lane's steady vocoder hop (its lane index a device
+scalar, its mel copied into a persistent input) and a stream's finalize
+hop (one graph per tail length, over the lane's caches sliced into a
+persistent scratch cache, its token count a device scalar).  The prefill,
+the admit-scatter, the lane slice, the lane clear and a stream's first and
+last vocoder hops run eagerly, once per stream.  The steady vocoder hop,
+replayed once per chunk, takes the place of the JAX package's
+``_voc_take_scan`` (a scan over a burst's chunks of one lane).  The host fetches
+the burst's valid flags once per pump and each lane's audio once per
+pump.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.flow.kv_stream import (
+    dyn_slice, est_cache_from_flat, est_cache_to_flat, extend_rings_for_fused,
+    fuse_qkv_params, group_estimator_params, init_est_pool, init_kv_cache,
+    kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables,
+    shrink_rings_from_fused, spk_embedding, ungroup_est_flat,
+    wave_lanes_step, wave_lanes_step_kernel)
+from .kv_session import (KVVocState, StepGraphs, estimator_kernel_limit,
+                         vocode_hop)
+
+
+def _leaves(tree):
+    """The tensors of a nested dict."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _pairs(a: Dict, b: Dict):
+    """(a leaf, b leaf) pairs of two nested dicts with the same keys."""
+    for k, v in a.items():
+        if isinstance(v, dict):
+            yield from _pairs(v, b[k])
+        else:
+            yield v, b[k]
+
+
+def _voc_fields(voc: KVVocState):
+    return voc.mel_cache, voc.source_cache, voc.speech_cache
+
+
+class _Lane:
+    """Host-side bookkeeping of one lane's stream."""
+
+    def __init__(self):
+        self.active = False
+
+    def reset(self, prompt_len: int, cap: int) -> None:
+        self.active = True
+        self.prompt_len = prompt_len
+        self.n_tok = prompt_len           # tokens through the encoder
+        self.tokens = np.zeros((cap,), np.int32)
+        self.n_pushed = 0
+        self.finished = False
+        self.k_total: Optional[int] = None
+        self.chunks_encoded = 0
+        self.w_emitted = 0
+        self.w_host = 0                   # host mirror of the device w
+        self.first_voc = True
+        self.prefilled = False
+        self.ptok = self.pfeat = self.emb = None   # device tensors, at admit
+
+
+class KVContinuousBatcher:
+    """Fixed-lane continuous batcher over one ``AudioDecoder``'s modules.
+
+    Protocol per lane: ``admit(prompt...) -> lane``, ``push(lane, tokens)``
+    any number of times, ``finish(lane)``, then ``pump()`` until the lane's
+    stream ends (the pump that returns its last chunk, the finalize tail
+    included, frees the lane).  ``pump(max_iters)`` advances every active
+    lane by up to ``max_iters`` wavefront ticks and returns {lane: float32
+    wav chunk (1, samples)}.
+
+    ``kernel="auto"`` runs the estimator's groups through ``fused_tf_group``
+    when ``fused_block.kernel_limit`` accepts the down, mid and up groups at
+    the pool's ring (on the CPU its wrapper runs the plain version);
+    ``kernel=True`` raises a ValueError naming the limit where it does not.
+    ``graphs`` replays the wavefront tick, the encoder hop, the steady
+    vocoder hop and the finalize hop as CUDA graphs on a CUDA device.  ``ticks`` counts the
+    wavefront ticks run."""
+
+    def __init__(self, dec, n_lanes: int = 4,
+                 block_size: Optional[int] = None,
+                 ring_tokens: Optional[int] = None, token_cap: int = 1024,
+                 fused: bool = True, ring_quant: bool = False,
+                 kernel="auto", graphs: bool = True):
+        if ring_quant:
+            raise NotImplementedError("int8 estimator rings (ring_quant) are "
+                                      "ROADMAP item A3")
+        if not fused:
+            raise NotImplementedError("the concat-dataflow lanes wavefront "
+                                      "(fused=False) is ROADMAP item A4")
+        self.dec = dec
+        self.lanes = n_lanes
+        self.hop = block_size or dec.pipe_cfg.block_size
+        self.ring_tokens = (ring_tokens if ring_tokens is not None
+                            else dec.pipe_cfg.max_token_len - self.hop)
+        self.la = dec.lookahead
+        self.ratio = dec.ratio
+        self.cap = token_cap
+        cfg = self.cfg = dec.flow_cfg
+        self.n_mel = cfg.output_size
+        self.cf = self.hop * self.ratio
+        self.s_steps = cfg.cfm.n_timesteps
+        self.mel_cache_len = dec.pipe_cfg.mel_cache_len
+        self.scl = dec.source_cache_len
+        self.dev = dec.device
+        self.dt = dec._dt()
+        self.est_dt = dec.estimator_dtype or self.dt
+        self.rp = self.ring_tokens * self.ratio + self.cf
+
+        est_cfg = cfg.estimator
+        why = estimator_kernel_limit(est_cfg, self.cf, self.rp, self.est_dt)
+        if est_cfg.act_fn != "gelu":
+            why = f"the kernel runs exact GELU, not {est_cfg.act_fn!r}"
+        if kernel == "auto":
+            kernel = why is None
+        if kernel and why:
+            raise ValueError(f"the lanes kernel engine cannot run this "
+                             f"geometry: {why}")
+        self._kernel = bool(kernel)
+        self._steps = StepGraphs(self.dev, graphs)
+        self._graphs = self._steps.enabled
+
+        self._fw = getattr(dec, "_fused_qkv", None)
+        if self._fw is None:
+            self._fw = dec._fused_qkv = fuse_qkv_params(dec.flow)
+        self._gp = None
+        if self._kernel:
+            self._gp = getattr(dec, "_grouped_est_params", None)
+            if self._gp is None:
+                self._gp = dec._grouped_est_params = group_estimator_params(
+                    dec.flow, self._fw)
+        self._pe_tok, self._pe_mel = pe_tables(cfg, token_cap + 64, self.dev)
+        win = torch.from_numpy(np.hamming(2 * self.scl).astype(np.float32))
+        self._fade_in = win[: self.scl].to(self.dev)
+        self._fade_out = win[self.scl:].to(self.dev)
+        self._alloc()
+        self._lanes: List[_Lane] = [_Lane() for _ in range(n_lanes)]
+
+    # ------------------------------------------------------------- pools
+    def _alloc(self) -> None:
+        """The persistent device pools; every graph reads and writes these
+        addresses."""
+        dev, lanes, s, cf, n_mel = (self.dev, self.lanes, self.s_steps,
+                                    self.cf, self.n_mel)
+        cfg = self.cfg
+        self._est_g = init_est_pool(cfg, s * 2 * lanes, self.rp, self.est_dt,
+                                    dev)
+        self._est = ungroup_est_flat(self._est_g, cfg.estimator)
+        sd = (torch.float32 if cfg.cfm.solver_dtype == "float32"
+              else self.dt)
+        self._x = torch.zeros((s, lanes, cf, n_mel), dtype=sd, device=dev)
+        self._mu = torch.zeros((s, lanes, cf, n_mel), dtype=self.est_dt,
+                               device=dev)
+        self.mu_cap = max(2 * s, (self.cap + self.hop - 1) // self.hop + 2)
+        self._mu_buf = torch.zeros((lanes, self.mu_cap, cf, n_mel),
+                                   dtype=self.est_dt, device=dev)
+
+        def longs(*shape):
+            return torch.zeros(shape, dtype=torch.long, device=dev)
+        self._w, self._base = longs(lanes), longs(lanes)
+        self._spks = torch.zeros((lanes, n_mel), dtype=self.dt, device=dev)
+        # avail (row 0) and k_total (row 1): one upload per pump
+        self._ak = longs(2, lanes)
+        self._tok = longs(lanes, self.cap + self.hop + self.la + 1)
+        # a batch-1 canonical cache for a lane's prefill and finalize hop
+        self._scratch = init_kv_cache(cfg, self.ring_tokens, dtype=self.dt,
+                                      est_dtype=self.est_dt, device=dev)
+        self._scratch_flat = est_cache_to_flat(self._scratch["est"])
+        # per-lane encoder caches (leading lane axis), token counts and
+        # prompt lengths
+        self._enc = {k: torch.zeros((lanes,) + tuple(v.shape), dtype=v.dtype,
+                                    device=dev)
+                     for k, v in self._scratch["enc"].items()}
+        self._n_tok, self._plen = longs(lanes), longs(lanes)
+        # the finalize hop's other operands
+        self._fin_tok = longs(1, self.hop + self.la)
+        self._fin_emb = torch.zeros((1, cfg.spk_embed_dim), dtype=self.dt,
+                                    device=dev)
+        self._fin_ntok = longs()
+        self._fin_out: Dict[int, torch.Tensor] = {}   # tail -> mel
+        # per-lane vocoder caches, and the steady vocoder hop's operands
+        self._voc_pool = KVVocState(
+            torch.zeros((lanes, self.mel_cache_len, n_mel), device=dev),
+            torch.zeros((lanes, self.scl, 1), device=dev),
+            torch.zeros((lanes, self.scl), device=dev))
+        self._voc_in = torch.zeros((1, cf, n_mel), device=dev)
+        u = self.dec.hift_cfg.total_upsample
+        self._voc_out = torch.zeros((1, cf * u), device=dev)
+        self._voc_draws = None
+        self._lane_idx = longs(1)           # the lane of an enc / voc step
+        self._tick = longs(1)               # the tick of a burst
+        self._burst_out = None              # (mels, oks), made at use
+        self.ticks = 0
+
+    def _lane_view(self, pool: torch.Tensor, lane: int) -> torch.Tensor:
+        """(S * 2 * lanes, ...) flat pool leaf -> lane's (S, 2, ...) rows."""
+        v = pool.view((self.s_steps, 2, self.lanes) + tuple(pool.shape[1:]))
+        return v[:, :, lane]
+
+    def _lane_leaves(self, est: Dict):
+        """(pool leaf, lane-sized leaf) pairs of two flat est caches: the
+        rings, then the conv caches."""
+        yield from zip(self._est["kv"], est["kv"])
+        yield from _pairs(self._est["convs"], est["convs"])
+
+    # ------------------------------------------------------------- steps
+    def _tick_impl(self) -> None:
+        """One wavefront tick on the pools (the body of the JAX package's
+        ``_burst_impl``): its exit mels and valid flags into row ``_tick``
+        of the burst's buffers, then ``_tick`` += 1."""
+        mels, oks = self._burst_out
+        avail, k_total = self._ak[0], self._ak[1]
+        dec = self.dec.flow.decoder
+        if self._kernel:
+            mel, ok, x, mu, w = wave_lanes_step_kernel(
+                self._gp, dec, self._x, self._mu, self._mu_buf, self._spks,
+                self._est_g, self._w, avail, k_total, self._base)
+        else:
+            mel, ok, x, mu, w = wave_lanes_step(
+                dec, self._fw, self._x, self._mu, self._mu_buf, self._spks,
+                self._est, self._w, avail, k_total, self._base)
+        self._x.copy_(x)
+        self._mu.copy_(mu)
+        self._w.copy_(w)
+        mels.index_copy_(0, self._tick, mel[None])
+        oks.index_copy_(0, self._tick, ok[None])
+        self._tick.add_(1)
+
+    def _enc_hop_impl(self) -> None:
+        """One encoder hop of the lane at ``_lane_idx`` (the JAX package's
+        ``_enc_hops_impl`` body): its next chunk and lookahead at its device
+        token count, its encoder caches, mu into its chunk slot."""
+        lane = self._lane_idx
+        enc = {k: v.index_select(0, lane)[0] for k, v in self._enc.items()}
+        n_tok = self._n_tok.index_select(0, lane).reshape(())
+        off = n_tok - self._plen.index_select(0, lane).reshape(())
+        seg = dyn_slice(self._tok.index_select(0, lane), off,
+                        self.hop + self.la, dim=1)
+        mu, enc = kv_flow_encode_step(
+            self.dec.flow, self._fw, seg[:, :self.hop], seg[:, self.hop:],
+            enc, n_tok, self._pe_tok, self._pe_mel)
+        for k, v in self._enc.items():
+            v.index_copy_(0, lane, enc[k][None].to(v.dtype))
+        slot = torch.remainder(torch.div(off, self.hop, rounding_mode="floor"),
+                               self.mu_cap)
+        self._mu_buf.view((-1,) + tuple(self._mu_buf.shape[2:])).index_copy_(
+            0, lane * self.mu_cap + slot, mu.to(self._mu_buf.dtype))
+        self._n_tok.index_copy_(0, lane, (n_tok + self.hop).reshape(1))
+
+    def _voc_state(self, lane) -> KVVocState:
+        """The vocoder caches of ``lane`` (a host int or a (1,) device
+        index)."""
+        pools = _voc_fields(self._voc_pool)
+        if torch.is_tensor(lane):
+            return KVVocState(*(a.index_select(0, lane) for a in pools))
+        return KVVocState(*(a[lane:lane + 1] for a in pools))
+
+    def _vocode(self, emit_mel, voc: KVVocState, first: bool,
+                finalize: bool, draws=None):
+        return vocode_hop(self.dec.hift, self._fade_in, self._fade_out,
+                          self.mel_cache_len, self.dt, emit_mel, voc, first,
+                          finalize, draws)
+
+    def _voc_step_impl(self) -> None:
+        """One steady vocoder hop of the lane at ``_lane_idx`` over the mel
+        in ``_voc_in``: the audio into ``_voc_out``, the lane's caches
+        updated."""
+        lane = self._lane_idx
+        wav, new = self._vocode(self._voc_in, self._voc_state(lane), False,
+                                False, self._voc_draws)
+        self._voc_out.copy_(wav)
+        for pool, v in zip(_voc_fields(self._voc_pool), _voc_fields(new)):
+            pool.index_copy_(0, lane, v.to(pool.dtype))
+
+    # ----------------------------------------------------------- lifecycle
+    @torch.inference_mode()
+    def admit(self, prompt_token: np.ndarray, prompt_feat: np.ndarray,
+              embedding: np.ndarray) -> int:
+        """Claims a free lane for a new stream; returns the lane id.  The
+        prompt prefill waits for the first ``la`` stream tokens (the
+        prompt's pre-lookahead conv reads them as context) or for
+        ``finish``."""
+        lane = next((i for i, st in enumerate(self._lanes)
+                     if not st.active), None)
+        if lane is None:
+            raise RuntimeError("no free lane")
+        st = self._lanes[lane]
+        st.reset(int(prompt_token.shape[1]), self.cap)
+        st.ptok = torch.as_tensor(np.asarray(prompt_token),
+                                  dtype=torch.long).to(self.dev)
+        st.pfeat = torch.as_tensor(np.asarray(prompt_feat, np.float32)).to(
+            self.dev, self.dt)
+        st.emb = torch.as_tensor(np.asarray(embedding, np.float32)).to(
+            self.dev, self.dt)
+        return lane
+
+    def _prefill(self, lane: int, st: _Lane) -> None:
+        """The lane's prompt prefill (eager) and the admit-scatter of its
+        caches into the pools (the JAX package's ``_maybe_prefill`` and
+        ``_admit_scatter_impl``)."""
+        flow, sc = self.dec.flow, self._scratch
+        for t in (list(sc["enc"].values()) + list(sc["est"]["kv"])
+                  + list(_leaves(sc["est"]["convs"]))):
+            t.zero_()
+        enc = sc["enc"]
+        if st.prompt_len:
+            ctx = torch.as_tensor(st.tokens[None, :self.la],
+                                  dtype=torch.long).to(self.dev)
+            _, new = kv_flow_step(flow, self._fw, st.ptok, ctx, st.pfeat,
+                                  st.emb, sc, self._pe_tok, self._pe_mel)
+            enc = new["enc"]
+        for k, v in self._enc.items():
+            v[lane].copy_(enc[k])
+        self._n_tok[lane] = st.prompt_len
+        self._plen[lane] = st.prompt_len
+        # canonical capacity-R rings -> the pool's extended layout, rot 0
+        base = st.prompt_len * self.ratio
+        ext = extend_rings_for_fused(est_cache_to_flat(sc["est"]), base,
+                                     self.cf, 0)
+        for pool, leaf in self._lane_leaves(ext):
+            self._lane_view(pool, lane).copy_(
+                leaf.view((self.s_steps, 2) + tuple(leaf.shape[1:])))
+        self._x[:, lane].zero_()
+        self._x[0, lane].copy_(noise_chunk(flow.decoder, base, self.cf,
+                                           self.n_mel, self.dev))
+        self._mu[:, lane].zero_()
+        self._mu_buf[lane].zero_()
+        self._w[lane] = 0
+        self._spks[lane].copy_(spk_embedding(flow, st.emb)[0])
+        self._base[lane] = base
+        st.prefilled = True
+
+    @torch.inference_mode()
+    def push(self, lane: int, tokens: np.ndarray) -> None:
+        """Appends tokens to the lane's stream: one upload."""
+        st = self._lanes[lane]
+        if not st.active or st.finished:
+            raise RuntimeError(f"lane {lane} takes no tokens")
+        tokens = np.asarray(tokens).reshape(-1).astype(np.int32)
+        n0, n = st.n_pushed, len(tokens)
+        if n0 + n > self.cap:
+            raise ValueError(f"lane {lane}: {n0 + n} tokens exceed "
+                             f"token_cap {self.cap}")
+        st.tokens[n0:n0 + n] = tokens
+        st.n_pushed = n0 + n
+        self._tok[lane, n0:n0 + n].copy_(torch.from_numpy(tokens))
+
+    def finish(self, lane: int) -> None:
+        st = self._lanes[lane]
+        if not st.active or st.finished:
+            raise RuntimeError(f"lane {lane} is not streaming")
+        st.finished = True
+        st.k_total = max(0, (st.n_pushed - self.la) // self.hop)
+
+    # ----------------------------------------------------------------- pump
+    def _encodable(self, st: _Lane) -> int:
+        return (st.k_total if st.finished
+                else max(0, (st.n_pushed - self.la) // self.hop))
+
+    def _encode_available(self) -> None:
+        """The deferred prefills, then one encoder hop per newly encodable
+        chunk of every lane."""
+        for lane, st in enumerate(self._lanes):
+            if not st.active:
+                continue
+            if not st.prefilled and (st.n_pushed >= self.la or st.finished):
+                self._prefill(lane, st)
+            if not st.prefilled:
+                continue
+            n_new = self._encodable(st) - st.chunks_encoded
+            if n_new <= 0:
+                continue
+            # chunk k stays at slot k % mu_cap until the wavefront reads it
+            if st.chunks_encoded + n_new - st.w_host > self.mu_cap:
+                raise RuntimeError("mu chunk ring overrun: pump more often "
+                                   "or raise token_cap")
+            self._lane_idx.fill_(lane)
+            for _ in range(n_new):
+                self._steps.run(("enc",), self._enc_hop_impl)
+            st.n_tok += n_new * self.hop
+            st.chunks_encoded += n_new
+
+    @torch.inference_mode()
+    def pump(self, max_iters: int = 8) -> Dict[int, np.ndarray]:
+        """Advances all lanes by up to ``max_iters`` wavefront ticks; returns
+        {lane: wav float32 (1, samples)} for lanes that emitted audio, and
+        frees the lanes whose stream ended (their last chunk includes the
+        finalize tail)."""
+        self._encode_available()
+        ak = np.zeros((2, self.lanes), np.int64)
+        ak[1] = 1 << 30
+        live = [(lane, st) for lane, st in enumerate(self._lanes)
+                if st.active and st.prefilled]
+        if not live:
+            return {}
+        for lane, st in live:
+            if st.finished:
+                ak[:, lane] = (st.k_total + self.s_steps - 1, st.k_total)
+            else:
+                ak[0, lane] = st.chunks_encoded
+        # the ticks in which some lane advances; the host mirror of the
+        # device rule w += (w < avail)
+        n_ticks = min(max_iters, max(int(ak[0, lane]) - st.w_host
+                                     for lane, st in live))
+        for lane, st in live:
+            st.w_host = min(st.w_host + n_ticks, int(ak[0, lane]))
+        self._ak.copy_(torch.from_numpy(ak))
+        oks_np = np.zeros((0, self.lanes), bool)
+        if n_ticks:
+            if self._burst_out is None or \
+                    self._burst_out[0].shape[0] < max_iters:
+                self._burst_out = (
+                    torch.zeros((max_iters, self.lanes, self.cf, self.n_mel),
+                                device=self.dev),
+                    torch.zeros((max_iters, self.lanes), dtype=torch.bool,
+                                device=self.dev))
+                self._steps.graphs.pop(("tick",), None)  # new buffers
+            self._tick.zero_()
+            for _ in range(n_ticks):
+                self._steps.run(("tick",), self._tick_impl)
+            self.ticks += n_ticks
+            oks_np = self._burst_out[1][:n_ticks].cpu().numpy()
+        mels = self._burst_out[0] if n_ticks else None
+        out: Dict[int, np.ndarray] = {}
+        for lane, st in enumerate(self._lanes):
+            if not st.active:
+                continue
+            segs = []
+            for t in np.nonzero(oks_np[:, lane])[0]:
+                segs.append(self._emit(lane, st, mels[t, lane][None]))
+            if st.finished and st.w_emitted >= st.k_total:
+                segs.extend(self._finalize_lane(lane, st))
+                st.active = False
+            if segs:
+                out[lane] = torch.cat(segs, dim=1).cpu().numpy()
+        return out
+
+    def _emit(self, lane: int, st: _Lane, mel: torch.Tensor) -> torch.Tensor:
+        """Vocodes one wavefront chunk of the lane: the stream's first
+        eagerly, a steady one through the (graphed) vocoder step."""
+        st.w_emitted += 1
+        if st.first_voc:
+            st.first_voc = False
+            wav, new = self._vocode(mel, None, True, False)
+            for pool, v in zip(_voc_fields(self._voc_state(lane)),
+                               _voc_fields(new)):
+                pool.copy_(v)
+            return wav
+        if self._voc_draws is None:
+            h = self.dec.hift
+            n = (self.mel_cache_len + self.cf) * self.dec.hift_cfg.total_upsample
+            self._voc_draws = h.draws(h.cfg.nb_harmonics + 1, n, self.dev)
+        self._voc_in.copy_(mel)
+        self._lane_idx.fill_(lane)
+        self._steps.run(("voc",), self._voc_step_impl)
+        return self._voc_out.clone()
+
+    def _fin_hop_impl(self, tail: int) -> None:
+        """The finalize hop of ``tail`` tokens (the JAX package's
+        ``_fin_hop_impl``): the per-hop KV step with finalize semantics over
+        the lane caches sliced into the scratch cache, at the device token
+        count ``_fin_ntok``; the mel into ``_fin_out[tail]``."""
+        sc = self._scratch
+        cache = {"enc": sc["enc"],
+                 "est": est_cache_from_flat(self._scratch_flat, self.s_steps),
+                 "n_tok": self._fin_ntok}
+        ctx = torch.zeros((1, self.la), dtype=torch.long, device=self.dev)
+        cond = torch.zeros((1, tail * self.ratio, self.n_mel), dtype=self.dt,
+                           device=self.dev)
+        mel, _ = kv_flow_step(self.dec.flow, self._fw,
+                              self._fin_tok[:, :tail], ctx, cond,
+                              self._fin_emb, cache, self._pe_tok,
+                              self._pe_mel, finalize=True)
+        self._fin_out[tail].copy_(mel)
+
+    def _finalize_lane(self, lane: int, st: _Lane) -> List[torch.Tensor]:
+        """The tail tokens (< hop + la) through the per-hop KV step with
+        finalize semantics (graphed per tail length) on the lane's caches,
+        sliced out of the pools into the scratch cache (the JAX package's
+        ``_lane_slice_impl``: the rings shrunk back to canonical capacity),
+        then the lane's pool rows cleared."""
+        tail = st.n_pushed - st.k_total * self.hop
+        segs = []
+        if tail > 0:
+            sc = self._scratch
+            for k, v in self._enc.items():
+                sc["enc"][k].copy_(v[lane])
+            n_frames = (st.prompt_len + st.k_total * self.hop) * self.ratio
+            lane_ext = {"kv": tuple(
+                self._lane_view(a, lane).reshape((-1,) + tuple(a.shape[1:]))
+                for a in self._est["kv"]), "convs": {}}
+            shrink_rings_from_fused(lane_ext, n_frames, self.cf, 0,
+                                    out=self._scratch_flat["kv"])
+            for pool, leaf in _pairs(self._est["convs"],
+                                     self._scratch_flat["convs"]):
+                leaf.copy_(self._lane_view(pool, lane).reshape(leaf.shape))
+            off = st.k_total * self.hop
+            self._fin_tok[0, :tail].copy_(torch.from_numpy(
+                st.tokens[off:off + tail]))
+            self._fin_emb.copy_(st.emb)
+            self._fin_ntok.fill_(st.n_tok)
+            if tail not in self._fin_out:
+                self._fin_out[tail] = torch.zeros(
+                    (1, tail * self.ratio, self.n_mel), device=self.dev)
+            self._steps.run(("fin", tail),
+                            functools.partial(self._fin_hop_impl, tail))
+            first = st.first_voc
+            st.first_voc = False
+            wav, _ = self._vocode(self._fin_out[tail], None if first else
+                                  self._voc_state(lane), first, True)
+            segs.append(wav)
+        for pool, _ in self._lane_leaves(self._est):
+            self._lane_view(pool, lane).zero_()
+        return segs
+
+    # ------------------------------------------------------------ queries
+    @property
+    def meter(self):
+        raise NotImplementedError("the dispatch meter needs utils/flops.py: "
+                                  "ROADMAP item A13")
+
+    def measured_flops(self) -> float:
+        raise NotImplementedError("measured FLOPs need utils/flops.py: "
+                                  "ROADMAP item A13")
+
+    @property
+    def free_lanes(self) -> int:
+        return sum(1 for st in self._lanes if not st.active)
+
+    def has_work(self) -> bool:
+        """True when a ``pump()`` would make progress: a pending prefill,
+        unencoded pushed chunks, or wavefront ticks left (``w_host`` mirrors
+        the device rule exactly, so an engine can sleep instead of pumping
+        bursts that advance nothing)."""
+        for st in self._lanes:
+            if not st.active:
+                continue
+            if not st.prefilled:
+                if st.n_pushed >= self.la or st.finished:
+                    return True
+                continue
+            if self._encodable(st) > st.chunks_encoded:
+                return True
+            avail = (st.k_total + self.s_steps - 1 if st.finished
+                     else st.chunks_encoded)
+            if st.w_host < avail:
+                return True
+        return False

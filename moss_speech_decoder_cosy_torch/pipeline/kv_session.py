@@ -30,7 +30,8 @@ One wavefront iteration (``_wave_step_impl``; with the encoder hop while
 w < k, without it after, where JAX had ``lax.cond``) and one per-hop step
 (``_hop_impl``, per ``(emit_tokens, finalize)``) read and write only those,
 so on CUDA each is captured once as a CUDA graph and replayed
-(``graphs=True``, the default): the first call of each runs eagerly on the
+(``graphs=True``, the default; ``StepGraphs``, which the continuous batcher
+shares): the first call of each runs eagerly on the
 capture stream, which is both its real work and the warm-up capture needs,
 then records it.  Every later call is one graph launch.  ``graphs=False``
 runs the same functions eagerly; on the CPU there are no graphs.  A failed
@@ -62,9 +63,10 @@ import numpy as np
 import torch
 
 from ..models.flow.kv_stream import (
-    dyn_slice, encoder_hop_kernel, est_cache_to_flat, extend_rings_for_fused,
-    fuse_qkv_params, group_encoder_params, group_estimator_params,
-    init_kv_cache, kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables,
+    dyn_slice, encoder_hop_kernel, est_cache_from_flat, est_cache_to_flat,
+    extend_rings_for_fused, fuse_qkv_params, group_encoder_params,
+    group_estimator_params, init_est_pool, init_kv_cache,
+    kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables,
     shrink_rings_from_fused, spk_embedding, ungroup_est_flat, wave_step,
     wave_step_kernel)
 from ..ops.fused_block import kernel_limit, launch_fused_tf_group
@@ -75,12 +77,106 @@ from .bulk_voc import BulkVocoder
 _COUNTERS = (launch_fused_tf_group, launch_fused_conformer_group)
 
 
+def estimator_kernel_limit(est_cfg, cf: int, rp: int,
+                           dtype: torch.dtype) -> Optional[str]:
+    """``kernel_limit`` of the first of the estimator's down, mid and up
+    groups (input channels in_channels, ch and 2 ch) that the kernel cannot
+    run at chunk ``cf`` and ring ``rp``, or None."""
+    ch = est_cfg.channels[0]
+    for cin in (est_cfg.in_channels, ch, 2 * ch):
+        why = kernel_limit(cf, rp, cin, ch, 4 * ch, 4 * ch,
+                           est_cfg.num_heads, est_cfg.attention_head_dim,
+                           dtype)
+        if why:
+            return why
+    return None
+
+
+class StepGraphs:
+    """Steps on persistent state, replayed as CUDA graphs.  ``run(key, fn)``
+    runs ``fn`` eagerly when graphs are off (or the device is not CUDA);
+    else the first call of each ``key`` runs it eagerly on the capture
+    stream and captures it, and later calls replay the graph.  Each graph's
+    fused-kernel launches are counted at capture and added to the kernels'
+    counters at every replay.  A failed capture raises."""
+
+    def __init__(self, device: torch.device, enabled: bool):
+        self.device = device
+        self.enabled = bool(enabled) and device.type == "cuda"
+        self.graphs: Dict[tuple, tuple] = {}   # key -> (graph, launches)
+        self._stream = None
+
+    def run(self, key: tuple, fn: Callable[[], None]) -> None:
+        if not self.enabled:
+            fn()
+            return
+        got = self.graphs.get(key)
+        if got is None:
+            self.graphs[key] = self._capture(fn)
+            return
+        graph, launched = got
+        graph.replay()
+        for counter, n in launched:
+            counter.launches += n
+
+    def _capture(self, fn: Callable[[], None]):
+        """One eager call of ``fn`` on a side stream (this call's work, and
+        the warm-up that builds the kernels and sets up cuBLAS and cuDNN
+        before capture), then ``fn`` captured; returns (graph, [(counter,
+        launches per replay)]).  Capture records and does not run, so the
+        state stays as the eager call left it; the counters are restored."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream, main = self._stream, torch.cuda.current_stream(self.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            fn()
+        main.wait_stream(stream)
+        before = [c.launches for c in _COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+        launched = [(c, c.launches - b) for c, b in zip(_COUNTERS, before)]
+        for c, b in zip(_COUNTERS, before):
+            c.launches = b
+        return graph, launched
+
+
 @dataclasses.dataclass
 class KVVocState:
     """Per-hop vocoder caches on the device."""
     mel_cache: torch.Tensor        # (1, mel_cache_len, n_mel) f32
     source_cache: torch.Tensor     # (1, scl, 1) f32
     speech_cache: torch.Tensor     # (1, scl) f32
+
+
+def vocode_hop(hift, fade_in: torch.Tensor, fade_out: torch.Tensor,
+               mel_cache_len: int, dt: torch.dtype, emit_mel: torch.Tensor,
+               voc: KVVocState, first: bool, finalize: bool, draws=None):
+    """One hop of the per-hop vocoder (the JAX package's ``_voc_impl``):
+    HiFT over the cached mel frames and the hop's, the source cache over
+    the head of the excitation and the Hamming cross-fade with the speech
+    cache.  ``draws`` the NSF source's draws, else HiFT's own.  Returns
+    (wav chunk (1, n) f32, new state); the finalize hop emits everything
+    and returns ``voc`` as it was."""
+    scl = fade_in.shape[0]
+    if first:
+        mel_in = emit_mel
+        cache_source = None
+    else:
+        mel_in = torch.cat([voc.mel_cache.to(emit_mel.dtype), emit_mel], dim=1)
+        cache_source = voc.source_cache.to(dt)
+    wav, source = hift(mel_in.to(dt), cache_source, draws)
+    wav = wav.float()
+    if not first:
+        head = wav[:, :scl] * fade_in + voc.speech_cache * fade_out
+        wav = torch.cat([head, wav[:, scl:]], dim=1)
+    if finalize:
+        return wav, voc
+    return wav[:, : wav.shape[1] - scl], KVVocState(
+        mel_in[:, mel_in.shape[1] - mel_cache_len:].float(),
+        source[:, source.shape[1] - scl:].float(),
+        wav[:, wav.shape[1] - scl:])
 
 
 class KVStreamDecoder:
@@ -123,7 +219,8 @@ class KVStreamDecoder:
         # prompt alignment of the shared write offset (frames % hop)
         self._align = (self.p * self.ratio) % self.cf
         est_cfg = cfg.estimator
-        why = self._kernel_limit(est_cfg)
+        why = estimator_kernel_limit(
+            est_cfg, self.cf, ring_tokens * self.ratio + self.cf, self.est_dt)
         kernel_ok = self._fused and est_cfg.act_fn == "gelu" and not why
         if kernel == "auto":
             kernel = kernel_ok
@@ -132,7 +229,9 @@ class KVStreamDecoder:
                              "shared-offset geometry and exact GELU"
                              + (f"; {why}" if why else ""))
         self._kernel = bool(kernel)
-        self._graphs = bool(graphs) and self.dev.type == "cuda"
+        self._steps = StepGraphs(self.dev, graphs)
+        self._graphs = self._steps.enabled
+        self._graph = self._steps.graphs
 
         self._prompt_tok = torch.as_tensor(np.asarray(prompt_token),
                                            dtype=torch.long).to(self.dev)
@@ -166,21 +265,6 @@ class KVStreamDecoder:
         self._spks = None
         self._bulk: Optional[BulkVocoder] = None
         self._cache: Optional[Dict] = None   # persistent state, made at use
-        self._graph: Dict[tuple, tuple] = {}    # key -> (graph, launches)
-        self._capture_stream = None
-
-    def _kernel_limit(self, est_cfg) -> Optional[str]:
-        """``kernel_limit`` of the first of the down, mid and up groups (input
-        channels in_channels, ch and 2 ch) that the kernel cannot run."""
-        ch = est_cfg.channels[0]
-        rp = self.ring_tokens * self.ratio + self.cf
-        for cin in (est_cfg.in_channels, ch, 2 * ch):
-            why = kernel_limit(self.cf, rp, cin, ch, 4 * ch, 4 * ch,
-                               est_cfg.num_heads, est_cfg.attention_head_dim,
-                               self.est_dt)
-            if why:
-                return why
-        return None
 
     # ------------------------------------------------------------- state
     def _alloc(self) -> None:
@@ -190,42 +274,17 @@ class KVStreamDecoder:
         est_cfg = cfg.estimator
         cache = init_kv_cache(cfg, self.ring_tokens, dtype=self.dt,
                               est_dtype=self.est_dt, device=dev)
-        # the mid resnets' conv caches as views of one stacked tensor: the
-        # kernel engine's grouped layout and the canonical one share it
-        m = est_cfg.num_mid_blocks
-        convs = cache["est"]["convs"]
-        mids = {k: torch.stack([convs[f"mid_res_{i}"][k] for i in range(m)])
-                for k in ("block1", "block2")}
-        for i in range(m):
-            convs[f"mid_res_{i}"] = {k: mids[k][i] for k in mids}
         cache["n_tok"] = torch.zeros((), dtype=torch.long, device=dev)
-        self._cache = cache
-
-        flat = est_cache_to_flat(cache["est"])
-        rows, _, d2 = flat["kv"][0].shape
+        # the extended rings in the kernel's grouped layout, and the flat
+        # layout of the unfused engine as views of them; the canonical conv
+        # caches are views of the same conv caches
+        rows = self.s_steps * 2
         rp = self.ring_tokens * self.ratio + self.cf
-        if self._kernel:
-            n = est_cfg.n_blocks
-
-            def rings():
-                return torch.zeros((n, rows, rp, d2), dtype=self.est_dt,
-                                   device=dev)
-
-            gconvs = {k: v for k, v in flat["convs"].items()
-                      if not k.startswith("mid_res_")}
-            gconvs["mid_res"] = {k: v.reshape((m, rows) + v.shape[3:])
-                                 for k, v in mids.items()}
-            self._ext_g = {"kv": {"down": rings(),
-                                  "mid": tuple(rings() for _ in range(m)),
-                                  "up": rings()},
-                           "convs": gconvs}
-            self._ext = ungroup_est_flat(self._ext_g, est_cfg)
-        else:
-            self._ext = {"kv": tuple(torch.zeros((rows, rp, d2),
-                                                 dtype=self.est_dt,
-                                                 device=dev)
-                                     for _ in flat["kv"]),
-                         "convs": flat["convs"]}
+        self._ext_g = init_est_pool(cfg, rows, rp, self.est_dt, dev)
+        self._ext = ungroup_est_flat(self._ext_g, est_cfg)
+        cache["est"]["convs"] = est_cache_from_flat(
+            {"kv": (), "convs": self._ext["convs"]}, self.s_steps)["convs"]
+        self._cache = cache
         self._rot_dev = torch.tensor(self._rot(rp), device=dev)
 
         s, cf, n_mel = self.s_steps, self.cf, self.n_mel
@@ -298,45 +357,8 @@ class KVStreamDecoder:
                         dim=1)
         return seg[:, :emit_tokens], seg[:, emit_tokens:]
 
-    # ------------------------------------------------------------ graphs
     def _run(self, key: tuple, fn: Callable[[], None]) -> None:
-        """Runs ``fn`` (a step on the persistent state): eagerly without
-        graphs; else the first call of each ``key`` runs it eagerly on the
-        capture stream and captures it, and later calls replay the graph."""
-        if not self._graphs:
-            fn()
-            return
-        got = self._graph.get(key)
-        if got is None:
-            self._graph[key] = self._capture(fn)
-            return
-        graph, launched = got
-        graph.replay()
-        for counter, n in launched:
-            counter.launches += n
-
-    def _capture(self, fn: Callable[[], None]):
-        """One eager call of ``fn`` on a side stream (this call's work, and
-        the warm-up that builds the kernels and sets up cuBLAS and cuDNN
-        before capture), then ``fn`` captured; returns (graph, [(counter,
-        launches per replay)]).  Capture records and does not run, so the
-        state stays as the eager call left it; the counters are restored."""
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.dev)
-        stream, main = self._capture_stream, torch.cuda.current_stream(
-            self.dev)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
-            fn()
-        main.wait_stream(stream)
-        before = [c.launches for c in _COUNTERS]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            fn()
-        launched = [(c, c.launches - b) for c, b in zip(_COUNTERS, before)]
-        for c, b in zip(_COUNTERS, before):
-            c.launches = b
-        return graph, launched
+        self._steps.run(key, fn)
 
     # ------------------------------------------------------------- steps
     def _hop_impl(self, emit_tokens: int, finalize: bool,
@@ -409,26 +431,9 @@ class KVStreamDecoder:
     def _voc(self, emit_mel, voc: KVVocState, first: bool, finalize: bool):
         """HiFT with the mel/source caches and the Hamming cross-fade.
         Returns (wav chunk (1, n) f32, new state)."""
-        dt, scl = self.dt, self.scl
-        if first:
-            mel_in = emit_mel
-            cache_source = None
-        else:
-            mel_in = torch.cat([voc.mel_cache.to(emit_mel.dtype), emit_mel],
-                               dim=1)
-            cache_source = voc.source_cache.to(dt)
-        wav, source = self.dec.hift(mel_in.to(dt), cache_source)
-        wav = wav.float()
-        if not first:
-            head = wav[:, :scl] * self._fade_in + voc.speech_cache * \
-                self._fade_out
-            wav = torch.cat([head, wav[:, scl:]], dim=1)
-        if finalize:
-            return wav, voc
-        return wav[:, : wav.shape[1] - scl], KVVocState(
-            mel_in[:, mel_in.shape[1] - self.mel_cache_len:].float(),
-            source[:, source.shape[1] - scl:].float(),
-            wav[:, wav.shape[1] - scl:])
+        return vocode_hop(self.dec.hift, self._fade_in, self._fade_out,
+                          self.mel_cache_len, self.dt, emit_mel, voc, first,
+                          finalize)
 
     def schedule(self, n_tokens: int) -> List[Tuple[int, bool]]:
         """[(emit_tokens, finalize), ...]: steady hops while a full hop plus
@@ -515,7 +520,9 @@ class KVStreamDecoder:
         tokens = np.asarray(tokens)
         if tokens.ndim != 2 or tokens.shape[0] != 1:
             raise NotImplementedError("one stream per session; lockstep "
-                                      "batches are ROADMAP item A7")
+                                      "batches are ROADMAP item A3, "
+                                      "concurrent streams run through "
+                                      "AudioDecoder.kv_batcher")
         token_buf = self._token_buf(tokens)
         cache, voc = self.init_state()
         if self.p:

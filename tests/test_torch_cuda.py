@@ -568,3 +568,160 @@ def test_profiler_counts_the_graphed_kernels(card, enc_kernel):
     assert counted[0] > 0 and (counted[1] > 0) == enc_kernel
     assert (ran["fused_tf_group_kernel"],
             ran["fused_conformer_group_kernel"]) == counted
+
+
+def _tiny_batcher_decoder(device):
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    flow_cfg, hift_cfg = C.tiny_flow_config(), C.tiny_hift_config()
+    return AudioDecoder(flow_cfg, hift_cfg, *seeded_states(flow_cfg, hift_cfg),
+                        C.PipelineConfig(block_size=3, mel_cache_len=2,
+                                         max_token_len=9), device=device)
+
+
+def _serve_staggered(b, seed):
+    """Three streams through a 2-lane batcher: the second admitted mid-stream
+    of the first, the third into the lane the first freed.  Returns the
+    wavs and the ticks run."""
+    rng = np.random.RandomState(seed)
+    cfg = b.dec.flow_cfg
+    streams = [(rng.randint(0, cfg.vocab_size, (1, p)),
+                rng.randn(1, p * cfg.token_mel_ratio,
+                          cfg.output_size).astype(np.float32),
+                rng.randn(1, cfg.spk_embed_dim).astype(np.float32),
+                rng.randint(0, cfg.vocab_size, (1, n)))
+               for p, n in ((2, 25), (0, 16), (3, 13))]
+    chunks, ticks0 = {}, b.ticks
+
+    def pump_until_free(lanes):
+        for _ in range(100):
+            for lane, wav in b.pump(max_iters=4).items():
+                chunks.setdefault(owner[lane], []).append(wav)
+            if not any(b._lanes[lane].active for lane in lanes):
+                return
+        raise AssertionError("lanes never drained")
+
+    owner = {}
+    la = b.admit(*streams[0][:3])
+    owner[la] = 0
+    b.push(la, streams[0][3][:, :10])
+    for lane, wav in b.pump(max_iters=4).items():
+        chunks.setdefault(owner[lane], []).append(wav)
+    lb = b.admit(*streams[1][:3])
+    owner[lb] = 1
+    b.push(lb, streams[1][3])
+    b.push(la, streams[0][3][:, 10:])
+    b.finish(la)
+    b.finish(lb)
+    pump_until_free([la])
+    lc = b.admit(*streams[2][:3])
+    assert lc == la
+    owner[lc] = 2
+    b.push(lc, streams[2][3])
+    b.finish(lc)
+    pump_until_free([lb, lc])
+    return ([np.concatenate(chunks[i], axis=1) for i in range(3)],
+            b.ticks - ticks0)
+
+
+def test_lanes_kernel_engine_matches_plain_engine_on_card(card):
+    """The batcher's kernel engine (``fused_tf_group`` in its per-row write
+    mode) against its unfused engine, f32 on the card, same protocol."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    dec = _tiny_batcher_decoder(card)
+    wavs = {}
+    for kernel in (True, False):
+        b = dec.kv_batcher(n_lanes=2, ring_tokens=6, token_cap=64,
+                           kernel=kernel)
+        assert b._kernel is kernel and b._graphs
+        fb.launch_fused_tf_group.launches = 0
+        wavs[kernel], ticks = _serve_staggered(b, 8)
+        assert fb.launch_fused_tf_group.launches == (3 * ticks if kernel
+                                                     else 0)
+    for got, want in zip(wavs[True], wavs[False]):
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_graphed_batcher_matches_eager(card):
+    """The graphed batcher (tick, encoder hop, steady vocoder hop and
+    finalize hop replayed) against the same steps run eagerly, f32 on the
+    card, twice each so the second pass replays every graph."""
+    dec = _tiny_batcher_decoder(card)
+    graphed, eager = (dec.kv_batcher(n_lanes=2, ring_tokens=6, token_cap=64,
+                                     graphs=g) for g in (True, False))
+    assert graphed._graphs and not eager._graphs and graphed._kernel
+    runs = {(b._graphs, rep): _serve_staggered(b, 9)[0]
+            for b in (graphed, eager) for rep in range(2)}
+    keys = set(graphed._steps.graphs)
+    assert {("tick",), ("enc",), ("voc",)} <= keys
+    assert {k for k in keys if k[0] == "fin"}        # one per tail length
+    for rep in range(2):
+        for got, want in zip(runs[True, rep], runs[False, rep]):
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    for got, want in zip(runs[True, 1], runs[True, 0]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("graphs", [True, False], ids=["graphed", "eager"])
+def test_batcher_launches_fused_tf_group_per_tick(card, monkeypatch, graphs):
+    """Every tick of the kernel engine launches ``fused_tf_group`` once per
+    resnet + transformer group (down, mid, up), in its per-row write mode,
+    and nothing else of the batcher launches it."""
+    from moss_speech_decoder_cosy_torch.models.flow import kv_stream
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    dec = _tiny_batcher_decoder(card)
+    b = dec.kv_batcher(n_lanes=2, ring_tokens=6, token_cap=64,
+                       graphs=graphs)
+    modes = []
+
+    def spy(*args, **kw):
+        modes.append(kw["shared_offset"])
+        return fb.fused_tf_group(*args, **kw)
+    monkeypatch.setattr(kv_stream, "fused_tf_group", spy)
+    fb.launch_fused_tf_group.launches = 0
+    _, ticks = _serve_staggered(b, 10)
+    e = dec.flow_cfg.estimator
+    assert ticks > 0
+    assert fb.launch_fused_tf_group.launches == (2 + e.num_mid_blocks) * ticks
+    assert modes and not any(modes)         # every traced call per-row
+
+
+def test_audio_batch_engine_on_card(card):
+    """Two concurrent asyncio clients through ``AudioBatchEngine`` on the
+    card (the batcher's graphs captured and replayed from the engine's
+    executor threads) get the audio the same streams give one after the
+    other through the same engine."""
+    import asyncio
+    from moss_speech_decoder_cosy_torch.serving.audio_batcher import (
+        AudioBatchEngine)
+    dec = _tiny_batcher_decoder(card)
+    rng = np.random.RandomState(12)
+    cfg = dec.flow_cfg
+    streams = [(rng.randn(1, cfg.spk_embed_dim).astype(np.float32),
+                rng.randint(0, cfg.vocab_size, (1, n))) for n in (19, 14)]
+
+    async def client(engine, emb, toks, pieces):
+        s = await engine.open(embedding=emb)
+        for part in np.array_split(toks, pieces, axis=1):
+            await s.push(part)
+            await asyncio.sleep(0.003)
+        await s.finish()
+        return np.concatenate([c async for c in s], axis=1)
+
+    async def run(concurrent):
+        engine = AudioBatchEngine(dec, n_lanes=2, ring_tokens=6,
+                                  token_cap=64)
+        assert engine.batcher._graphs
+        if concurrent:
+            return await asyncio.gather(*[
+                client(engine, *st, pieces=3 + i)
+                for i, st in enumerate(streams)])
+        return [await client(engine, *st, pieces=1) for st in streams]
+
+    together, apart = asyncio.run(run(True)), asyncio.run(run(False))
+    for got, want in zip(together, apart):
+        assert got.shape == want.shape and np.abs(want).max() > 0
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

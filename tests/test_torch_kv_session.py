@@ -248,7 +248,7 @@ def test_enc_kernel_matches_per_layer_encoder(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(batch=2), "A7"), (dict(ring_quant=True), "A7"),
+    (dict(batch=2), "A3"), (dict(ring_quant=True), "A3"),
     (dict(write_mode="onehot"), "onehot"), (dict(stacked=True), "stacked")])
 def test_options_not_ported_raise(setup, kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -3,7 +3,8 @@ JAX package's, f32 on the CPU, tiny config, same weights (``weights.py``):
 
 - ``kv_flow_step`` over prompt prefill, steady hops and the finalize tail
   against JAX ``KVFlowStep`` (mel per hop), with and without a prompt;
-- the ring extend / shrink of the fused layout against JAX;
+- the ring extend / shrink of the fused layout, the per-row ring write and
+  ``est_cache_from_flat`` against JAX;
 - one wavefront iteration (fused write-then-attend, shared offset) of the
   unfused engine and of the kernel engine against JAX
   ``CausalConditionalCFMWave``;
@@ -148,6 +149,34 @@ def _random_est(cfg, ring_t, seed):
     rng = np.random.RandomState(seed)
     return jax.tree.map(lambda a: jnp.asarray(
         rng.randn(*a.shape).astype(np.float32)), est)
+
+
+@pytest.mark.parametrize("c", [3, 9])
+def test_ring_write_rows_matches_jax(c):
+    """Per-row ring writes (the continuous batcher's lanes) against JAX
+    ``ring_write_batched``: rows at their own positions, one wrapping, one
+    disabled; a chunk that wraps (3) and one longer than the ring (9 > 7).
+    Exact: an index write against a one-hot product."""
+    rng = np.random.RandomState(c)
+    ring = rng.randn(4, 7, 5).astype(np.float32)
+    chunk = rng.randn(4, c, 5).astype(np.float32)
+    nd = np.array([0, 5, 13, 6], np.int32)
+    en = np.array([True, True, False, True])
+    want = J.ring_write_batched(jnp.asarray(ring), jnp.asarray(chunk),
+                                jnp.asarray(nd), enable=jnp.asarray(en))
+    got = T.ring_write_rows(torch.from_numpy(ring.copy()),
+                            torch.from_numpy(chunk),
+                            torch.from_numpy(nd).long(), torch.from_numpy(en))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_est_cache_from_flat_matches_jax(models):
+    cfg = models["cfg"]
+    flat = J.est_cache_to_flat(_random_est(cfg, 6, 3))
+    assert_tree_close(T.est_cache_from_flat(to_torch(flat),
+                                            cfg.cfm.n_timesteps),
+                      J.est_cache_from_flat(flat, cfg.cfm.n_timesteps), 0.0,
+                      "est")
 
 
 @pytest.mark.parametrize("n_frames", [10, 40])
