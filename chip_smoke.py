@@ -51,13 +51,27 @@ Phases (any failure raises and the script exits non-zero):
    the stream admitted into a busy pool, exactly 14 ``fused_tf_group``
    launches a tick, host and graph launches; the same eager and through
    one lane; each stream's wav against ``kv_stream_decoder()`` (reported).
+   Then the windowed device session (``device_stream_decoder()``, the
+   reference's windowed re-decode kept on the card) at ``bench.py``'s
+   windowed protocol and configuration: bf16, 250 tokens, block 5, mel
+   cache 8, window 40, no flash; 1 warm-up then the median of 5
+   ``stream_decode(output="int16")`` graphed (every step a CUDA graph),
+   the mean of 2 eager (``graphs=False``, its first call is no slower);
+   the first hop (a warm ``_flow_step`` + ``_voc_step``) graphed and
+   eager; host launch calls and graph launches of one graphed decode
+   (profiled); and 4 streams in lockstep (``batch=4``, graphed, 1 warm-up
+   and the mean of 2): aggregate x-realtime.  It
+   runs none of the CUDA kernels (its windows are right-padded, so flash
+   is off), and the launch counts are checked to stay 0.
 6. Cross-device: the flow mel in f32 on the card (kernels) and on the CPU
    (plain versions), same weights: offline over 50 tokens, one 40-token
    streaming window, the KV wavefront over 40 tokens with the per-layer
-   encoder and with the kernel encoder hop, and every exit mel of the
-   batcher serving two staggered 40-token streams, the card's side
-   graphed; and on the card the graphed KV and batcher mels against the
-   eager ones.
+   encoder and with the kernel encoder hop, every exit mel of the
+   batcher serving two staggered 40-token streams, and every emit mel of
+   the windowed device session over 18 tokens (a bucket of 2 padded
+   windows as one batched flow forward), the card's side graphed; and on
+   the card the graphed KV, batcher and windowed mels against the eager
+   ones.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1040,6 +1054,175 @@ def cross_phase(torch) -> dict:
     return out
 
 
+def windowed_first_hop_s(torch, sess, tokens) -> float:
+    """First-hop latency as ``bench.py`` times it: the flow step and the
+    vocoder step of the first hop from a fresh state; graphed, the second
+    of two calls (the first captures the steps' graphs)."""
+    buf = sess._token_buf(tokens)
+    for _ in range(2 if sess._graphs else 1):
+        state = sess.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = sess._flow_step(buf, state, sess.hop + sess.prompt_pad, False)
+        seg, _ = sess._voc_step(mel, state, True, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not torch.isfinite(seg).all():
+        raise AssertionError("bad first windowed chunk")
+    return wall
+
+
+def windowed_device_phase(torch, counters) -> dict:
+    """``bench.py``'s windowed protocol through the device session at full
+    width, bf16: graphed then eager, the first hop of each, one profiled
+    graphed decode, then 4 streams in lockstep; none of ``counters`` (the
+    kernels' launch counts) may move."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                       PipelineConfig(block_size=5, mel_cache_len=8,
+                                      max_token_len=40),
+                       compute_dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, flow_cfg.vocab_size, (1, KV_TOKENS))
+    samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    audio_s = samples / hift_cfg.sampling_rate
+    for c in counters:
+        c.launches = 0
+
+    def check(wav, rows, what):
+        """The stream's shape, finite, and a float wav within the clamp
+        (``audio_limit``) times the cross-fade's largest weight sum."""
+        if wav.shape != (rows, samples) or not np.isfinite(wav).all() or (
+                wav.dtype == np.float32 and np.abs(wav).max() > 1.1):
+            raise AssertionError(f"bad {what} output {wav.shape}")
+
+    out = dict(tokens=KV_TOKENS, audio_s=audio_s, part_s={})
+    pcms = {}
+    for name, graphs, runs in (("graphed", True, 5), ("eager", False, 2)):
+        t_part = time.perf_counter()
+        sess = dec.device_stream_decoder(graphs=graphs)
+        if sess._graphs != graphs:
+            raise AssertionError(f"device_stream_decoder(graphs={graphs}) "
+                                 f"did not take it")
+        keys = sess.dispatches(KV_TOKENS)
+        rec = dict(steps=len(keys), distinct_steps=len(set(keys)))
+        if graphs:                     # the warm-up, which captures
+            t0 = time.perf_counter()
+            wav = sess.stream_decode(tokens)
+            rec["warmup_s"] = time.perf_counter() - t0
+            check(wav, 1, "windowed graphed")
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            pcms[name] = sess.stream_decode(tokens, output="int16")
+            walls.append(time.perf_counter() - t0)
+        check(pcms[name], 1, f"windowed {name} int16")
+        rec.update(walls_s=walls, median_s=statistics.median(walls),
+                   rtf=statistics.median(walls) / audio_s,
+                   graphs=len(sess._steps.graphs),
+                   first_hop_s=windowed_first_hop_s(torch, sess, tokens))
+        if graphs:
+            quant = float(np.abs(pcms[name] / 32767.0
+                                 - np.clip(wav, -1, 1)).max())
+            if pcms[name].dtype != np.int16 or quant > 1.01 / 32767:
+                raise AssertionError(f"int16 output off by {quant}")
+            if rec["graphs"] != len(set(keys)):
+                raise AssertionError(f"{rec['graphs']} graphs for "
+                                     f"{len(set(keys))} distinct steps")
+            rec["profiled"] = host_launches(
+                torch, lambda: sess.stream_decode(tokens, output="int16"))
+            out["wav_max_abs"] = float(np.abs(wav).max())
+        print(f"windowed_device_{name}", json.dumps(rec), flush=True)
+        out[name] = rec
+        out["part_s"][name] = time.perf_counter() - t_part
+        del sess
+    out["graphed_vs_eager_int16_max_diff"] = int(np.abs(
+        pcms["graphed"].astype(np.int32) - pcms["eager"]).max())
+    out["dispatches"] = [str(k) for k in
+                         dec.device_stream_decoder().dispatches(KV_TOKENS)]
+
+    t_part = time.perf_counter()
+    sess4 = dec.device_stream_decoder(batch=4)
+    tokens4 = rng.randint(0, flow_cfg.vocab_size, (4, KV_TOKENS))
+    check(sess4.stream_decode(tokens4), 4, "windowed batch 4")
+    out["part_s"]["batch4_warmup"] = time.perf_counter() - t_part
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pcm = sess4.stream_decode(tokens4, output="int16")
+        walls.append(time.perf_counter() - t0)
+    check(pcm, 4, "windowed batch 4 int16")
+    out["batch4"] = dict(walls_s=walls, median_s=statistics.median(walls),
+                         aggregate_x_realtime=4 * audio_s
+                         / statistics.median(walls),
+                         graphs=len(sess4._steps.graphs))
+    print("windowed_device_batch4", json.dumps(out["batch4"]), flush=True)
+    moved = {c.__name__: c.launches for c in counters if c.launches}
+    if moved:
+        raise AssertionError(f"the windowed device session launched "
+                             f"kernels it does not run: {moved}")
+    return out
+
+
+def windowed_emit_mels(torch, sess, tokens) -> np.ndarray:
+    """Every emit mel of ``sess``'s decode of ``tokens``, in stream order
+    (1, n * ratio, n_mel) f32: each step launched as ``stream_decode``
+    launches it, the flow steps' output buffers read after each."""
+    mels = []
+    with torch.inference_mode():
+        sess._token_buf(tokens)
+        sess.init_state()
+        for key in sess.dispatches(tokens.shape[1]):
+            sess._launch(key)
+            if key[0] == "flow":
+                mels.append(sess._mels[key[1], key[2]].float().cpu())
+            elif key[0] in ("fbatch", "fscan"):
+                m = sess._mels[key[1]].float().cpu()      # (bucket, 1, T, D)
+                mels.append(m.transpose(0, 1).reshape(1, -1, m.shape[-1]))
+    return torch.cat(mels, dim=1).numpy()
+
+
+def cross_windowed_phase(torch) -> dict:
+    """f32 emit mels of the windowed device session over 18 tokens (the
+    first hop, 2 steady windows as one batched flow forward, every window
+    right-padded, the finalize hop) on the card graphed and eager and on
+    the CPU, same weights."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    n_tokens = 18
+    tokens = np.random.RandomState(5).randint(0, flow_cfg.vocab_size,
+                                              (1, n_tokens))
+    mels = {}
+    for dev, graphs in (("cuda", True), ("cuda", False), ("cpu", True)):
+        dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                           PipelineConfig(block_size=5, mel_cache_len=8,
+                                          max_token_len=40), device=dev)
+        sess = dec.device_stream_decoder(graphs=graphs)
+        if ("fbatch", 2, 5) not in sess.dispatches(n_tokens):
+            raise AssertionError("no bucket of windows to check")
+        mels[dev, graphs] = windowed_emit_mels(torch, sess, tokens)
+        del sess, dec
+    got, want = mels["cuda", True], mels["cpu", True]
+    err = float(np.abs(got - want).max())
+    graph_err = float(np.abs(got - mels["cuda", False]).max())
+    rec = dict(tokens=n_tokens, mel_shape=list(want.shape),
+               mel_max_abs=float(np.abs(want).max()), max_abs_diff=err,
+               tol=CROSS_TOL, graphed_vs_eager_max_abs_diff=graph_err,
+               graphed_vs_eager_tol=GRAPH_TOL)
+    print("cross_windowed", json.dumps(rec), flush=True)
+    if want.shape != (1, n_tokens * flow_cfg.token_mel_ratio,
+                      flow_cfg.output_size) or not np.isfinite(got).all() \
+            or not err <= CROSS_TOL or not graph_err <= GRAPH_TOL:
+        raise AssertionError(f"card (graphed), card (eager) and CPU "
+                             f"windowed mels disagree: {rec}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -1096,11 +1279,16 @@ def main(argv=None) -> int:
     # 5. KV slice, and the continuous batcher
     kv_sl = phase("kv", kv_slice_phase, torch, fb, fc)
     bat = phase("batcher", batcher_phase, torch, fb)
+    win = phase("windowed_device", windowed_device_phase, torch,
+                (fa.launch_flash_chunk_attention, fb.launch_fused_tf_group,
+                 fc.launch_fused_conformer_group))
 
     # 6. cross-device
     cross = phase("cross", cross_phase, torch)
     cross["kv"] = phase("cross_kv", cross_kv_phase, fb, fc)
     cross["batcher"] = phase("cross_batcher", cross_batcher_phase, fb)
+    cross["windowed_device"] = phase("cross_windowed", cross_windowed_phase,
+                                     torch)
 
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
@@ -1157,7 +1345,8 @@ def main(argv=None) -> int:
                  cases=dict(flash_chunk_attention=records,
                             fused_tf_group=group_records,
                             fused_conformer_group=conf_records),
-                 slice=sl, kv_slice=kv_sl, batcher=bat, cross=cross),
+                 slice=sl, kv_slice=kv_sl, batcher=bat,
+                 windowed_device=win, cross=cross),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -14,8 +14,11 @@ Layout
                 attention, and the flash chunk-attention kernel wrapper.
 - ``models``    ``flow`` (tokens -> mel, conditional flow matching) and
                 ``hift`` (mel -> waveform vocoder).
-- ``pipeline``  ``AudioDecoder``: offline ``token2wav`` and the windowed
-                ``StreamSession``.
+- ``pipeline``  ``AudioDecoder``: offline ``token2wav``, the windowed
+                ``StreamSession`` and its device-resident twin
+                ``device_stream_decoder``, the KV session and the
+                continuous batcher.
+- ``serving``   the asyncio batch engine and the multi-stream manager.
 - ``weights``   JAX param trees -> this package's state dicts.
 - ``csrc``      CUDA C++ kernels (``sm_90a``).
 """

@@ -2,7 +2,8 @@
 
     python -m moss_speech_decoder_cosy_torch.bin.profile_decode \
         [--tokens 250] [--stream-tokens 40] \
-        [--kv [--enc-kernel] [--no-graphs]] [--out prof.json]
+        [--kv [--enc-kernel] | --windowed-device] [--no-graphs] \
+        [--out prof.json]
 
 Builds the MOSS presets with seeded weights in bf16 and warms up.  Without
 ``--kv``, with flash attention, for ``token2wav`` and for one windowed
@@ -11,12 +12,18 @@ Builds the MOSS presets with seeded weights in bf16 and warms up.  Without
 runs: ring attention, block 5, mel cache 8, max_token_len 40, the kernel
 engine, each wavefront iteration and each per-hop step replayed as a CUDA
 graph; ``--enc-kernel`` runs its encoder hop through the conformer group
-kernel, ``--no-graphs`` runs the same steps eagerly):
+kernel, ``--no-graphs`` runs the same steps eagerly); with
+``--windowed-device``, for the windowed device session's
+``stream_decode(output="int16")`` of ``--tokens`` tokens in the same
+configuration (the reference's windowed re-decode on the card, no flash,
+each step a CUDA graph; ``--no-graphs`` eager):
 
 - stage wall times with a synchronize after each stage (flow mel, HiFT;
   for the KV session the wavefront with its finalize tail, median of 3,
   then the bulk vocoder, and apart from them the encoder of the stream's
-  steady hops, with its own trace);
+  steady hops, with its own trace; for the windowed device session the
+  flow steps (hops and batched buckets) and the vocoder steps, each step
+  timed alone, by step kind, median of 3 decodes);
 - a ``torch.profiler`` trace: device time by kernel (top 12), kernels run
   on the device, the host's launch calls (``cudaLaunchKernel*``,
   ``cudaGraphLaunch``), total device time, host wall, and the device's
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import time
@@ -85,15 +93,7 @@ def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool,
                 graphs: bool) -> None:
     """Stages and traces of the KV session's ``stream_decode`` and of the
     encoder of its steady hops (eager, host-int positions)."""
-    flow_cfg = C.moss_flow_config()
-    flow_cfg = dataclasses.replace(flow_cfg, cfm=dataclasses.replace(
-        flow_cfg.cfm, max_noise_len=4096))
-    hift_cfg = C.moss_hift_config()
-    dec = AudioDecoder(flow_cfg, hift_cfg,
-                       *seeded_states(flow_cfg, hift_cfg),
-                       C.PipelineConfig(block_size=5, mel_cache_len=8,
-                                        max_token_len=40),
-                       compute_dtype=torch.bfloat16)
+    dec = _bench_decoder()
     kv = dec.kv_stream_decoder(token_cap=tokens.shape[1] + 16,
                                enc_kernel=enc_kernel, graphs=graphs)
     kv.stream_decode(tokens)                    # warm-up, captures the graphs
@@ -126,6 +126,52 @@ def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool,
     results["kv_trace"] = _trace(lambda: kv.stream_decode(tokens))
     results["kv_encoder_trace"] = _trace(encoder_hops)
     for key in ("kv_stages_s", "kv_trace", "kv_encoder_trace"):
+        print(json.dumps({key: results[key]}))
+
+
+def _bench_decoder() -> AudioDecoder:
+    """The configuration ``bench.py`` runs, bf16, seeded weights."""
+    flow_cfg = C.moss_flow_config()
+    flow_cfg = dataclasses.replace(flow_cfg, cfm=dataclasses.replace(
+        flow_cfg.cfm, max_noise_len=4096))
+    hift_cfg = C.moss_hift_config()
+    return AudioDecoder(flow_cfg, hift_cfg,
+                        *seeded_states(flow_cfg, hift_cfg),
+                        C.PipelineConfig(block_size=5, mel_cache_len=8,
+                                         max_token_len=40),
+                        compute_dtype=torch.bfloat16)
+
+
+# the windowed device session's step kinds by stage
+_FLOW_STEPS = ("flow", "fbatch", "fscan", "fused")
+
+
+def _windowed_profile(tokens: np.ndarray, results: dict,
+                      graphs: bool) -> None:
+    """Stages and trace of the windowed device session's decode: each step
+    timed alone (a synchronize after it), summed by kind and by stage."""
+    sess = _bench_decoder().device_stream_decoder(graphs=graphs)
+    sess.stream_decode(tokens)                  # warm-up, captures the graphs
+    keys = sess.dispatches(tokens.shape[1])
+    passes = []
+    for _ in range(3):
+        by_kind = dict.fromkeys(sorted({k[0] for k in keys}), 0.0)
+        with torch.inference_mode():
+            sess._token_buf(tokens)
+            sess.init_state()
+            for key in keys:
+                wall, _ = _wall(functools.partial(sess._launch, key))
+                by_kind[key[0]] += wall
+        passes.append(by_kind)
+    med = {k: statistics.median(p[k] for p in passes) for k in passes[0]}
+    results["windowed_stages_s"] = dict(
+        graphs=sess._graphs, steps=len(keys), distinct_steps=len(set(keys)),
+        dispatches=[str(k) for k in keys], by_kind=med, passes=passes,
+        flow=sum(v for k, v in med.items() if k in _FLOW_STEPS),
+        vocoder=sum(v for k, v in med.items() if k not in _FLOW_STEPS))
+    results["windowed_trace"] = _trace(
+        lambda: sess.stream_decode(tokens, output="int16"))
+    for key in ("windowed_stages_s", "windowed_trace"):
         print(json.dumps({key: results[key]}))
 
 
@@ -173,9 +219,12 @@ def main(argv=None) -> int:
     ap.add_argument("--enc-kernel", action="store_true",
                     help="with --kv: the encoder hop on the conformer group "
                          "kernel (kv_stream_decoder(enc_kernel=True))")
+    ap.add_argument("--windowed-device", action="store_true",
+                    help="profile the windowed device session's "
+                         "stream_decode instead (device_stream_decoder())")
     ap.add_argument("--no-graphs", action="store_true",
-                    help="with --kv: run the session's steps eagerly "
-                         "(kv_stream_decoder(graphs=False))")
+                    help="with --kv or --windowed-device: run the session's "
+                         "steps eagerly (graphs=False)")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -184,10 +233,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     results = dict(card=card_line(), torch=torch.__version__,
                    cuda=torch.version.cuda, tokens=args.tokens)
+    tokens = np.random.RandomState(0).randint(
+        0, C.moss_flow_config().vocab_size, (1, args.tokens))
     if args.kv:
-        _kv_profile(np.random.RandomState(0).randint(
-            0, C.moss_flow_config().vocab_size, (1, args.tokens)), results,
-            args.enc_kernel, not args.no_graphs)
+        _kv_profile(tokens, results, args.enc_kernel, not args.no_graphs)
+    elif args.windowed_device:
+        _windowed_profile(tokens, results, not args.no_graphs)
     else:
         _offline_profile(args, results)
     if args.out:

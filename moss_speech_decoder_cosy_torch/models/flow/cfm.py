@@ -64,10 +64,11 @@ class CausalConditionalCFM(nn.Module):
         dphi = self.estimator(x_in, valid_in, mu_in.to(cd), t_in,
                               spks_in.to(cd), cond_in.to(cd),
                               streaming=streaming).to(x.dtype)
-        rate = torch.tensor(self.cfg.inference_cfg_rate, dtype=x.dtype,
-                            device=x.device)
+        # device fills, not uploads, so a captured step can run them
+        rate = torch.full((), self.cfg.inference_cfg_rate, dtype=x.dtype,
+                          device=x.device)
         dphi = (1.0 + rate) * dphi[:b] - rate * dphi[b:]
-        return x + torch.tensor(dt, dtype=x.dtype, device=x.device) * dphi
+        return x + torch.full((), dt, dtype=x.dtype, device=x.device) * dphi
 
     def forward(self, mu: torch.Tensor, valid: torch.Tensor,
                 spks: torch.Tensor, cond: torch.Tensor,

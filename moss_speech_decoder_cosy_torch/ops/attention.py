@@ -75,8 +75,8 @@ class RelPositionMultiHeadedAttention(nn.Module):
         matrix_bd = q_v @ p.transpose(-1, -2)               # (B,H,T,P)
         if matrix_bd.shape[-1] != matrix_ac.shape[-1]:
             matrix_bd = _rel_shift(matrix_bd)
-        scores = (matrix_ac + matrix_bd) / torch.sqrt(
-            torch.tensor(dk, dtype=x.dtype, device=x.device))
+        scores = (matrix_ac + matrix_bd) / torch.full(
+            (), dk, dtype=x.dtype, device=x.device).sqrt()
         if mask is not None and mask.dim() == 3:
             mask = mask[:, None]
         attn = masked_softmax(scores, mask)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -49,20 +50,42 @@ def _abs_pe_table(d_model: int, max_len: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
+# (kind, d_model, device) -> (length, the table on the device)
+_ON_DEVICE: Dict[Tuple[str, int, str], Tuple[int, torch.Tensor]] = {}
+# tables that a longer one replaced: a CUDA graph captured on one still
+# reads it
+_REPLACED: List[torch.Tensor] = []
+
+
+def _table(kind: str, d_model: int, length: int, device) -> torch.Tensor:
+    """The ``kind`` table ("rel" or "abs") of at least ``length`` positions
+    on ``device``, uploaded once and regrown by doubling, so a step captured
+    in a CUDA graph slices it with no upload.  A position's entry does not
+    depend on the table's length."""
+    key = (kind, d_model, str(torch.device(device or "cpu")))
+    got = _ON_DEVICE.get(key)
+    if got is None or got[0] < length:
+        if got is not None:
+            _REPLACED.append(got[1])
+        n = max(length, 16, 2 * got[0] if got else 0)
+        make = _rel_pe_table if kind == "rel" else _abs_pe_table
+        got = _ON_DEVICE[key] = (n, torch.from_numpy(make(d_model, n)).to(
+            device or "cpu"))
+    return got[1]
+
+
 def espnet_rel_pos(size: int, d_model: int, device=None) -> torch.Tensor:
     """(1, 2*size-1, d_model) for relative offsets size-1 .. -(size-1)."""
-    table = _rel_pe_table(d_model, max(size, 16))
+    table = _table("rel", d_model, size, device)
     center = table.shape[0] // 2
-    return torch.from_numpy(
-        np.ascontiguousarray(table[center - size + 1: center + size])
-    )[None].to(device)
+    return table[center - size + 1: center + size][None]
 
 
 def wenet_rel_pos(size: int, d_model: int, offset: int = 0,
                   device=None) -> torch.Tensor:
     """(1, size, d_model) = pe[offset : offset + size]."""
-    table = _abs_pe_table(d_model, max(size + offset, 16))
-    return torch.from_numpy(table[offset: offset + size])[None].to(device)
+    table = _table("abs", d_model, size + offset, device)
+    return table[offset: offset + size][None]
 
 
 class SinusoidalPosEmb(nn.Module):

@@ -40,5 +40,5 @@ def chunk_attention_mask(valid: torch.Tensor, static_chunk_size: int,
 
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """bool attend-mask -> additive bias (0 where attend, -1e10 else)."""
-    return (1.0 - mask.to(dtype)) * torch.tensor(-1.0e10, dtype=dtype,
-                                                 device=mask.device)
+    return (1.0 - mask.to(dtype)) * torch.full((), -1.0e10, dtype=dtype,
+                                               device=mask.device)

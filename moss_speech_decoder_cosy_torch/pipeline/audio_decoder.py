@@ -6,6 +6,7 @@ GLM_modules/flow_inference.py:48-243):
 - ``StreamSession.push``  chunked streaming over a sliding token window with
                           the HiFT mel/source/speech caches and Hamming
                           cross-fades
+- ``device_stream_decoder`` the same windowed semantics kept on the device
 - ``kv_stream_decoder``   the KV-cached streaming session, one stream
 - ``kv_batcher``          the continuous batcher, concurrent streams
 
@@ -181,6 +182,26 @@ class AudioDecoder:
                                 block_size, max_token_len)
         chunks = list(sess.push(token[0])) + list(sess.finish())
         return np.concatenate(chunks, axis=-1)
+
+    def device_stream_decoder(self, prompt_token=None, prompt_feat=None,
+                              embedding=None,
+                              block_size: Optional[int] = None,
+                              max_token_len: Optional[int] = None,
+                              batch: int = 1, graphs: bool = True):
+        """Device-resident windowed streaming decoder
+        (``device_session.DeviceStreamDecoder``): the reference's windowed
+        re-decode with no per-hop host round trip.  ``batch > 1`` decodes
+        that many streams in lockstep; ``graphs`` (on a CUDA device)
+        replays each step as a CUDA graph, ``graphs=False`` runs the same
+        steps eagerly."""
+        from .device_session import DeviceStreamDecoder
+        prompt_token, prompt_feat, embedding = self._defaults(
+            prompt_token, prompt_feat, embedding)
+        return DeviceStreamDecoder(
+            self, prompt_token, prompt_feat, embedding,
+            block_size or self.pipe_cfg.block_size,
+            max_token_len or self.pipe_cfg.max_token_len, batch=batch,
+            graphs=graphs)
 
     def kv_stream_decoder(self, prompt_token=None, prompt_feat=None,
                           embedding=None, block_size: Optional[int] = None,

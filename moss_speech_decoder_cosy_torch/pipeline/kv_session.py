@@ -98,13 +98,19 @@ class StepGraphs:
     else the first call of each ``key`` runs it eagerly on the capture
     stream and captures it, and later calls replay the graph.  Each graph's
     fused-kernel launches are counted at capture and added to the kernels'
-    counters at every replay.  A failed capture raises."""
+    counters at every replay.  A failed capture raises.  ``shared_pool``
+    captures every graph into one memory pool, so their temporaries share
+    memory: safe when each step writes its results into persistent buffers
+    and the graphs replay one at a time on one stream."""
 
-    def __init__(self, device: torch.device, enabled: bool):
+    def __init__(self, device: torch.device, enabled: bool,
+                 shared_pool: bool = False):
         self.device = device
         self.enabled = bool(enabled) and device.type == "cuda"
         self.graphs: Dict[tuple, tuple] = {}   # key -> (graph, launches)
         self._stream = None
+        self._shared_pool = shared_pool
+        self._pool = None
 
     def run(self, key: tuple, fn: Callable[[], None]) -> None:
         if not self.enabled:
@@ -134,7 +140,9 @@ class StepGraphs:
         main.wait_stream(stream)
         before = [c.launches for c in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        if self._shared_pool and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=self._pool, stream=stream):
             fn()
         launched = [(c, c.launches - b) for c, b in zip(_COUNTERS, before)]
         for c, b in zip(_COUNTERS, before):
@@ -144,10 +152,10 @@ class StepGraphs:
 
 @dataclasses.dataclass
 class KVVocState:
-    """Per-hop vocoder caches on the device."""
-    mel_cache: torch.Tensor        # (1, mel_cache_len, n_mel) f32
-    source_cache: torch.Tensor     # (1, scl, 1) f32
-    speech_cache: torch.Tensor     # (1, scl) f32
+    """Per-hop vocoder caches on the device, one row per stream."""
+    mel_cache: torch.Tensor        # (B, mel_cache_len, n_mel) f32
+    source_cache: torch.Tensor     # (B, scl, 1) f32
+    speech_cache: torch.Tensor     # (B, scl) f32
 
 
 def vocode_hop(hift, fade_in: torch.Tensor, fade_out: torch.Tensor,
@@ -156,9 +164,10 @@ def vocode_hop(hift, fade_in: torch.Tensor, fade_out: torch.Tensor,
     """One hop of the per-hop vocoder (the JAX package's ``_voc_impl``):
     HiFT over the cached mel frames and the hop's, the source cache over
     the head of the excitation and the Hamming cross-fade with the speech
-    cache.  ``draws`` the NSF source's draws, else HiFT's own.  Returns
-    (wav chunk (1, n) f32, new state); the finalize hop emits everything
-    and returns ``voc`` as it was."""
+    cache, for B streams in lockstep.  ``draws`` the NSF source's draws
+    (shared by the rows), else HiFT's own.  Returns (wav chunk (B, n) f32,
+    new state); the finalize hop emits everything and returns ``voc`` as
+    it was."""
     scl = fade_in.shape[0]
     if first:
         mel_in = emit_mel

@@ -725,3 +725,90 @@ def test_audio_batch_engine_on_card(card):
     for got, want in zip(together, apart):
         assert got.shape == want.shape and np.abs(want).max() > 0
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _cpu_draws(harmonics, length, device):
+    """NSF draws made on the CPU from seed 0, the same on every device, so
+    the card's audio can be held against the CPU's."""
+    gen = torch.Generator().manual_seed(0)
+    return (torch.rand((1, harmonics), generator=gen).to(device),
+            torch.randn((1, length, harmonics), generator=gen).to(device))
+
+
+def _tiny_windowed_decoder(device):
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    flow_cfg, hift_cfg = C.tiny_flow_config(), C.tiny_hift_config()
+    return AudioDecoder(flow_cfg, hift_cfg, *seeded_states(flow_cfg, hift_cfg),
+                        C.PipelineConfig(block_size=4, mel_cache_len=6,
+                                         max_token_len=16), device=device,
+                        nsf_draws=_cpu_draws)
+
+
+def _windowed_tokens(dec, n, batch, seed):
+    return np.random.RandomState(seed).randint(
+        0, dec.flow_cfg.vocab_size, (batch, n))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+@pytest.mark.parametrize("batch", [1, 2], ids=["batch1", "batch2"])
+def test_graphed_device_session_matches_eager(card, batch, fused):
+    """The windowed device session with every step replayed as a CUDA graph
+    (the buckets' batched flow forward at batch 1, the flow scans at batch
+    2, the vocoder scans, the first, steady and finalize hops) against the
+    same steps run eagerly, f32 on the card, twice each so the second pass
+    replays every graph."""
+    dec = _tiny_windowed_decoder(card)
+    graphed, eager = (dec.device_stream_decoder(batch=batch, graphs=g)
+                      for g in (True, False))
+    assert graphed._graphs and not eager._graphs
+    tokens = _windowed_tokens(dec, 40, batch, seed=20)
+    wavs = {(s._graphs, rep): s.stream_decode(tokens, fused=fused)
+            for s in (graphed, eager) for rep in range(2)}
+    assert set(graphed._steps.graphs) == set(graphed.dispatches(40, fused))
+    assert np.abs(wavs[False, 0]).max() > 0
+    for rep in range(2):
+        np.testing.assert_allclose(wavs[True, rep], wavs[False, rep],
+                                   atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(wavs[True, 1], wavs[True, 0])
+
+
+@pytest.mark.parametrize("batch", [1, 2], ids=["buckets", "scan"])
+def test_device_session_on_card_matches_cpu(card, batch):
+    """40 tokens through the graphed device session on the card against the
+    CPU, f32, the NSF draws the same on both: batch 1 runs two buckets of 4
+    windows as batched flow forwards, batch 2 as flow scans."""
+    wavs = {}
+    for dev in ("cuda", "cpu"):
+        dec = _tiny_windowed_decoder(dev)
+        sess = dec.device_stream_decoder(batch=batch)
+        keys = sess.dispatches(40)
+        assert keys.count(("fbatch" if batch == 1 else "fscan", 4, 4)) == 2
+        wavs[dev] = sess.stream_decode(_windowed_tokens(dec, 40, batch, 21))
+        assert sess._graphs == (dev == "cuda")
+    assert wavs["cuda"].shape == wavs["cpu"].shape == (
+        batch, 40 * dec.ratio * dec.hift_cfg.total_upsample)
+    assert np.abs(wavs["cpu"]).max() > 0
+    np.testing.assert_allclose(wavs["cuda"], wavs["cpu"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+def test_device_session_replays_without_host_sync(card, fused):
+    """After one warm-up decode the session holds one graph per distinct
+    step key of the plan, and a decode enqueues every step (and the token
+    upload) with no host synchronisation until the final copy."""
+    dec = _tiny_windowed_decoder(card)
+    sess = dec.device_stream_decoder()
+    tokens = _windowed_tokens(dec, 40, 1, seed=22)
+    want = sess.stream_decode(tokens, fused=fused)
+    keys = sess.dispatches(40, fused)
+    assert len(sess._steps.graphs) == len(set(keys)) < len(keys)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wav = sess._decode_device(tokens, fused)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(sess._steps.graphs) == len(set(keys))
+    np.testing.assert_array_equal(wav.cpu().numpy(), want)

@@ -40,5 +40,6 @@ def test_scan_covers_the_package():
     for mod in ("ops/flash_attention.py", "ops/fused_block.py",
                 "models/flow/kv_stream.py", "pipeline/kv_session.py",
                 "pipeline/bulk_voc.py", "pipeline/kv_batcher.py",
-                "serving/audio_batcher.py"):
+                "pipeline/device_session.py", "serving/audio_batcher.py",
+                "serving/session_manager.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod
