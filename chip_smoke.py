@@ -49,18 +49,21 @@ Phases (any failure raises and the script exits non-zero):
    250-token streams admitted one pump apart and fed 5 tokens a pump:
    aggregate x-realtime, each stream's completion RTF, the first chunk of
    the stream admitted into a busy pool, exactly 14 ``fused_tf_group``
-   launches a tick, host and graph launches; the same eager and through
-   one lane; each stream's wav against ``kv_stream_decoder()`` (reported).
+   launches a tick, host and graph launches; the same eager (one run)
+   and through one lane; each stream's wav against ``kv_stream_decoder()`` (reported).
    Then the windowed device session (``device_stream_decoder()``, the
    reference's windowed re-decode kept on the card) at ``bench.py``'s
    windowed protocol and configuration: bf16, 250 tokens, block 5, mel
    cache 8, window 40, no flash; 1 warm-up then the median of 5
    ``stream_decode(output="int16")`` graphed (every step a CUDA graph),
-   the mean of 2 eager (``graphs=False``, its first call is no slower);
+   one eager (``graphs=False``, its first call is no slower);
    the first hop (a warm ``_flow_step`` + ``_voc_step``) graphed and
    eager; host launch calls and graph launches of one graphed decode
-   (profiled); and 4 streams in lockstep (``batch=4``, graphed, 1 warm-up
-   and the mean of 2): aggregate x-realtime.  It
+   (profiled); the graphed and eager int16 streams must be equal; and 4
+   streams in lockstep (``batch=4``, graphed, 1 warm-up and 1 timed
+   run): aggregate x-realtime, each row held against the same tokens
+   through the batch-1 session (within 30% of the stream's peak: bf16
+   at another row count moves the seeded wav 14-18%).  It
    runs none of the CUDA kernels (its windows are right-padded, so flash
    is off), and the launch counts are checked to stay 0.
 6. Cross-device: the flow mel in f32 on the card (kernels) and on the CPU
@@ -68,10 +71,11 @@ Phases (any failure raises and the script exits non-zero):
    streaming window, the KV wavefront over 40 tokens with the per-layer
    encoder and with the kernel encoder hop, every exit mel of the
    batcher serving two staggered 40-token streams, and every emit mel of
-   the windowed device session over 18 tokens (a bucket of 2 padded
-   windows as one batched flow forward), the card's side graphed; and on
-   the card the graphed KV, batcher and windowed mels against the eager
-   ones.
+   the windowed device session over 58 tokens (buckets of 4, 4 and 2
+   windows as batched flow forwards, one straddling the filled window),
+   the card's side graphed; and on the card the graphed KV, batcher and
+   windowed mels against the eager ones, and the windowed lockstep pair's
+   first row (flow scans) against the same stream alone.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -102,6 +106,13 @@ PEAK_BYTES = 3.35e12
 CROSS_TOL = 1e-4
 # KV mels, f32 on the card: the graphed steps vs the same steps run eagerly
 GRAPH_TOL = 1e-5
+# bf16 windowed stream: a lockstep row against the same tokens alone, as a
+# share of the stream's peak.  The two run the flow at other row counts, and
+# at bf16 the seeded full-width wav moves 14-18% of its peak with the row
+# count (the batcher against the KV session as well; in f32 both agree to
+# 1e-8), so this catches a lost or misplaced hop; the f32 lockstep check in
+# ``cross_windowed_phase`` is the strict one
+BATCH_ROWS_TOL = 0.3
 # the KV slice: bench.py's stream length and noise buffer
 KV_TOKENS, KV_NOISE_LEN = 250, 4096
 FUSED_NOTE = ("no single PyTorch call computes a causal resnet followed by "
@@ -873,7 +884,8 @@ def batcher_phase(torch, fb) -> dict:
     LM-paced (``drive``): 1 warm-up + median of 3, with exactly 14
     ``fused_tf_group`` launches per tick checked around every run; one
     profiled graphed run (host launch calls, graph launches, device time);
-    the same traffic eager (``graphs=False``) and through one lane
+    the same traffic eager (``graphs=False``, one run: it captures nothing,
+    so its first run is no slower) and through one lane
     (``n_lanes=1``: the streams one after another, 20-row ticks); and each
     stream's wav against the same stream through ``kv_stream_decoder()``
     (reported: the two number the ring slots differently)."""
@@ -908,10 +920,11 @@ def batcher_phase(torch, fb) -> dict:
                 raise AssertionError(f"bad batcher output {wav.shape}")
         return got
 
-    def timed(b, what):
-        run(b)                                            # warm-up
-        runs = [run(b) for _ in range(3)]
-        mid = sorted(runs, key=lambda r: r["wall_s"])[1]
+    def timed(b, what, n_runs=3):
+        if n_runs > 1:
+            run(b)                                        # warm-up
+        runs = [run(b) for _ in range(n_runs)]
+        mid = sorted(runs, key=lambda r: r["wall_s"])[n_runs // 2]
         rec = dict(
             lanes=b.lanes, graphs=b._graphs, walls_s=[r["wall_s"]
                                                       for r in runs],
@@ -946,7 +959,7 @@ def batcher_phase(torch, fb) -> dict:
     print("batcher_vs_session", json.dumps(diffs), flush=True)
     del b
     eager = batcher(dec, 4, KV_TOKENS, graphs=False)
-    out["eager"], _ = timed(eager, "eager")
+    out["eager"], _ = timed(eager, "eager", n_runs=1)
     del eager
     one = batcher(dec, 1, KV_TOKENS)
     out["one_lane"], _ = timed(one, "one_lane")
@@ -1074,9 +1087,10 @@ def windowed_first_hop_s(torch, sess, tokens) -> float:
 
 def windowed_device_phase(torch, counters) -> dict:
     """``bench.py``'s windowed protocol through the device session at full
-    width, bf16: graphed then eager, the first hop of each, one profiled
-    graphed decode, then 4 streams in lockstep; none of ``counters`` (the
-    kernels' launch counts) may move."""
+    width, bf16: graphed then eager (equal int16 streams), the first hop of
+    each, one profiled graphed decode, then 4 streams in lockstep, each row
+    held against the batch-1 session; none of ``counters`` (the kernels'
+    launch counts) may move."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
@@ -1100,8 +1114,8 @@ def windowed_device_phase(torch, counters) -> dict:
             raise AssertionError(f"bad {what} output {wav.shape}")
 
     out = dict(tokens=KV_TOKENS, audio_s=audio_s, part_s={})
-    pcms = {}
-    for name, graphs, runs in (("graphed", True, 5), ("eager", False, 2)):
+    pcms, single = {}, None
+    for name, graphs, runs in (("graphed", True, 5), ("eager", False, 1)):
         t_part = time.perf_counter()
         sess = dec.device_stream_decoder(graphs=graphs)
         if sess._graphs != graphs:
@@ -1138,28 +1152,44 @@ def windowed_device_phase(torch, counters) -> dict:
         print(f"windowed_device_{name}", json.dumps(rec), flush=True)
         out[name] = rec
         out["part_s"][name] = time.perf_counter() - t_part
+        if graphs:
+            single = sess
         del sess
-    out["graphed_vs_eager_int16_max_diff"] = int(np.abs(
-        pcms["graphed"].astype(np.int32) - pcms["eager"]).max())
-    out["dispatches"] = [str(k) for k in
-                         dec.device_stream_decoder().dispatches(KV_TOKENS)]
+    diff = int(np.abs(pcms["graphed"].astype(np.int32)
+                      - pcms["eager"]).max())
+    out["graphed_vs_eager_int16_max_diff"] = diff
+    if diff:                  # the same kernels on the same inputs
+        raise AssertionError(f"graphed and eager int16 streams differ by "
+                             f"{diff}")
+    out["dispatches"] = [str(k) for k in single.dispatches(KV_TOKENS)]
 
     t_part = time.perf_counter()
     sess4 = dec.device_stream_decoder(batch=4)
     tokens4 = rng.randint(0, flow_cfg.vocab_size, (4, KV_TOKENS))
-    check(sess4.stream_decode(tokens4), 4, "windowed batch 4")
+    wav4 = sess4.stream_decode(tokens4)
+    check(wav4, 4, "windowed batch 4")
     out["part_s"]["batch4_warmup"] = time.perf_counter() - t_part
-    walls = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        pcm = sess4.stream_decode(tokens4, output="int16")
-        walls.append(time.perf_counter() - t0)
+    # each lockstep row (flow scans of 8 rows) against the same tokens
+    # through the batch-1 session (32-row bucket forwards), both bf16
+    errs, peaks = [], []
+    for row in range(4):
+        want = single.stream_decode(tokens4[row:row + 1])
+        errs.append(float(np.abs(wav4[row] - want[0]).max()))
+        peaks.append(float(np.abs(want).max()))
+    rows = dict(max_abs_diff=errs, wav_max_abs=peaks,
+                tol_of_peak=BATCH_ROWS_TOL)
+    t0 = time.perf_counter()
+    pcm = sess4.stream_decode(tokens4, output="int16")
+    walls = [time.perf_counter() - t0]
     check(pcm, 4, "windowed batch 4 int16")
     out["batch4"] = dict(walls_s=walls, median_s=statistics.median(walls),
                          aggregate_x_realtime=4 * audio_s
                          / statistics.median(walls),
-                         graphs=len(sess4._steps.graphs))
+                         graphs=len(sess4._steps.graphs),
+                         rows_vs_batch1=rows)
     print("windowed_device_batch4", json.dumps(out["batch4"]), flush=True)
+    if not all(e <= BATCH_ROWS_TOL * p for e, p in zip(errs, peaks)):
+        raise AssertionError(f"batch-4 rows disagree with batch 1: {rows}")
     moved = {c.__name__: c.launches for c in counters if c.launches}
     if moved:
         raise AssertionError(f"the windowed device session launched "
@@ -1168,57 +1198,71 @@ def windowed_device_phase(torch, counters) -> dict:
 
 
 def windowed_emit_mels(torch, sess, tokens) -> np.ndarray:
-    """Every emit mel of ``sess``'s decode of ``tokens``, in stream order
-    (1, n * ratio, n_mel) f32: each step launched as ``stream_decode``
-    launches it, the flow steps' output buffers read after each."""
-    mels = []
+    """Every emit mel of ``sess``'s decode of ``tokens`` (B, n), in stream
+    order (B, n * ratio, n_mel) f32: each step launched as ``stream_decode``
+    launches it, the flow steps' output buffers copied after each (on the
+    CPU ``.cpu()`` is the buffer itself, which a later bucket overwrites)."""
+    mels, b = [], tokens.shape[0]
     with torch.inference_mode():
         sess._token_buf(tokens)
         sess.init_state()
         for key in sess.dispatches(tokens.shape[1]):
             sess._launch(key)
             if key[0] == "flow":
-                mels.append(sess._mels[key[1], key[2]].float().cpu())
+                mels.append(sess._mels[key[1], key[2]].float().cpu().clone())
             elif key[0] in ("fbatch", "fscan"):
-                m = sess._mels[key[1]].float().cpu()      # (bucket, 1, T, D)
-                mels.append(m.transpose(0, 1).reshape(1, -1, m.shape[-1]))
+                # (bucket, B, T, D)
+                m = sess._mels[key[1]].float().cpu().clone()
+                mels.append(m.transpose(0, 1).reshape(b, -1, m.shape[-1]))
     return torch.cat(mels, dim=1).numpy()
 
 
 def cross_windowed_phase(torch) -> dict:
-    """f32 emit mels of the windowed device session over 18 tokens (the
-    first hop, 2 steady windows as one batched flow forward, every window
-    right-padded, the finalize hop) on the card graphed and eager and on
-    the CPU, same weights."""
+    """f32 emit mels of the windowed device session over 58 tokens (block
+    5, window 40: the first hop, 10 steady windows as batched flow forwards
+    in buckets of 4, 4 and 2, the second bucket straddling the point where
+    the window fills, the finalize hop) on the card graphed and eager and
+    on the CPU, same weights; and on the card a lockstep pair (flow scans)
+    whose first row is the same stream."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
-    n_tokens = 18
+    n_tokens = 58
     tokens = np.random.RandomState(5).randint(0, flow_cfg.vocab_size,
-                                              (1, n_tokens))
+                                              (2, n_tokens))
     mels = {}
-    for dev, graphs in (("cuda", True), ("cuda", False), ("cpu", True)):
+    for dev, graphs, batch in (("cuda", True, 1), ("cuda", False, 1),
+                               ("cuda", True, 2), ("cpu", True, 1)):
         dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
                            PipelineConfig(block_size=5, mel_cache_len=8,
                                           max_token_len=40), device=dev)
-        sess = dec.device_stream_decoder(graphs=graphs)
-        if ("fbatch", 2, 5) not in sess.dispatches(n_tokens):
-            raise AssertionError("no bucket of windows to check")
-        mels[dev, graphs] = windowed_emit_mels(torch, sess, tokens)
+        sess = dec.device_stream_decoder(batch=batch, graphs=graphs)
+        keys = sess.dispatches(n_tokens)
+        kind = "fbatch" if batch == 1 else "fscan"
+        if [k for k in keys if k[0] == kind] != [(kind, 4, 5), (kind, 4, 5),
+                                                  (kind, 2, 5)]:
+            raise AssertionError(f"not the buckets to check: {keys}")
+        mels[dev, graphs, batch] = windowed_emit_mels(
+            torch, sess, tokens[:batch])
         del sess, dec
-    got, want = mels["cuda", True], mels["cpu", True]
+    got, want = mels["cuda", True, 1], mels["cpu", True, 1]
     err = float(np.abs(got - want).max())
-    graph_err = float(np.abs(got - mels["cuda", False]).max())
+    graph_err = float(np.abs(got - mels["cuda", False, 1]).max())
+    scan_err = float(np.abs(mels["cuda", True, 2][:1] - got).max())
     rec = dict(tokens=n_tokens, mel_shape=list(want.shape),
                mel_max_abs=float(np.abs(want).max()), max_abs_diff=err,
                tol=CROSS_TOL, graphed_vs_eager_max_abs_diff=graph_err,
-               graphed_vs_eager_tol=GRAPH_TOL)
+               graphed_vs_eager_tol=GRAPH_TOL,
+               scan_vs_buckets_max_abs_diff=scan_err,
+               scan_vs_buckets_tol=CROSS_TOL)
     print("cross_windowed", json.dumps(rec), flush=True)
     if want.shape != (1, n_tokens * flow_cfg.token_mel_ratio,
                       flow_cfg.output_size) or not np.isfinite(got).all() \
-            or not err <= CROSS_TOL or not graph_err <= GRAPH_TOL:
-        raise AssertionError(f"card (graphed), card (eager) and CPU "
+            or not np.isfinite(mels["cuda", True, 2]).all() \
+            or not err <= CROSS_TOL or not graph_err <= GRAPH_TOL \
+            or not scan_err <= CROSS_TOL:
+        raise AssertionError(f"card (graphed, eager, lockstep) and CPU "
                              f"windowed mels disagree: {rec}")
     return rec
 

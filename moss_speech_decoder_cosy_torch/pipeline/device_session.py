@@ -118,7 +118,7 @@ class DeviceStreamDecoder:
         self._fade_in = win[: self.scl].to(self.dev)
         self._fade_out = win[self.scl:].to(self.dev)
 
-        self._steps = StepGraphs(self.dev, graphs, shared_pool=True)
+        self._steps = StepGraphs(self.dev, graphs)
         self._graphs = self._steps.enabled
         self._state: Optional[DeviceStreamState] = None
         self._tok: Optional[torch.Tensor] = None    # (B, cap) tokens

@@ -98,18 +98,16 @@ class StepGraphs:
     else the first call of each ``key`` runs it eagerly on the capture
     stream and captures it, and later calls replay the graph.  Each graph's
     fused-kernel launches are counted at capture and added to the kernels'
-    counters at every replay.  A failed capture raises.  ``shared_pool``
-    captures every graph into one memory pool, so their temporaries share
-    memory: safe when each step writes its results into persistent buffers
-    and the graphs replay one at a time on one stream."""
+    counters at every replay.  A failed capture raises.  Every graph is
+    captured into one memory pool, so their temporaries share memory: a step
+    writes its results into persistent buffers (``fn`` returns nothing) and
+    the graphs replay one at a time on one stream."""
 
-    def __init__(self, device: torch.device, enabled: bool,
-                 shared_pool: bool = False):
+    def __init__(self, device: torch.device, enabled: bool):
         self.device = device
         self.enabled = bool(enabled) and device.type == "cuda"
         self.graphs: Dict[tuple, tuple] = {}   # key -> (graph, launches)
         self._stream = None
-        self._shared_pool = shared_pool
         self._pool = None
 
     def run(self, key: tuple, fn: Callable[[], None]) -> None:
@@ -140,7 +138,7 @@ class StepGraphs:
         main.wait_stream(stream)
         before = [c.launches for c in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        if self._shared_pool and self._pool is None:
+        if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         with torch.cuda.graph(graph, pool=self._pool, stream=stream):
             fn()

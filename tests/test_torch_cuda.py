@@ -736,12 +736,18 @@ def _cpu_draws(harmonics, length, device):
 
 
 def _tiny_windowed_decoder(device):
+    """The tiny seeded models with a louder vocoder head (``conv_post``'s
+    gain x 100: peak ~0.12 instead of ~0.001), so that the wav tolerances
+    are small beside a typical sample."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils import config as C
     from moss_speech_decoder_cosy_torch.weights import seeded_states
 
     flow_cfg, hift_cfg = C.tiny_flow_config(), C.tiny_hift_config()
-    return AudioDecoder(flow_cfg, hift_cfg, *seeded_states(flow_cfg, hift_cfg),
+    flow_state, hift_state = seeded_states(flow_cfg, hift_cfg)
+    hift_state = dict(hift_state, **{
+        "conv_post.g": hift_state["conv_post.g"] * 100.0})
+    return AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
                         C.PipelineConfig(block_size=4, mel_cache_len=6,
                                          max_token_len=16), device=device,
                         nsf_draws=_cpu_draws)
@@ -768,7 +774,7 @@ def test_graphed_device_session_matches_eager(card, batch, fused):
     wavs = {(s._graphs, rep): s.stream_decode(tokens, fused=fused)
             for s in (graphed, eager) for rep in range(2)}
     assert set(graphed._steps.graphs) == set(graphed.dispatches(40, fused))
-    assert np.abs(wavs[False, 0]).max() > 0
+    assert np.abs(wavs[False, 0]).max() > 0.05
     for rep in range(2):
         np.testing.assert_allclose(wavs[True, rep], wavs[False, rep],
                                    atol=1e-5, rtol=0)
@@ -790,7 +796,7 @@ def test_device_session_on_card_matches_cpu(card, batch):
         assert sess._graphs == (dev == "cuda")
     assert wavs["cuda"].shape == wavs["cpu"].shape == (
         batch, 40 * dec.ratio * dec.hift_cfg.total_upsample)
-    assert np.abs(wavs["cpu"]).max() > 0
+    assert np.abs(wavs["cpu"]).max() > 0.05
     np.testing.assert_allclose(wavs["cuda"], wavs["cpu"], atol=1e-4, rtol=0)
 
 
