@@ -44,6 +44,16 @@ Phases (any failure raises and the script exits non-zero):
    same through ``kv_stream_decoder(enc_kernel=True)``: exactly two
    ``fused_conformer_group`` launches per steady hop and the same
    ``fused_tf_group`` launches, graphed, eager, graphed.  Then the
+   session's API at ``bench.py``'s KV protocol (``kv_api``):
+   ``stream_decode(output="int16")`` equal to ``_pcm16`` of the f32 stream;
+   the segmented decode (``segmented=True, seg_iters=32``) and
+   ``stream_chunks(wavefront=True)`` equal to the unsegmented int16
+   stream, sample for sample; each 1 warm-up + median of
+   3 with the ``fused_tf_group`` launches checked, the first chunk's
+   latency; ``program_flops(250)`` of the KV and windowed sessions
+   (``utils/flops.py``) and the KV MFU beside the card line; and the
+   full-width offline mel's bf16 deviation from f32, beside the JAX
+   package's (a TPU figure).  Then the
    continuous batcher on the same decoder geometry: ``kv_batcher(n_lanes=
    4)`` (kernel engine, per-row writes, CUDA graphs) serving four
    250-token streams admitted one pump apart and fed 5 tokens a pump:
@@ -75,7 +85,10 @@ Phases (any failure raises and the script exits non-zero):
    windows as batched flow forwards, one straddling the filled window),
    the card's side graphed; and on the card the graphed KV, batcher and
    windowed mels against the eager ones, and the windowed lockstep pair's
-   first row (flow scans) against the same stream alone.
+   first row (flow scans) against the same stream alone.  The same for
+   the KV session's concat dataflow (``fused=False``), its one-hot fused
+   write (ring 36 at hop 5) and the batcher's concat lanes
+   (``kv_batcher(fused=False)``), each on the unfused engine.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -98,10 +111,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "moss_speech_decoder_cosy_torch"
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
-
 # flow mel, f32 on the card (kernel, cuBLAS/cuDNN without TF32) vs the CPU
 CROSS_TOL = 1e-4
 # KV mels, f32 on the card: the graphed steps vs the same steps run eagerly
@@ -115,6 +124,11 @@ GRAPH_TOL = 1e-5
 BATCH_ROWS_TOL = 0.3
 # the KV slice: bench.py's stream length and noise buffer
 KV_TOKENS, KV_NOISE_LEN = 250, 4096
+# bench.py --seg's default segment
+SEG_ITERS = 32
+# the JAX package's full-width offline bf16 mel, relative MAE against its
+# f32 mel (BENCH_NOTES.md, round-2 ablation; a TPU figure, the reference's)
+REFERENCE_BF16_MEL_REL_MAE = 0.029
 FUSED_NOTE = ("no single PyTorch call computes a causal resnet followed by "
               "L transformer blocks with ring writes")
 CONFORMER_NOTE = ("no single PyTorch call computes a group of rel-pos "
@@ -182,6 +196,8 @@ def attention_bound_ms(b: int, h: int, t: int, dk: int, chunk: int,
                                                (i // chunk + 1) * chunk)
         pairs += end
     flops = 4 * pairs * dk * b * h
+    from moss_speech_decoder_cosy_torch.utils.flops import (
+        PEAK_BYTES, PEAK_FLOPS)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -278,6 +294,8 @@ def group_bound_ms(rows: int, cf: int, cin: int, ch: int, inner: int,
              + n_layers * 2 * rows * cf * (3 * ch * inner + inner * ch
                                            + 2 * ch * ff)
              + n_layers * 4 * sum(valid) * cf * inner)
+    from moss_speech_decoder_cosy_torch.utils.flops import (
+        PEAK_BYTES, PEAK_FLOPS)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -413,6 +431,8 @@ def conformer_bound_ms(n_layers: int, c: int, d: int, ff: int, rt: int,
                      + 3 * c * d)
     flops = n_layers * (2 * c * d * (5 * d + 2 * ff)
                         + 6 * c * (valid + c) * d)
+    from moss_speech_decoder_cosy_torch.utils.flops import (
+        PEAK_BYTES, PEAK_FLOPS)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -777,17 +797,185 @@ def cross_kv_phase(fb, fc) -> dict:
     return out
 
 
-def batcher(dec, n_lanes: int, n_tokens: int, graphs: bool = True):
+def kv_api_phase(torch, fb) -> dict:
+    """``bench.py``'s KV protocol through the session's API, full width,
+    bf16, graphed: 250 tokens, block 5, ring 35.  ``stream_decode(output=
+    "int16")`` must equal ``_pcm16`` of the f32 stream exactly; the
+    segmented decode (``segmented=True, seg_iters=32``) and the chunks of
+    ``stream_chunks(wavefront=True)`` must equal the unsegmented int16
+    stream exactly (the bulk vocoder runs every batch of hop windows at one
+    shape, so the segments change no float sum).  Each timed 1 warm-up + median of 3 with the
+    ``fused_tf_group`` launches checked around every call; the first
+    chunk's latency of ``stream_chunks``; ``program_flops(250)`` of the KV
+    session and of the windowed device session, and the KV MFU; then the
+    full-width bf16 deviation: the offline mel, bf16 against f32, as a
+    relative MAE, beside the JAX package's (a TPU figure)."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.pipeline.kv_session import _pcm16
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+    from moss_speech_decoder_cosy_torch.utils.device import card_line
+    from moss_speech_decoder_cosy_torch.utils.flops import (
+        chip_peak_flops, mfu)
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                    KV_TOKENS, compute_dtype=torch.bfloat16)
+    tokens = np.random.RandomState(0).randint(0, flow_cfg.vocab_size,
+                                              (1, KV_TOKENS))
+    samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    audio_s = samples / hift_cfg.sampling_rate
+    launches = wave_launches(kv, flow_cfg, KV_TOKENS)
+    want = {fb.launch_fused_tf_group: launches}
+
+    f32 = kv.stream_decode(tokens)
+    first_chunk = []
+
+    def chunks():
+        t0 = time.perf_counter()
+        got = []
+        for c in kv.stream_chunks(tokens, wavefront=True,
+                                  seg_iters=SEG_ITERS):
+            if not got:
+                first_chunk.append(time.perf_counter() - t0)
+            got.append(c)
+        return np.concatenate(got, axis=1)
+
+    calls = {"int16": lambda: kv.stream_decode(tokens, output="int16"),
+             "segmented": lambda: kv.stream_decode(
+                 tokens, output="int16", segmented=True,
+                 seg_iters=SEG_ITERS),
+             "chunks": chunks}
+    out, streams = dict(tokens=KV_TOKENS, audio_s=audio_s,
+                        seg_iters=SEG_ITERS, launches=launches), {}
+    for name, call in calls.items():
+        streams[name], walls = timed_runs(call, f"kv_api {name}", want)
+        out[name] = dict(wall_s=walls, rtf=statistics.median(walls)
+                         / audio_s)
+    out["chunks"]["first_chunk_s"] = first_chunk[1:]
+    out["chunks"]["first_chunk_median_s"] = statistics.median(
+        first_chunk[1:])
+    out["chunks"]["n_chunks"] = len(kv._seg_sizes(
+        steady_hops(kv, KV_TOKENS) + kv.s_steps - 1, SEG_ITERS, grow=True))
+    out["segmented_launches"] = launches
+    i16 = streams["int16"]
+    if not (i16.dtype == np.int16 and i16.shape == (1, samples)
+            and np.array_equal(i16, _pcm16(torch.from_numpy(f32)).numpy())):
+        raise AssertionError("stream_decode(output='int16') is not _pcm16 "
+                             "of the f32 stream")
+    for name in ("segmented", "chunks"):
+        got = streams[name]
+        if name == "chunks":
+            out[name]["f32_max_abs_diff"] = float(np.abs(got - f32).max())
+            got = _pcm16(torch.from_numpy(got)).numpy()
+        diff = np.abs(got.astype(np.int32) - i16)
+        rec = out[name]
+        rec["differing_samples"] = int((diff > 0).sum())
+        rec["max_lsb_diff"] = int(diff.max())
+        if got.shape != i16.shape or rec["max_lsb_diff"]:
+            raise AssertionError(f"kv_api {name} stream differs from the "
+                                 f"unsegmented int16 stream: {rec}")
+
+    flops = kv.program_flops(KV_TOKENS, output="int16")
+    win = kv.dec.device_stream_decoder()
+    win_flops = win.program_flops(KV_TOKENS)
+    del win
+    out["program_flops"] = dict(
+        kv=flops, windowed_device=win_flops,
+        kv_segmented=kv.program_flops(KV_TOKENS, output="int16",
+                                      segmented=True, seg_iters=SEG_ITERS),
+        peak_bf16=chip_peak_flops(dtype=torch.bfloat16),
+        kv_mfu=mfu(flops, statistics.median(out["int16"]["wall_s"]),
+                   dtype=torch.bfloat16), card=card_line())
+    if not (0 < flops < win_flops and out["program_flops"]["kv_mfu"]):
+        raise AssertionError(f"bad FLOP counts: {out['program_flops']}")
+
+    # the bf16 deviation of the offline mel at full width
+    f32_dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                           PipelineConfig(block_size=5, mel_cache_len=8,
+                                          max_token_len=40))
+    none = kv.dec._defaults(None, None, None)
+    m16 = kv.dec._flow_mel(tokens, *none, streaming=False, finalize=True)
+    m32 = f32_dec._flow_mel(tokens, *none, streaming=False, finalize=True)
+    del f32_dec
+    if not (np.isfinite(m16).all() and m16.shape == m32.shape):
+        raise AssertionError("bad bf16 offline mel")
+    out["bf16_mel_rel_mae"] = dict(
+        port=float(np.abs(m16 - m32).mean() / np.abs(m32).mean()),
+        reference_tpu=REFERENCE_BF16_MEL_REL_MAE, tokens=KV_TOKENS,
+        mel_abs_mean=float(np.abs(m32).mean()))
+    print("kv_api", json.dumps(out), flush=True)
+    return out
+
+
+def cross_kv_options_phase(fb) -> dict:
+    """f32 KV wavefront over 40 tokens for the concat dataflow
+    (``fused=False``, ring 35: one shared offset under rotated rings) and
+    the one-hot fused write (ring 36 at hop 5), each on the unfused engine:
+    the card graphed against the CPU (plain path) and the card eager; no
+    kernel launches."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    n_tokens = 40
+    tokens = np.random.RandomState(3).randint(0, flow_cfg.vocab_size,
+                                              (1, n_tokens))
+    options = {"concat": (dict(fused=False), "concat", "dus"),
+               "onehot_ring_36": (dict(ring_tokens=36), "fused", "onehot")}
+    mels = {}
+    for dev in ("cuda", "cpu"):
+        dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                           PipelineConfig(block_size=5, mel_cache_len=8,
+                                          max_token_len=40), device=dev)
+        for name, (kw, dataflow, write) in options.items():
+            for graphs in ((True, False) if dev == "cuda" else (True,)):
+                sess = dec.kv_stream_decoder(token_cap=n_tokens + 16,
+                                             graphs=graphs, **kw)
+                if (sess._kernel or sess._dataflow != dataflow
+                        or sess._write != write):
+                    raise AssertionError(f"kv_stream_decoder({kw}) took "
+                                         f"the wrong dataflow")
+                cache, _ = sess.init_state()
+                fb.launch_fused_tf_group.launches = 0
+                mel, _ = sess._flow_mels_wave(sess._token_buf(tokens),
+                                              cache,
+                                              sess.schedule(n_tokens))
+                if fb.launch_fused_tf_group.launches:
+                    raise AssertionError(f"{name} launched fused_tf_group")
+                mels[dev, name, graphs] = mel.float().cpu().numpy()
+                del sess
+        del dec
+    out = {}
+    for name in options:
+        got, want = mels["cuda", name, True], mels["cpu", name, True]
+        err = float(np.abs(got - want).max())
+        graph_err = float(np.abs(got - mels["cuda", name, False]).max())
+        rec = dict(tokens=n_tokens, mel_shape=list(want.shape),
+                   mel_max_abs=float(np.abs(want).max()), max_abs_diff=err,
+                   tol=CROSS_TOL, graphed_vs_eager_max_abs_diff=graph_err,
+                   graphed_vs_eager_tol=GRAPH_TOL)
+        print(f"cross_kv_{name}", json.dumps(rec), flush=True)
+        if not np.isfinite(got).all() or not err <= CROSS_TOL \
+                or not graph_err <= GRAPH_TOL:
+            raise AssertionError(f"card (graphed), card (eager) and CPU "
+                                 f"{name} KV mels disagree: {rec}")
+        out[name] = rec
+    return out
+
+
+def batcher(dec, n_lanes: int, n_tokens: int, graphs: bool = True,
+            fused: bool = True):
     """``dec.kv_batcher(n_lanes)`` with its defaults (ring 35 tokens, the
     kernel engine when ``kernel_limit`` allows it, CUDA graphs on the
-    card); checks that it took them."""
+    card); checks that it took them.  ``fused=False``: the concat lanes,
+    on the unfused engine."""
     b = dec.kv_batcher(n_lanes=n_lanes, token_cap=n_tokens + 16,
-                       graphs=graphs)
-    if not (b._kernel and b.ring_tokens == 35
+                       graphs=graphs, fused=fused)
+    if not (b._kernel == fused and b.ring_tokens == 35
             and b._graphs == (graphs and b.dev.type == "cuda")):
         raise AssertionError(f"kv_batcher(n_lanes={n_lanes}, graphs="
-                             f"{graphs}) did not select the kernel engine "
-                             f"over a 35-token ring")
+                             f"{graphs}, fused={fused}) did not select its "
+                             f"engine over a 35-token ring")
     return b
 
 
@@ -966,13 +1154,14 @@ def batcher_phase(torch, fb) -> dict:
     return out
 
 
-def cross_batcher_phase(fb) -> dict:
+def cross_batcher_phase(fb, fused: bool = True) -> dict:
     """f32 batcher, two lanes x 40 tokens, staggered and LM-paced
     (``drive``): every valid exit mel of every tick on the card (kernel
     engine, graphed; and eager) against the CPU (plain versions), same
     weights, the card's ``fused_tf_group`` launches exactly 14 a tick.
-    The wav is not compared: the NSF source's random draws differ between
-    devices."""
+    ``fused=False``: the concat lanes on the unfused engine (no kernel
+    launch).  The wav is not compared: the NSF source's random draws
+    differ between devices."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
@@ -988,7 +1177,7 @@ def cross_batcher_phase(fb) -> dict:
         dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
                            PipelineConfig(block_size=5, mel_cache_len=8,
                                           max_token_len=40), device=dev)
-        b = batcher(dec, 2, n_tokens, graphs=graphs)
+        b = batcher(dec, 2, n_tokens, graphs=graphs, fused=fused)
         got = []
 
         def keep(b, n_ticks):
@@ -999,7 +1188,7 @@ def cross_batcher_phase(fb) -> dict:
         fb.launch_fused_tf_group.launches = 0
         served = drive(b, streams, on_pump=keep)
         ticks = served["ticks"]
-        want = groups * ticks if dev == "cuda" else 0
+        want = groups * ticks if dev == "cuda" and fused else 0
         if fb.launch_fused_tf_group.launches != want:
             raise AssertionError(f"{dev} batcher (graphs={graphs}) launched "
                                  f"fused_tf_group "
@@ -1011,7 +1200,8 @@ def cross_batcher_phase(fb) -> dict:
             # (reported: the two number the ring slots differently)
             for (emb, toks), wav in zip(streams, served["wavs"]):
                 ref = dec.kv_stream_decoder(
-                    embedding=emb, token_cap=n_tokens + 16).stream_decode(toks)
+                    embedding=emb, token_cap=n_tokens + 16,
+                    fused=fused).stream_decode(toks)
                 session_diff.append(dict(
                     max_abs_diff=float(np.abs(wav - ref).max()),
                     ref_max_abs=float(np.abs(ref).max())))
@@ -1019,12 +1209,14 @@ def cross_batcher_phase(fb) -> dict:
     card, cpu = mels["cuda", True], mels["cpu", False]
     err = float(np.abs(card - cpu).max())
     graph_err = float(np.abs(card - mels["cuda", False]).max())
-    rec = dict(tokens=n_tokens, lanes=2, exit_mels=list(card.shape),
+    rec = dict(tokens=n_tokens, lanes=2, fused=fused,
+               exit_mels=list(card.shape),
                mel_max_abs=float(np.abs(cpu).max()), max_abs_diff=err,
                tol=CROSS_TOL, graphed_vs_eager_max_abs_diff=graph_err,
                graphed_vs_eager_tol=GRAPH_TOL,
                card_wav_vs_kv_stream_decoder=session_diff)
-    print("cross_batcher", json.dumps(rec), flush=True)
+    print("cross_batcher" if fused else "cross_batcher_concat",
+          json.dumps(rec), flush=True)
     if card.shape != cpu.shape or card.shape[0] != 2 * ((n_tokens - 3) // 5) \
             or not np.isfinite(card).all() or not err <= CROSS_TOL \
             or not graph_err <= GRAPH_TOL:
@@ -1322,6 +1514,7 @@ def main(argv=None) -> int:
 
     # 5. KV slice, and the continuous batcher
     kv_sl = phase("kv", kv_slice_phase, torch, fb, fc)
+    api = phase("kv_api", kv_api_phase, torch, fb)
     bat = phase("batcher", batcher_phase, torch, fb)
     win = phase("windowed_device", windowed_device_phase, torch,
                 (fa.launch_flash_chunk_attention, fb.launch_fused_tf_group,
@@ -1330,7 +1523,11 @@ def main(argv=None) -> int:
     # 6. cross-device
     cross = phase("cross", cross_phase, torch)
     cross["kv"] = phase("cross_kv", cross_kv_phase, fb, fc)
+    cross["kv_options"] = phase("cross_kv_options", cross_kv_options_phase,
+                                fb)
     cross["batcher"] = phase("cross_batcher", cross_batcher_phase, fb)
+    cross["batcher_concat"] = phase("cross_batcher_concat",
+                                    cross_batcher_phase, fb, False)
     cross["windowed_device"] = phase("cross_windowed", cross_windowed_phase,
                                      torch)
 
@@ -1365,7 +1562,7 @@ def main(argv=None) -> int:
         bound_ms=group_rec["bound_ms"], bound_by=group_rec["bound_by"],
         library_ms=None, library_note=FUSED_NOTE,
         batcher_launches=bat["graphed"]["fused_tf_group_launches"],
-        per_row=per_row)]
+        segmented_launches=api["segmented_launches"], per_row=per_row)]
     # the blocks group (the larger read) with a full ring, as the steady
     # stream runs it, timed with L2 flushed: each hop streams the
     # estimator's rings between two encoder launches
@@ -1389,7 +1586,7 @@ def main(argv=None) -> int:
                  cases=dict(flash_chunk_attention=records,
                             fused_tf_group=group_records,
                             fused_conformer_group=conf_records),
-                 slice=sl, kv_slice=kv_sl, batcher=bat,
+                 slice=sl, kv_slice=kv_sl, kv_api=api, batcher=bat,
                  windowed_device=win, cross=cross),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

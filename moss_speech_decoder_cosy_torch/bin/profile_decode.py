@@ -2,8 +2,8 @@
 
     python -m moss_speech_decoder_cosy_torch.bin.profile_decode \
         [--tokens 250] [--stream-tokens 40] \
-        [--kv [--enc-kernel] | --windowed-device] [--no-graphs] \
-        [--out prof.json]
+        [--kv [--enc-kernel] [--seg [N]] [--no-fused] [--onehot] \
+         | --windowed-device] [--no-graphs] [--out prof.json]
 
 Builds the MOSS presets with seeded weights in bf16 and warms up.  Without
 ``--kv``, with flash attention, for ``token2wav`` and for one windowed
@@ -12,7 +12,11 @@ Builds the MOSS presets with seeded weights in bf16 and warms up.  Without
 runs: ring attention, block 5, mel cache 8, max_token_len 40, the kernel
 engine, each wavefront iteration and each per-hop step replayed as a CUDA
 graph; ``--enc-kernel`` runs its encoder hop through the conformer group
-kernel, ``--no-graphs`` runs the same steps eagerly); with
+kernel, ``--no-graphs`` runs the same steps eagerly; as ``bench.py``'s
+flags, ``--seg [N]`` decodes the wavefront in segments of N iterations,
+default 32 (``stream_decode(segmented=True, seg_iters=N)``), ``--no-fused``
+runs the concat dataflow (``fused=False``) and ``--onehot`` the one-hot
+write (``write_mode="onehot"``), both on the unfused engine); with
 ``--windowed-device``, for the windowed device session's
 ``stream_decode(output="int16")`` of ``--tokens`` tokens in the same
 configuration (the reference's windowed re-decode on the card, no flash,
@@ -90,12 +94,17 @@ def _trace(fn, top: int = 12) -> dict:
 
 
 def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool,
-                graphs: bool) -> None:
+                graphs: bool, seg_iters=None, fused: bool = True,
+                onehot: bool = False) -> None:
     """Stages and traces of the KV session's ``stream_decode`` and of the
-    encoder of its steady hops (eager, host-int positions)."""
+    encoder of its steady hops (eager, host-int positions); with
+    ``seg_iters``, the segmented decode's wall (median of 3) and trace as
+    well."""
     dec = _bench_decoder()
     kv = dec.kv_stream_decoder(token_cap=tokens.shape[1] + 16,
-                               enc_kernel=enc_kernel, graphs=graphs)
+                               enc_kernel=enc_kernel, graphs=graphs,
+                               fused=fused,
+                               write_mode="onehot" if onehot else "auto")
     kv.stream_decode(tokens)                    # warm-up, captures the graphs
     plan = kv.schedule(tokens.shape[1])
     k = sum(1 for _, fin in plan if not fin)
@@ -119,13 +128,25 @@ def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool,
     encoder_hops()                                         # warm-up
     enc_s, _ = _wall(encoder_hops)
     results["kv_stages_s"] = dict(
-        enc_kernel=enc_kernel, graphs=kv._graphs,
+        enc_kernel=enc_kernel, graphs=kv._graphs, kernel=kv._kernel,
+        dataflow=kv._dataflow, write=kv._write,
         wavefront_iterations=k + kv.s_steps - 1,
         flow=statistics.median(flow_walls), flow_walls=flow_walls,
         bulk_vocoder=voc_s, steady_hops=k, encoder_of_steady_hops=enc_s)
     results["kv_trace"] = _trace(lambda: kv.stream_decode(tokens))
     results["kv_encoder_trace"] = _trace(encoder_hops)
-    for key in ("kv_stages_s", "kv_trace", "kv_encoder_trace"):
+    keys = ["kv_stages_s", "kv_trace", "kv_encoder_trace"]
+    if seg_iters:
+        seg = functools.partial(kv.stream_decode, tokens, output="int16",
+                                segmented=True, seg_iters=seg_iters)
+        seg()                                              # warm-up
+        walls = [_wall(seg)[0] for _ in range(3)]
+        results["kv_segmented_s"] = dict(
+            seg_iters=seg_iters, wall=statistics.median(walls), walls=walls,
+            segments=len(kv._seg_sizes(k + kv.s_steps - 1, seg_iters)))
+        results["kv_segmented_trace"] = _trace(seg)
+        keys += ["kv_segmented_s", "kv_segmented_trace"]
+    for key in keys:
         print(json.dumps({key: results[key]}))
 
 
@@ -219,6 +240,14 @@ def main(argv=None) -> int:
     ap.add_argument("--enc-kernel", action="store_true",
                     help="with --kv: the encoder hop on the conformer group "
                          "kernel (kv_stream_decoder(enc_kernel=True))")
+    ap.add_argument("--seg", type=int, nargs="?", const=32,
+                    help="with --kv: also the segmented wavefront, N "
+                         "iterations a segment (default 32)")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="with --kv: the concat dataflow (fused=False)")
+    ap.add_argument("--onehot", action="store_true",
+                    help="with --kv: the one-hot write "
+                         "(write_mode='onehot')")
     ap.add_argument("--windowed-device", action="store_true",
                     help="profile the windowed device session's "
                          "stream_decode instead (device_stream_decoder())")
@@ -236,7 +265,8 @@ def main(argv=None) -> int:
     tokens = np.random.RandomState(0).randint(
         0, C.moss_flow_config().vocab_size, (1, args.tokens))
     if args.kv:
-        _kv_profile(tokens, results, args.enc_kernel, not args.no_graphs)
+        _kv_profile(tokens, results, args.enc_kernel, not args.no_graphs,
+                    args.seg, not args.no_fused, args.onehot)
     elif args.windowed_device:
         _windowed_profile(tokens, results, not args.no_graphs)
     else:

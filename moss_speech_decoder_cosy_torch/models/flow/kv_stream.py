@@ -43,10 +43,14 @@ one ``fused_conformer_group`` launch (the session's ``enc_kernel`` option).
 Two estimator dataflows are ported: concat (``write=None``: attend over
 [ring ++ chunk], the caller writes the chunk afterwards) and fused
 write-then-attend (``write`` dict: the chunk is written into a ring of
-capacity ring + chunk before attention), at one shared write offset
-(``{"offset", "enable"}``, the single-stream wavefront) or at each row's
-own position (``{"nd", "enable"}``, the continuous batcher's lanes
-wavefront, ``wave_lanes_step``).  The int8-ring variant is not ported.
+capacity ring + chunk before attention).  Either writes at one shared
+offset under per-slot rotated slot numbering (``{"offset", "enable"}``;
+``ring_write_dus``; the rings rotated at the wavefront's entry,
+``rotate_rings`` or ``extend_rings_for_fused``'s ``rot``) or at each row's
+own position (``{"nd", "enable"}``; ``ring_write_rows``, the JAX
+package's one-hot write).  ``wave_step`` and ``wave_lanes_step`` take the
+dataflow; the continuous batcher's lanes always write per row.  The
+int8-ring variant is ROADMAP item A3.
 """
 
 from __future__ import annotations
@@ -185,6 +189,21 @@ def ring_write_dus(ring: torch.Tensor, chunk: torch.Tensor, offset,
     ring.index_copy_(1, slots, torch.where(enable[:, None, None],
                                            chunk.to(ring.dtype), old))
     return ring
+
+
+def rotate_rings(rings: torch.Tensor, rot: torch.Tensor,
+                 inverse: bool = False) -> torch.Tensor:
+    """Rolls each row of one layer's rings (B, R, d) along the ring axis by
+    the row's ``rot`` (B,), in place: canonical slot numbering (frame f at
+    slot f % R) to the rotated numbering of the shared-offset write (slot
+    (f + rot) % R), and back with ``inverse``.  The JAX package's
+    ``rotate_rings``; once at the concat wavefront's entry and exit."""
+    b, r, d = rings.shape
+    shift = -rot if inverse else rot
+    src = torch.remainder(torch.arange(r, device=rings.device)[None, :]
+                          - shift.reshape(b, 1), r)
+    return rings.copy_(torch.gather(rings, 1, src[:, :, None].expand(b, r,
+                                                                     d)))
 
 
 # --------------------------------------------------------------------------
@@ -602,23 +621,44 @@ def _wave_finish(cfm, x_wave, dphi, convs, new_convs, enable, w,
 
 
 def wave_step(cfm, fused, x_wave, mu_wave, mu_new, spks, est_flat: Dict,
-              w, k_total, base_frames):
-    """CausalConditionalCFMWave (fused write-then-attend, shared offset):
-    ONE iteration of the pipelined ODE, slot s holding the chunk that has
-    done s Euler steps, all S steps in one estimator forward.  ``est_flat``
-    in the extended flat layout (``extend_rings_for_fused``), updated in
-    place; ``w``, ``k_total`` and ``base_frames`` host ints or device
-    scalars.  Returns (exit mel (B, cf, n_mel) f32, valid when
-    S-1 <= w < S-1+k_total; x wave shifted; mu wave)."""
-    rp = est_flat["kv"][0].shape[-2]
+              w, k_total, base_frames, dataflow: str = "fused",
+              write_mode: str = "dus"):
+    """CausalConditionalCFMWave: ONE iteration of the pipelined ODE, slot s
+    holding the chunk that has done s Euler steps, all S steps in one
+    estimator forward; ``w``, ``k_total`` and ``base_frames`` host ints or
+    device scalars; ``est_flat`` in the flat layout, updated in place.
+
+    ``dataflow="fused"`` (write-then-attend): the rings extended to ring +
+    chunk (``extend_rings_for_fused``), each layer writing its chunk K/V
+    into its ring before attending.  ``"concat"``: the rings at their
+    canonical capacity, attention over [ring ++ chunk], the chunk K/V
+    written after the estimator.  ``write_mode="dus"``: every row writes at
+    one shared offset under the per-slot rotated numbering (rings rotated
+    at the wavefront's entry: ``extend_rings_for_fused``'s ``rot``, or
+    ``rotate_rings``; needs ring % chunk == 0); ``"onehot"``: each row
+    writes at its own n_done, canonical numbering (``ring_write_rows``, the
+    JAX package's one-hot write).  Returns (exit mel (B, cf, n_mel) f32,
+    valid when S-1 <= w < S-1+k_total; x wave shifted; mu wave)."""
+    r = est_flat["kv"][0].shape[-2]
     mu_wave, x_in, mu_in, cond_in, t_in, spks_in, rows, offset = \
         _wave_inputs(cfm, x_wave, mu_wave, mu_new, spks, w, k_total,
-                     base_frames, rp)
-    en = rows["enable"]
-    write = {"offset": offset, "enable": en}
-    dphi, _, new_convs = estimator_step(
+                     base_frames, r)
+    en, nd = rows["enable"], rows["nd"]
+    dus = write_mode == "dus"
+    write = None
+    if dataflow == "fused":
+        write = ({"offset": offset, "enable": en} if dus
+                 else {"nd": nd, "enable": en})
+    dphi, ckv, new_convs = estimator_step(
         cfm.estimator, fused, x_in, mu_in, t_in, spks_in, cond_in,
-        est_flat["kv"], est_flat["convs"], rows["nd"], rows["rot"], write)
+        est_flat["kv"], est_flat["convs"], nd, rows["rot"] if dus else None,
+        write)
+    if write is None:
+        for ring, chunk in zip(est_flat["kv"], ckv):
+            if dus:
+                ring_write_dus(ring, chunk, offset, en)
+            else:
+                ring_write_rows(ring, chunk, nd, en)
     exit_mel, x_shift = _wave_finish(cfm, x_wave, dphi, est_flat["convs"],
                                      new_convs, en, w, base_frames)
     return exit_mel, x_shift, mu_wave
@@ -675,26 +715,33 @@ def _lanes_finish(cfm, x_wave, dphi, convs, new_convs, enable, advance, w,
 
 
 def wave_lanes_step(cfm, fused, x_wave, mu_wave, mu_buf, spks,
-                    est_flat: Dict, w, avail_iters, k_total, base_frames):
+                    est_flat: Dict, w, avail_iters, k_total, base_frames,
+                    dataflow: str = "fused"):
     """One tick of the continuous batcher's lanes wavefront (the JAX
-    package's ``CausalConditionalCFMWaveLanes`` with ``fused=True``, under
-    ``KVLaneWaveStep``): each lane an independent stream at its own
-    position, all lanes' S slots in one estimator forward whose rows (s,
-    cfg, lane) write their chunk K/V at their own positions
-    (``ring_write_rows``) before attending.  x / mu waves (S, lanes, cf,
-    d); ``mu_buf`` (lanes, cap, cf, d) the lanes' encoded chunks;
-    ``est_flat`` extended flat rings (rot 0: frame f at slot f % rp),
-    updated in place, disabled rows' rings and conv caches kept; ``w``,
-    ``avail_iters``, ``k_total``, ``base_frames`` (lanes,) tensors.
-    Returns (exit mel (lanes, cf, d) f32, exit valid (lanes,) bool, x wave
-    shifted, mu wave, w + advance)."""
+    package's ``CausalConditionalCFMWaveLanes`` under ``KVLaneWaveStep``):
+    each lane an independent stream at its own position, all lanes' S slots
+    in one estimator forward whose rows (s, cfg, lane) write their chunk
+    K/V at their own positions (``ring_write_rows``).  ``dataflow="fused"``
+    writes before attending, over rings extended to ring + chunk;
+    ``"concat"`` attends over [ring ++ chunk] and writes after the
+    estimator, over rings at their canonical capacity.  Both number the
+    slots canonically (frame f at slot f % ring).  x / mu waves (S, lanes,
+    cf, d); ``mu_buf`` (lanes, cap, cf, d) the lanes' encoded chunks;
+    ``est_flat`` updated in place, disabled rows' rings and conv caches
+    kept; ``w``, ``avail_iters``, ``k_total``, ``base_frames`` (lanes,)
+    tensors.  Returns (exit mel (lanes, cf, d) f32, exit valid (lanes,)
+    bool, x wave shifted, mu wave, w + advance)."""
     mu_wave, x_in, mu_in, t_in, spks_in, nd, en, advance, exit_valid = \
         _lanes_inputs(cfm, x_wave, mu_wave, mu_buf, spks, w, avail_iters,
                       k_total, base_frames)
-    dphi, _, new_convs = estimator_step(
+    write = {"nd": nd, "enable": en} if dataflow == "fused" else None
+    dphi, ckv, new_convs = estimator_step(
         cfm.estimator, fused, x_in, mu_in, t_in, spks_in,
         torch.zeros_like(mu_in), est_flat["kv"], est_flat["convs"], nd,
-        write={"nd": nd, "enable": en})
+        write=write)
+    if write is None:
+        for ring, chunk in zip(est_flat["kv"], ckv):
+            ring_write_rows(ring, chunk, nd, en)
     exit_mel, x_shift, w_next = _lanes_finish(
         cfm, x_wave, dphi, est_flat["convs"], new_convs, en, advance, w,
         base_frames)

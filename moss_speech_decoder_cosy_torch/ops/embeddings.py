@@ -89,10 +89,14 @@ def wenet_rel_pos(size: int, d_model: int, offset: int = 0,
 
 
 class SinusoidalPosEmb(nn.Module):
-    """Matcha SinusoidalPosEmb: t (B,) -> (B, dim) f32, with scale 1000.
+    """Matcha SinusoidalPosEmb: t (B,) -> (B, dim) in t's dtype, with scale
+    1000.
 
-    ``scale * t`` is rounded in t's dtype before the f32 product with the
-    frequency table, as in the JAX package."""
+    As in the JAX package, ``scale * t`` and its product with the frequency
+    table (made in f32) are rounded in t's dtype, and sin / cos run on the
+    rounded argument: in bf16 the reference's time embedding is a bf16 one.
+    Computing it in f32 from bf16 t drove the port's bf16 mel 1.6x further
+    from its f32 mel than the reference's."""
 
     def __init__(self, dim: int, scale: float = 1000.0):
         super().__init__()
@@ -101,10 +105,10 @@ class SinusoidalPosEmb(nn.Module):
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         half = self.dim // 2
-        emb = torch.exp(torch.arange(half, device=t.device,
-                                     dtype=torch.float32)
-                        * -(math.log(10000.0) / (half - 1)))
-        emb = (self.scale * t)[:, None].float() * emb[None, :]
+        freqs = torch.exp(torch.arange(half, device=t.device,
+                                       dtype=torch.float32)
+                          * -(math.log(10000.0) / (half - 1)))
+        emb = (self.scale * t)[:, None] * freqs.to(t.dtype)[None, :]
         return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 

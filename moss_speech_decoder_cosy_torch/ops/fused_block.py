@@ -48,7 +48,9 @@ the slices meet through distributed shared memory.  See the source's
 header.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel (float32 or bfloat16) or raise.  There is no fall-back.
+kernel (float32 or bfloat16) or raise.  There is no fall-back.  Either way
+the entry counts the JAX package's analytic FLOPs of the launch in an
+active ``utils/flops.py`` tally, and the plain version's products none.
 ``kernel_limit`` names the geometries the kernel cannot run, its shared
 memory among them (``cluster_size`` mirrors the launcher's layout).
 """
@@ -62,6 +64,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from . import cuda_build
+from ..utils.flops import fused_tf_group_flops, kernel_flops
 
 _NEG = -1.0e10
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -452,17 +455,20 @@ def fused_tf_group(p: Dict[str, torch.Tensor], rp_: Dict[str, torch.Tensor],
     caches come back unmasked."""
     _check(p, rp_, mt, cc1, cc2, x, rings, scal, offset, heads, head_dim,
            act_fn)
-    if x.device.type == "cpu":
-        return fused_tf_group_plain(p, rp_, mt, cc1, cc2, x, rings, scal,
-                                    offset, heads=heads,
-                                    head_dim=head_dim,
-                                    shared_offset=shared_offset)
-    rows, cf, _ = x.shape
-    x_out = torch.empty((rows, cf, rp_["resb"].shape[-1]), dtype=x.dtype,
-                        device=x.device)
-    cc1_out = torch.empty_like(cc1)
-    cc2_out = torch.empty_like(cc2)
-    launch_fused_tf_group(p, rp_, mt, cc1, cc2, x, rings, scal, offset,
-                          x_out, cc1_out, cc2_out, heads, head_dim,
-                          shared_offset)
-    return x_out, rings, cc1_out, cc2_out
+    rows, cf, cin = x.shape
+    ch = rp_["resb"].shape[-1]
+    with kernel_flops(fused_tf_group_flops(rows, cf, cin, ch,
+                                           heads * head_dim, rings.shape[0],
+                                           rings.shape[2])):
+        if x.device.type == "cpu":
+            return fused_tf_group_plain(p, rp_, mt, cc1, cc2, x, rings, scal,
+                                        offset, heads=heads,
+                                        head_dim=head_dim,
+                                        shared_offset=shared_offset)
+        x_out = torch.empty((rows, cf, ch), dtype=x.dtype, device=x.device)
+        cc1_out = torch.empty_like(cc1)
+        cc2_out = torch.empty_like(cc2)
+        launch_fused_tf_group(p, rp_, mt, cc1, cc2, x, rings, scal, offset,
+                              x_out, cc1_out, cc2_out, heads, head_dim,
+                              shared_offset)
+        return x_out, rings, cc1_out, cc2_out

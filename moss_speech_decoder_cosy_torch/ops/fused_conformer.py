@@ -46,7 +46,9 @@ the wrapper takes it as a host int (range-checked) or as a device int32
 the plain version).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel (float32 or bfloat16) or raise.  There is no fall-back.
+kernel (float32 or bfloat16) or raise.  There is no fall-back.  Either way
+the entry counts the JAX package's analytic FLOPs of the launch in an
+active ``utils/flops.py`` tally, and the plain version's products none.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import cuda_build
+from ..utils.flops import fused_conformer_group_flops, kernel_flops
 # kernel_tolerance: the fused group's rule (f32 2e-5, four bf16 ulps of the
 # largest output), which holds here for the same reasons
 from .fused_block import (_DTYPE_CODE, _NEG, Scalar, _dot,  # noqa: F401
@@ -305,14 +308,16 @@ def fused_conformer_group(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if not torch.is_tensor(n_tok):
         n_tok = int(n_tok)
     _check(p, x, pos_emb, ring_kv, ring_pk, n_tok, heads, head_dim, act_fn)
-    if x.device.type == "cpu":
-        return fused_conformer_group_plain(p, x, pos_emb, ring_kv, ring_pk,
-                                           n_tok, heads=heads,
-                                           head_dim=head_dim)
     _, c, d = x.shape
-    x_out = torch.empty_like(x)
-    scratch = torch.empty((c * (5 * d + p["w1b"].shape[-1]),), dtype=x.dtype,
-                          device=x.device)
-    launch_fused_conformer_group(p, x, pos_emb, ring_kv, ring_pk, n_tok,
-                                 x_out, scratch, heads, head_dim)
-    return x_out, ring_kv, ring_pk
+    with kernel_flops(fused_conformer_group_flops(
+            ring_kv.shape[0], c, d, ring_kv.shape[2])):
+        if x.device.type == "cpu":
+            return fused_conformer_group_plain(p, x, pos_emb, ring_kv,
+                                               ring_pk, n_tok, heads=heads,
+                                               head_dim=head_dim)
+        x_out = torch.empty_like(x)
+        scratch = torch.empty((c * (5 * d + p["w1b"].shape[-1]),),
+                              dtype=x.dtype, device=x.device)
+        launch_fused_conformer_group(p, x, pos_emb, ring_kv, ring_pk, n_tok,
+                                     x_out, scratch, heads, head_dim)
+        return x_out, ring_kv, ring_pk

@@ -221,7 +221,12 @@ class AudioDecoder:
         each conformer stack as one ``fused_conformer_group`` launch;
         ``graphs`` (on a CUDA device) replays each wavefront iteration and
         each per-hop step as a CUDA graph, ``graphs=False`` runs the same
-        steps eagerly.  The other options of the JAX package raise."""
+        steps eagerly.  ``fused=False`` runs the concat dataflow (attention
+        over [ring ++ chunk], the chunk written after the estimator);
+        ``write_mode="onehot"``, or a ring that is not a multiple of the
+        hop, writes each row at its own position instead of one shared
+        offset; both run the unfused engine, as in the JAX package.
+        ``batch > 1``, ``ring_quant`` and ``stacked`` raise."""
         missing = {"batch > 1 (lockstep streams)": batch != 1,
                    "ring_quant (int8 rings)": ring_quant}
         for what, asked in missing.items():
@@ -231,10 +236,6 @@ class AudioDecoder:
             raise NotImplementedError("the stacked-scan engine is not "
                                       "ported (measured slower in "
                                       "BENCH_NOTES.md)")
-        if write_mode != "auto":
-            raise NotImplementedError("write_mode='onehot' is not ported; "
-                                      "the shared-offset write is the "
-                                      "wavefront's geometry")
         from .kv_session import KVStreamDecoder
         prompt_token, prompt_feat, embedding = self._defaults(
             prompt_token, prompt_feat, embedding)
@@ -245,7 +246,7 @@ class AudioDecoder:
                                hop, ring_tokens=ring_tokens,
                                token_cap=token_cap, fused=fused,
                                kernel=kernel, enc_kernel=enc_kernel,
-                               graphs=graphs)
+                               graphs=graphs, write_mode=write_mode)
 
     def kv_batcher(self, n_lanes: int = 4, block_size: Optional[int] = None,
                    ring_tokens: Optional[int] = None, token_cap: int = 1024,
@@ -258,7 +259,8 @@ class AudioDecoder:
         ``kv_stream_decoder`` (the per-row write mode of
         ``fused_tf_group``); ``graphs`` (on a CUDA device) replays the
         wavefront tick, the encoder hop, the steady vocoder hop and the
-        finalize hop as CUDA graphs.  ``ring_quant`` and ``fused=False`` raise."""
+        finalize hop as CUDA graphs.  ``fused=False`` runs the concat dataflow
+        (the unfused engine); ``ring_quant`` raises."""
         from .kv_batcher import KVContinuousBatcher
         return KVContinuousBatcher(self, n_lanes=n_lanes,
                                    block_size=block_size,

@@ -14,16 +14,46 @@ each can be resolved after one batched pass:
   cross-fade, which rewrites only the head.
 
 So the steady hops stack on the batch axis, source and decode run once
-each, and two shifted head fixes give the sequential chain's output.  One
-stream (batch 1); the segmented and multi-stream forms are not ported.
+for each batch of hops, and two shifted head fixes give the sequential
+chain's output.  The
+chain also splits into segments (``vocode_first`` then ``vocode_cont``,
+each carrying the source and speech tails to the next) that give, joined,
+the one-pass output: the segmented KV wavefront vocodes each segment as it
+leaves.  One stream (batch 1); the multi-stream form is ROADMAP item A3.
+
+The steady hops' windows go through HiFT in batches of ``WINDOW_BATCH``,
+the last one padded with zero windows.  On the card cuDNN and cuBLAS pick
+their kernels by the batch, and bf16 HiFT turns the last-bit differences
+that follow into 12% of the wav's peak (an H100, full width, 48 windows at
+once against 22 then 26: 8.2e-4 of a 7.0e-3 peak; ``bin/window_batch.py``).
+With one batch shape a window's audio does not depend on how the stream was
+cut into segments, so segmented and one-pass vocoding agree bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+# hop windows per HiFT call of the steady hops (see the module's doc)
+WINDOW_BATCH = 16
+
+
+def _in_batches(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the rows of ``xs`` in batches of ``WINDOW_BATCH`` rows,
+    the last padded with zeros; the rows' results, concatenated."""
+    n, outs = xs[0].shape[0], []
+    for i in range(0, n, WINDOW_BATCH):
+        parts = [x[i:i + WINDOW_BATCH] for x in xs]
+        m = parts[0].shape[0]
+        if m < WINDOW_BATCH:
+            parts = [torch.cat([p, p.new_zeros((WINDOW_BATCH - m,)
+                                               + tuple(p.shape[1:]))])
+                     for p in parts]
+        outs.append(fn(*parts)[:m])
+    return torch.cat(outs)
 
 
 class BulkVocoder:
@@ -46,10 +76,10 @@ class BulkVocoder:
         """Steady hops batched: wins (n, F+C, D) in the compute dtype.
         Returns (emit (1, n*F*u) f32, s_tail, w_tail)."""
         hift, scl = self.dec.hift, self.scl
-        ss = hift.source(wins)                               # (n, (F+C)u, 1)
+        ss = _in_batches(hift.source, wins)                  # (n, (F+C)u, 1)
         prev_s = torch.cat([last_s_tail.to(ss.dtype), ss[:-1, -scl:]])
         ss = torch.cat([prev_s, ss[:, scl:]], dim=1)
-        ws = hift.decode(wins, ss)                           # (n, (F+C)u)
+        ws = _in_batches(hift.decode, wins, ss)              # (n, (F+C)u)
         prev_w = torch.cat([last_w_tail.to(ws.dtype), ws[:-1, -scl:]])
         heads = ws[:, :scl] * self._fade_in + prev_w * self._fade_out
         ws_fixed = torch.cat([heads, ws[:, scl:].float()], dim=1)
@@ -65,39 +95,96 @@ class BulkVocoder:
         head = w_t[:, :scl] * self._fade_in + last_w_tail * self._fade_out
         return torch.cat([head, w_t[:, scl:].float()], dim=1)
 
+    def _impl(self, mel: torch.Tensor, n_steady: int, tail_frames: int,
+              first_frames: int, hold: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """mel (1, Tm, D), hop plan [first] + [F] * n_steady + [tail].
+        Returns (wav (1, samples) f32, s_tail, w_tail): the tails let a
+        later segment continue the chain (``vocode_cont``).  ``hold`` marks
+        a segment that more segments follow: a lone first hop then withholds
+        its last ``scl`` samples for the next cross-fade instead of emitting
+        everything."""
+        dt = self.dec._dt()
+        f, c, scl, u = self.F, self.C, self.scl, self.u
+        hift = self.dec.hift
+        mel0 = mel[:, :first_frames].to(dt)
+        s0 = hift.source(mel0)
+        w0 = hift.decode(mel0, s0)
+        s_tail, w_tail = s0[:, -scl:], w0[:, -scl:]
+        if n_steady == 0 and tail_frames == 0:
+            if hold:                       # a mid-stream one-hop segment
+                return w0[:, : f * u - scl].float(), s_tail, w_tail
+            return w0.float(), s_tail, w_tail   # one hop: nothing withheld
+        outs = [w0[:, : f * u - scl].float()]
+        if n_steady > 0:
+            starts = (1 + torch.arange(n_steady, device=mel.device)) * f - c
+            emit, s_tail, w_tail = self._steady(
+                self._windows(mel, starts).to(dt), s_tail, w_tail)
+            outs.append(emit)
+        if tail_frames > 0:
+            t0 = (1 + n_steady) * f
+            outs.append(self._tail_hop(mel[:, t0 - c: t0 + tail_frames].to(dt),
+                                       s_tail, w_tail))
+        return torch.cat(outs, dim=1), s_tail, w_tail
+
+    def _windows(self, mel: torch.Tensor, starts: torch.Tensor
+                 ) -> torch.Tensor:
+        """The (n, F + C, D) hop windows of mel (1, Tm, D) at ``starts``."""
+        idx = starts[:, None] + torch.arange(self.F + self.C,
+                                             device=mel.device)
+        return mel[0][idx]
+
+    def _check(self, mel: torch.Tensor) -> None:
+        if mel.shape[0] != 1:
+            raise NotImplementedError("bulk vocoding of several lockstep "
+                                      "streams is ROADMAP item A3")
+
     @torch.inference_mode()
     def vocode(self, mel: torch.Tensor, plan: Sequence[int]) -> torch.Tensor:
         """mel (1, Tm, D) f32 on the decoder's device; ``plan`` the per-hop
         emit mel-frame counts [F, ..., F, tail], or one finalize hop [n].
         Returns the wav (1, sum(plan) * u) f32 on the device."""
-        if mel.shape[0] != 1:
-            raise NotImplementedError("bulk vocoding of several lockstep "
-                                      "streams is ROADMAP item A3")
+        self._check(mel)
         if any(p != self.F for p in plan[:-1]):
             raise ValueError(f"every hop but the last emits {self.F} frames, "
                              f"got {list(plan)}")
-        dt = self.dec._dt()
-        f, c, scl, u = self.F, self.C, self.scl, self.u
         n_steady = max(len(plan) - 2, 0)
         tail = plan[-1] if len(plan) > 1 else 0
-        first = plan[0] if len(plan) == 1 else f
-        hift = self.dec.hift
+        first = plan[0] if len(plan) == 1 else self.F
+        return self._impl(mel, n_steady, tail, first)[0]
 
-        mel0 = mel[:, :first].to(dt)
-        s0 = hift.source(mel0)
-        w0 = hift.decode(mel0, s0)
-        if n_steady == 0 and tail == 0:
-            return w0.float()              # one hop: nothing withheld
-        outs = [w0[:, : f * u - scl].float()]
-        s_tail, w_tail = s0[:, -scl:], w0[:, -scl:]
+    @torch.inference_mode()
+    def vocode_first(self, mel: torch.Tensor, n_steady: int,
+                     tail_frames: int, hold: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The first segment of a segmented stream: the first hop and
+        ``n_steady`` steady hops, plus the finalize tail when this is also
+        the last segment (``hold=True`` when more segments follow).  mel
+        (1, F * (1 + n_steady) + tail, D).  Returns (wav, s_tail, w_tail)
+        for ``vocode_cont``."""
+        self._check(mel)
+        return self._impl(mel, n_steady, tail_frames, self.F, hold)
+
+    @torch.inference_mode()
+    def vocode_cont(self, mel_ctx: torch.Tensor, s_tail: torch.Tensor,
+                    w_tail: torch.Tensor, n_steady: int, tail_frames: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A continuation segment: ``mel_ctx`` (1, C + F * n_steady + tail,
+        D) holds the stream's previous C mel frames, then the segment's;
+        ``s_tail`` / ``w_tail`` the previous segment's.  Returns (wav
+        (1, (F * n_steady + tail) * u) f32, s_tail, w_tail); the segments
+        joined give the one-pass ``vocode`` bit for bit."""
+        self._check(mel_ctx)
+        dt = self.dec._dt()
+        f, c = self.F, self.C
+        outs = []
         if n_steady > 0:
-            starts = (1 + torch.arange(n_steady, device=mel.device)) * f - c
-            idx = starts[:, None] + torch.arange(f + c, device=mel.device)
-            emit, s_tail, w_tail = self._steady(mel[0][idx].to(dt), s_tail,
-                                                w_tail)
+            starts = torch.arange(n_steady, device=mel_ctx.device) * f
+            emit, s_tail, w_tail = self._steady(
+                self._windows(mel_ctx, starts).to(dt), s_tail, w_tail)
             outs.append(emit)
-        if tail > 0:
-            t0 = (1 + n_steady) * f
-            outs.append(self._tail_hop(mel[:, t0 - c: t0 + tail].to(dt),
-                                       s_tail, w_tail))
-        return torch.cat(outs, dim=1)
+        if tail_frames > 0:
+            t0 = c + n_steady * f
+            outs.append(self._tail_hop(
+                mel_ctx[:, t0 - c: t0 + tail_frames].to(dt), s_tail, w_tail))
+        return torch.cat(outs, dim=1), s_tail, w_tail

@@ -52,15 +52,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .kv_session import KVVocState, StepGraphs, vocode_hop
+from ..utils.flops import DispatchMeter
+from .kv_session import KVVocState, StepGraphs, _pcm16, vocode_hop
 
 # bucket sizes of a run of steady hops, largest first
 BUCKETS = (64, 16, 4, 2)
-
-
-def _pcm16(wav: torch.Tensor) -> torch.Tensor:
-    """16-bit PCM on the device; the cast truncates toward zero."""
-    return (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
 
 
 def _rows(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -118,7 +114,8 @@ class DeviceStreamDecoder:
         self._fade_in = win[: self.scl].to(self.dev)
         self._fade_out = win[self.scl:].to(self.dev)
 
-        self._steps = StepGraphs(self.dev, graphs)
+        self.meter = DispatchMeter()
+        self._steps = StepGraphs(self.dev, graphs, self.meter)
         self._graphs = self._steps.enabled
         self._state: Optional[DeviceStreamState] = None
         self._tok: Optional[torch.Tensor] = None    # (B, cap) tokens
@@ -457,9 +454,20 @@ class DeviceStreamDecoder:
         """Runs (and on CUDA captures) the steps of an n-token stream."""
         self.stream_decode(np.zeros((self.batch, n_tokens), np.int32))
 
-    def program_flops(self, n_tokens: int) -> float:
-        raise NotImplementedError("program FLOPs need utils/flops.py (XLA "
-                                  "cost analysis): ROADMAP item A13")
+    def program_flops(self, n_tokens: int, fused: bool = False) -> float:
+        """The FLOPs of one ``stream_decode(n_tokens, fused)`` as the port
+        runs it: one decode of n zero tokens through the session's meter
+        (``utils/flops.py``), each step key's FLOPs counted in one eager run
+        and multiplied by its dispatches (the JAX package's
+        ``program_flops`` over the same dispatch sequence)."""
+        self.meter.reset()
+        self.meter.enabled = True
+        try:
+            self._decode_device(np.zeros((self.batch, n_tokens), np.int32),
+                                fused)
+        finally:
+            self.meter.enabled = False
+        return self.meter.total_flops()
 
 
 @torch.inference_mode()

@@ -19,9 +19,15 @@ one wavefront forward per tick whatever their positions:
   one hop per chunk, into a per-lane buffer of mu chunks that the wavefront
   reads by index.
 
-State lives on the device in pools made once: the extended est rings
-(``(ring + hop) * ratio`` slots, canonical numbering frame f -> slot
-f % rp) in the kernel's grouped layout, the x / mu waves, the mu chunks,
+With ``fused=False`` the lanes run the concat dataflow (JAX
+``CausalConditionalCFMWaveLanes`` with ``fused=False``): attention over
+[ring ++ chunk], each row's chunk written after the estimator, over rings at
+their canonical capacity, on the unfused engine.
+
+State lives on the device in pools made once: the est rings (``(ring +
+hop) * ratio`` slots for the fused dataflow, ``ring * ratio`` for the
+concat one, canonical numbering frame f -> slot f % rp) in the kernel's
+grouped layout, the x / mu waves, the mu chunks,
 each lane's ``w``, speaker vector and base frame, the token buffer, the
 per-lane encoder caches and token counts, and the per-lane vocoder caches.
 A pump runs a burst of wavefront ticks, each tick one estimator forward
@@ -63,6 +69,7 @@ from ..models.flow.kv_stream import (
     kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables,
     shrink_rings_from_fused, spk_embedding, ungroup_est_flat,
     wave_lanes_step, wave_lanes_step_kernel)
+from ..utils.flops import DispatchMeter
 from .kv_session import (KVVocState, StepGraphs, estimator_kernel_limit,
                          vocode_hop)
 
@@ -127,7 +134,9 @@ class KVContinuousBatcher:
     ``kernel=True`` raises a ValueError naming the limit where it does not.
     ``graphs`` replays the wavefront tick, the encoder hop, the steady
     vocoder hop and the finalize hop as CUDA graphs on a CUDA device.  ``ticks`` counts the
-    wavefront ticks run."""
+    wavefront ticks run.  ``fused=False`` runs the concat dataflow.
+    ``meter`` (``utils/flops.py``), once enabled, counts the graphed steps
+    and the eager calls; ``measured_flops()`` sums their FLOPs."""
 
     def __init__(self, dec, n_lanes: int = 4,
                  block_size: Optional[int] = None,
@@ -137,10 +146,9 @@ class KVContinuousBatcher:
         if ring_quant:
             raise NotImplementedError("int8 estimator rings (ring_quant) are "
                                       "ROADMAP item A3")
-        if not fused:
-            raise NotImplementedError("the concat-dataflow lanes wavefront "
-                                      "(fused=False) is ROADMAP item A4")
         self.dec = dec
+        self._fused = bool(fused)
+        self._dataflow = "fused" if self._fused else "concat"
         self.lanes = n_lanes
         self.hop = block_size or dec.pipe_cfg.block_size
         self.ring_tokens = (ring_tokens if ring_tokens is not None
@@ -157,19 +165,25 @@ class KVContinuousBatcher:
         self.dev = dec.device
         self.dt = dec._dt()
         self.est_dt = dec.estimator_dtype or self.dt
-        self.rp = self.ring_tokens * self.ratio + self.cf
+        # the pool's ring capacity: ring + chunk for the fused dataflow,
+        # the canonical ring for the concat one
+        self.rp = self.ring_tokens * self.ratio + (self.cf if self._fused
+                                                   else 0)
 
         est_cfg = cfg.estimator
         why = estimator_kernel_limit(est_cfg, self.cf, self.rp, self.est_dt)
         if est_cfg.act_fn != "gelu":
             why = f"the kernel runs exact GELU, not {est_cfg.act_fn!r}"
+        if not self._fused:
+            why = "the kernel writes before it attends (fused=True)"
         if kernel == "auto":
             kernel = why is None
         if kernel and why:
             raise ValueError(f"the lanes kernel engine cannot run this "
                              f"geometry: {why}")
         self._kernel = bool(kernel)
-        self._steps = StepGraphs(self.dev, graphs)
+        self.meter = DispatchMeter()
+        self._steps = StepGraphs(self.dev, graphs, self.meter)
         self._graphs = self._steps.enabled
 
         self._fw = getattr(dec, "_fused_qkv", None)
@@ -270,7 +284,8 @@ class KVContinuousBatcher:
         else:
             mel, ok, x, mu, w = wave_lanes_step(
                 dec, self._fw, self._x, self._mu, self._mu_buf, self._spks,
-                self._est, self._w, avail, k_total, self._base)
+                self._est, self._w, avail, k_total, self._base,
+                self._dataflow)
         self._x.copy_(x)
         self._mu.copy_(mu)
         self._w.copy_(w)
@@ -358,17 +373,21 @@ class KVContinuousBatcher:
         if st.prompt_len:
             ctx = torch.as_tensor(st.tokens[None, :self.la],
                                   dtype=torch.long).to(self.dev)
-            _, new = kv_flow_step(flow, self._fw, st.ptok, ctx, st.pfeat,
-                                  st.emb, sc, self._pe_tok, self._pe_mel)
+            _, new = self.meter.call(
+                ("prefill", st.prompt_len), lambda: kv_flow_step(
+                    flow, self._fw, st.ptok, ctx, st.pfeat, st.emb, sc,
+                    self._pe_tok, self._pe_mel))
             enc = new["enc"]
         for k, v in self._enc.items():
             v[lane].copy_(enc[k])
         self._n_tok[lane] = st.prompt_len
         self._plen[lane] = st.prompt_len
-        # canonical capacity-R rings -> the pool's extended layout, rot 0
+        # canonical capacity-R rings -> the pool's layout: extended, rot 0,
+        # for the fused dataflow; as they are for the concat one
         base = st.prompt_len * self.ratio
-        ext = extend_rings_for_fused(est_cache_to_flat(sc["est"]), base,
-                                     self.cf, 0)
+        ext = est_cache_to_flat(sc["est"])
+        if self._fused:
+            ext = extend_rings_for_fused(ext, base, self.cf, 0)
         for pool, leaf in self._lane_leaves(ext):
             self._lane_view(pool, lane).copy_(
                 leaf.view((self.s_steps, 2) + tuple(leaf.shape[1:])))
@@ -378,7 +397,8 @@ class KVContinuousBatcher:
         self._mu[:, lane].zero_()
         self._mu_buf[lane].zero_()
         self._w[lane] = 0
-        self._spks[lane].copy_(spk_embedding(flow, st.emb)[0])
+        self._spks[lane].copy_(self.meter.call(
+            ("spk",), lambda: spk_embedding(flow, st.emb))[0])
         self._base[lane] = base
         st.prefilled = True
 
@@ -493,7 +513,8 @@ class KVContinuousBatcher:
         st.w_emitted += 1
         if st.first_voc:
             st.first_voc = False
-            wav, new = self._vocode(mel, None, True, False)
+            wav, new = self.meter.call(
+                ("voc_first",), lambda: self._vocode(mel, None, True, False))
             for pool, v in zip(_voc_fields(self._voc_state(lane)),
                                _voc_fields(new)):
                 pool.copy_(v)
@@ -538,11 +559,16 @@ class KVContinuousBatcher:
             for k, v in self._enc.items():
                 sc["enc"][k].copy_(v[lane])
             n_frames = (st.prompt_len + st.k_total * self.hop) * self.ratio
-            lane_ext = {"kv": tuple(
+            lane_kv = tuple(
                 self._lane_view(a, lane).reshape((-1,) + tuple(a.shape[1:]))
-                for a in self._est["kv"]), "convs": {}}
-            shrink_rings_from_fused(lane_ext, n_frames, self.cf, 0,
-                                    out=self._scratch_flat["kv"])
+                for a in self._est["kv"])
+            if self._fused:
+                shrink_rings_from_fused({"kv": lane_kv, "convs": {}},
+                                        n_frames, self.cf, 0,
+                                        out=self._scratch_flat["kv"])
+            else:
+                for leaf, ring in zip(self._scratch_flat["kv"], lane_kv):
+                    leaf.copy_(ring)
             for pool, leaf in _pairs(self._est["convs"],
                                      self._scratch_flat["convs"]):
                 leaf.copy_(self._lane_view(pool, lane).reshape(leaf.shape))
@@ -558,22 +584,22 @@ class KVContinuousBatcher:
                             functools.partial(self._fin_hop_impl, tail))
             first = st.first_voc
             st.first_voc = False
-            wav, _ = self._vocode(self._fin_out[tail], None if first else
-                                  self._voc_state(lane), first, True)
+            wav, _ = self.meter.call(
+                ("voc_fin", tail, first), lambda: self._vocode(
+                    self._fin_out[tail], None if first else
+                    self._voc_state(lane), first, True))
             segs.append(wav)
         for pool, _ in self._lane_leaves(self._est):
             self._lane_view(pool, lane).zero_()
         return segs
 
     # ------------------------------------------------------------ queries
-    @property
-    def meter(self):
-        raise NotImplementedError("the dispatch meter needs utils/flops.py: "
-                                  "ROADMAP item A13")
-
     def measured_flops(self) -> float:
-        raise NotImplementedError("measured FLOPs need utils/flops.py: "
-                                  "ROADMAP item A13")
+        """The FLOPs of the steps the batcher ran while ``meter.enabled``
+        (``utils/flops.py``): per graph key and eager call, its dispatches x
+        the FLOPs of one eager run, the kernels by the JAX package's
+        formulas."""
+        return self.meter.total_flops()
 
     @property
     def free_lanes(self) -> int:

@@ -14,7 +14,31 @@ token through the flow once, attending to circular KV rings
   of 16 for XLA;
 - the finalize tail through the per-hop KV step;
 - bulk vocoding of the whole hop chain (``bulk_voc.py``), or the per-hop
-  vocoder chain.
+  vocoder chain;
+- one copy back, of f32 audio or of 16-bit PCM quantized on the device
+  (``output="int16"``).
+
+``segmented=True`` runs the same wavefront iterations in segments of
+``seg_iters``, vocodes each segment as it leaves (``BulkVocoder.
+vocode_first`` / ``vocode_cont``, the tails carried) and copies it back on
+a copy stream while the next segment computes; the segments joined are the
+unsegmented stream bit for bit.  ``stream_chunks`` yields the audio hop by
+hop, or (``wavefront=True``) segment by segment on a growing schedule, each
+chunk as its copy lands.  Unlike the JAX package, a segment runs whatever
+engine the session has, the ``fused_tf_group`` kernel engine included: a
+segment is a run of the same iteration replays.
+
+Dataflows (the JAX package's ``CausalConditionalCFMWave``):
+``fused=True`` (the default) writes each layer's chunk K/V into a ring
+extended to ring + chunk before attending; ``fused=False`` (the concat
+dataflow) attends over [ring ++ chunk] and writes after the estimator, into
+the canonical rings.  The write goes at one shared offset under per-slot
+rotated slot numbering when the ring is a multiple of the hop (the rings
+are rotated, or extended rotated, at the wavefront's entry and back at its
+exit), else, or with ``write_mode="onehot"``, each row at its own position.
+The kernel engine needs the fused dataflow and the shared offset.
+``program_flops(n)`` counts one decode's FLOPs through the session's
+``meter`` (``utils/flops.py``).
 
 The estimator rings live in HBM at 56 layers x (S*2B, ring + chunk,
 2*inner): 367 MB per stream in bf16 at the MOSS geometry.  They are updated
@@ -37,8 +61,8 @@ then records it.  Every later call is one graph launch.  ``graphs=False``
 runs the same functions eagerly; on the CPU there are no graphs.  A failed
 capture raises.  Each graph's fused-kernel launches are counted at capture
 and added to the kernels' counters at every replay.  The prefill, the
-extend / shrink of the rings around the wavefront and the vocoders run
-eagerly.
+extend / shrink (or rotation) of the rings around the wavefront and the
+vocoders run eagerly.
 
 Engines of the wavefront: ``kernel=True`` runs each resnet + transformer
 group of the estimator as one ``fused_tf_group`` launch
@@ -55,6 +79,7 @@ and the finalize hop keep the per-layer encoder step.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Callable, Dict, List, Optional, Tuple
@@ -66,11 +91,12 @@ from ..models.flow.kv_stream import (
     dyn_slice, encoder_hop_kernel, est_cache_from_flat, est_cache_to_flat,
     extend_rings_for_fused, fuse_qkv_params, group_encoder_params,
     group_estimator_params, init_est_pool, init_kv_cache,
-    kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables,
+    kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables, rotate_rings,
     shrink_rings_from_fused, spk_embedding, ungroup_est_flat, wave_step,
     wave_step_kernel)
 from ..ops.fused_block import kernel_limit, launch_fused_tf_group
 from ..ops.fused_conformer import launch_fused_conformer_group
+from ..utils.flops import DispatchMeter
 from .bulk_voc import BulkVocoder
 
 # the wrappers whose launch counts a replayed graph adds to
@@ -92,25 +118,38 @@ def estimator_kernel_limit(est_cfg, cf: int, rp: int,
     return None
 
 
+def _pcm16(wav: torch.Tensor) -> torch.Tensor:
+    """16-bit PCM on the device; the cast truncates toward zero."""
+    return (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+
+
 class StepGraphs:
     """Steps on persistent state, replayed as CUDA graphs.  ``run(key, fn)``
     runs ``fn`` eagerly when graphs are off (or the device is not CUDA);
     else the first call of each ``key`` runs it eagerly on the capture
     stream and captures it, and later calls replay the graph.  Each graph's
     fused-kernel launches are counted at capture and added to the kernels'
-    counters at every replay.  A failed capture raises.  Every graph is
+    counters at every replay.  A failed capture raises.  With a ``meter``
+    enabled (``utils/flops.py``), each key's first call runs eagerly inside
+    a FLOP tally and every call is counted.  Every graph is
     captured into one memory pool, so their temporaries share memory: a step
     writes its results into persistent buffers (``fn`` returns nothing) and
     the graphs replay one at a time on one stream."""
 
-    def __init__(self, device: torch.device, enabled: bool):
+    def __init__(self, device: torch.device, enabled: bool,
+                 meter: Optional[DispatchMeter] = None):
         self.device = device
         self.enabled = bool(enabled) and device.type == "cuda"
+        self.meter = meter
         self.graphs: Dict[tuple, tuple] = {}   # key -> (graph, launches)
         self._stream = None
         self._pool = None
 
     def run(self, key: tuple, fn: Callable[[], None]) -> None:
+        if self.meter is not None and self.meter.enabled:
+            ran, _ = self.meter.note(key, fn)
+            if ran:                    # the key's first metered call: eager
+                return
         if not self.enabled:
             fn()
             return
@@ -191,15 +230,19 @@ class KVStreamDecoder:
     one stream.  Geometry: ``block_size`` tokens per hop, a ring of
     ``ring_tokens`` tokens of left context, streams of at most
     ``token_cap`` tokens; ``fused`` selects the write-then-attend wavefront
-    (needs ``ring_tokens % block_size == 0``, the shared-offset write
-    geometry); ``graphs`` replays the wavefront iteration and the per-hop
-    step as CUDA graphs on a CUDA device."""
+    (else the concat dataflow), ``write_mode="onehot"`` the per-row write
+    (the shared offset needs ``ring_tokens % block_size == 0``); ``graphs``
+    replays the wavefront iteration and the per-hop step as CUDA graphs on
+    a CUDA device."""
 
     def __init__(self, dec, prompt_token: np.ndarray,
                  prompt_feat: np.ndarray, embedding: np.ndarray,
                  block_size: int, ring_tokens: int = 35,
                  token_cap: int = 2048, fused: bool = True, kernel="auto",
-                 enc_kernel: bool = False, graphs: bool = True):
+                 enc_kernel: bool = False, graphs: bool = True,
+                 write_mode: str = "auto"):
+        if write_mode not in ("auto", "onehot"):
+            raise ValueError(f"write_mode {write_mode!r}: 'auto' or 'onehot'")
         self.dec = dec
         self.hop = block_size
         self.ring_tokens = ring_tokens
@@ -217,18 +260,19 @@ class KVStreamDecoder:
         self.s_steps = cfg.cfm.n_timesteps
         self.cf = block_size * self.ratio
         self._fused = bool(fused)
-        self._dus_ok = ring_tokens % block_size == 0
-        if self._fused and not self._dus_ok:
-            raise NotImplementedError(
-                f"ring_tokens {ring_tokens} is not a multiple of the hop "
-                f"{block_size}: the one-hot fused write (write_mode="
-                f"'onehot') is not ported")
+        self._dataflow = "fused" if self._fused else "concat"
+        # the shared-offset write needs the ring a multiple of the hop; else
+        # (or with write_mode="onehot") each row writes at its own position
+        self._dus_ok = (write_mode == "auto"
+                        and ring_tokens % block_size == 0)
+        self._write = "dus" if self._dus_ok else "onehot"
         # prompt alignment of the shared write offset (frames % hop)
         self._align = (self.p * self.ratio) % self.cf
         est_cfg = cfg.estimator
         why = estimator_kernel_limit(
             est_cfg, self.cf, ring_tokens * self.ratio + self.cf, self.est_dt)
-        kernel_ok = self._fused and est_cfg.act_fn == "gelu" and not why
+        kernel_ok = (self._fused and self._dus_ok
+                     and est_cfg.act_fn == "gelu" and not why)
         if kernel == "auto":
             kernel = kernel_ok
         if kernel and not kernel_ok:
@@ -236,9 +280,11 @@ class KVStreamDecoder:
                              "shared-offset geometry and exact GELU"
                              + (f"; {why}" if why else ""))
         self._kernel = bool(kernel)
-        self._steps = StepGraphs(self.dev, graphs)
+        self.meter = DispatchMeter()
+        self._steps = StepGraphs(self.dev, graphs, self.meter)
         self._graphs = self._steps.enabled
         self._graph = self._steps.graphs
+        self._copier = None            # the D2H copy stream, made at use
 
         self._prompt_tok = torch.as_tensor(np.asarray(prompt_token),
                                            dtype=torch.long).to(self.dev)
@@ -286,13 +332,20 @@ class KVStreamDecoder:
         # layout of the unfused engine as views of them; the canonical conv
         # caches are views of the same conv caches
         rows = self.s_steps * 2
-        rp = self.ring_tokens * self.ratio + self.cf
+        rp = self.ring_tokens * self.ratio + (self.cf if self._fused else 0)
         self._ext_g = init_est_pool(cfg, rows, rp, self.est_dt, dev)
         self._ext = ungroup_est_flat(self._ext_g, est_cfg)
+        if not self._fused:
+            # concat dataflow: the wavefront's flat rings are the canonical
+            # ones, so the canonical rings are views of them
+            cache["est"]["kv"] = tuple(
+                a.view((self.s_steps, 2) + tuple(a.shape[1:]))
+                for a in self._ext["kv"])
         cache["est"]["convs"] = est_cache_from_flat(
             {"kv": (), "convs": self._ext["convs"]}, self.s_steps)["convs"]
         self._cache = cache
-        self._rot_dev = torch.tensor(self._rot(rp), device=dev)
+        self._rot_dev = torch.tensor(
+            self._rot(rp) if self._dus_ok else [0] * rows, device=dev)
 
         s, cf, n_mel = self.s_steps, self.cf, self.n_mel
         sd = (torch.float32 if cfg.cfm.solver_dtype == "float32"
@@ -401,7 +454,8 @@ class KVStreamDecoder:
         else:
             exit_mel, x_w, mu_w = wave_step(
                 flow.decoder, self._fw, self._x_w, self._mu_w, mu_new,
-                self._spks, self._ext, self._w, self._k, self._base)
+                self._spks, self._ext, self._w, self._k, self._base,
+                self._dataflow, self._write)
         self._x_w.copy_(x_w)
         self._mu_w.copy_(mu_w)
         self._mels.index_copy_(0, self._w.reshape(1), exit_mel[None])
@@ -412,9 +466,10 @@ class KVStreamDecoder:
         """The prompt as one chunk, with the first ``la`` stream tokens as
         lookahead; warms every ring, emits nothing.  Eager."""
         self._own(token_buf, cache)
-        _, new = kv_flow_step(self.dec.flow, self._fw, self._prompt_tok,
-                              token_buf[:, :self.la], self._prompt_feat,
-                              self._emb, cache, self._pe_tok, self._pe_mel)
+        _, new = self.meter.call(("prefill",), lambda: kv_flow_step(
+            self.dec.flow, self._fw, self._prompt_tok,
+            token_buf[:, :self.la], self._prompt_feat, self._emb, cache,
+            self._pe_tok, self._pe_mel))
         self._commit(new["enc"], new["n_tok"])
         return cache
 
@@ -438,9 +493,11 @@ class KVStreamDecoder:
     def _voc(self, emit_mel, voc: KVVocState, first: bool, finalize: bool):
         """HiFT with the mel/source caches and the Hamming cross-fade.
         Returns (wav chunk (1, n) f32, new state)."""
-        return vocode_hop(self.dec.hift, self._fade_in, self._fade_out,
-                          self.mel_cache_len, self.dt, emit_mel, voc, first,
-                          finalize)
+        return self.meter.call(
+            ("voc", first, finalize, emit_mel.shape[1]),
+            lambda: vocode_hop(self.dec.hift, self._fade_in, self._fade_out,
+                               self.mel_cache_len, self.dt, emit_mel, voc,
+                               first, finalize))
 
     def schedule(self, n_tokens: int) -> List[Tuple[int, bool]]:
         """[(emit_tokens, finalize), ...]: steady hops while a full hop plus
@@ -479,19 +536,13 @@ class KVStreamDecoder:
         return [(s * self.cf) % rp for s in range(self.s_steps)
                 for _ in range(2)]
 
-    @torch.inference_mode()
-    def _flow_mels_wave(self, token_buf, cache, plan):
-        """The wavefront: the encoder per steady hop, one batched estimator
-        forward per iteration, over the k + S - 1 live iterations, each one
-        ``_wave_step_impl`` (a graph replay); the rings are extended before
-        and shrunk after, in place.  Then the finalize tail through the
-        per-hop step.  Returns (mel (1, T, n_mel) f32, cache)."""
-        if not self._fused:
-            raise NotImplementedError("the concat-dataflow wavefront is not "
-                                      "ported: use fused=True")
-        self._own(token_buf, cache)
-        flow, cf, s_steps = self.dec.flow, self.cf, self.s_steps
-        k = sum(1 for _, fin in plan if not fin)
+    def _wave_enter(self, cache, k: int) -> None:
+        """The wavefront's entry: the x / mu waves and positions reset, the
+        rings into the wavefront's layout in place (the JAX package's
+        ``_prep_est``): extended to ring + chunk for the fused dataflow
+        (rotated for the shared-offset write), rotated in place for the
+        concat dataflow's shared-offset write."""
+        flow, cf = self.dec.flow, self.cf
         base = self.p * self.ratio
         if self._spks is None:
             self._spks = spk_embedding(flow, self._emb)
@@ -502,28 +553,177 @@ class KVStreamDecoder:
         self._w.zero_()
         self._k.fill_(k)
         self._base.fill_(base)
-        canonical = est_cache_to_flat(cache["est"])
-        extend_rings_for_fused(canonical, base, cf, self._rot_dev,
-                               out=self._ext["kv"])
-        for w in range(k + s_steps - 1):
+        if self._fused:
+            extend_rings_for_fused(est_cache_to_flat(cache["est"]), base, cf,
+                                   self._rot_dev, out=self._ext["kv"])
+        elif self._dus_ok:
+            for ring in self._ext["kv"]:
+                rotate_rings(ring, self._rot_dev)
+
+    def _wave_exit(self, cache, k: int) -> None:
+        """The inverse of ``_wave_enter`` (the JAX package's ``_fin_est``):
+        the rings back to their canonical layout after k steady chunks."""
+        if self._fused:
+            shrink_rings_from_fused(
+                self._ext, (self.p + k * self.hop) * self.ratio, self.cf,
+                self._rot_dev, out=est_cache_to_flat(cache["est"])["kv"])
+        elif self._dus_ok:
+            for ring in self._ext["kv"]:
+                rotate_rings(ring, self._rot_dev, inverse=True)
+
+    def _wave_iters(self, k: int, lo: int, hi: int) -> None:
+        """Wavefront iterations lo .. hi - 1 of a stream with k steady
+        chunks, each one ``_wave_step_impl`` (a graph replay)."""
+        for w in range(lo, hi):
             self._run(("wave", w < k),
                       functools.partial(self._wave_step_impl, w < k))
-        shrink_rings_from_fused(self._ext, base + k * cf, cf, self._rot_dev,
-                                out=canonical["kv"])
+
+    @torch.inference_mode()
+    def _flow_mels_wave(self, token_buf, cache, plan):
+        """The wavefront: the encoder per steady hop, one batched estimator
+        forward per iteration, over the k + S - 1 live iterations; the rings
+        are brought into the wavefront's layout before and back after, in
+        place.  Then the finalize tail through the per-hop step.  Returns
+        (mel (1, T, n_mel) f32, cache)."""
+        self._own(token_buf, cache)
+        s_steps = self.s_steps
+        k = sum(1 for _, fin in plan if not fin)
+        self._wave_enter(cache, k)
+        self._wave_iters(k, 0, k + s_steps - 1)
+        self._wave_exit(cache, k)
         mels = ([self._mels[s_steps - 1:s_steps - 1 + k].reshape(
-            1, k * cf, self.n_mel)] if k else [])
+            1, k * self.cf, self.n_mel)] if k else [])
         if plan and plan[-1][1]:
             mel, cache = self._hop(token_buf, cache, plan[-1][0], True)
             mels.append(mel)
         return torch.cat(mels, dim=1), cache
 
+    # ------------------------------------------------------ segmented
+    def _seg_sizes(self, need: int, seg_iters: int,
+                   grow: bool = False) -> List[int]:
+        """Segment sizes covering ``need`` wavefront iterations (the JAX
+        package's schedule): ``seg_iters`` iterations a segment, the tail in
+        multiples of min(16, seg_iters).  ``grow``: a first segment of S
+        iterations (the first chunk leaves as early as the ODE's depth
+        allows), then 8, doubling up to ``seg_iters``.  The sizes set the
+        segments' bounds; the session runs only the live iterations."""
+        q = min(16, seg_iters)
+        sizes, r = [], need
+        if grow:
+            first = min(self.s_steps, seg_iters)
+            sizes.append(first)
+            r -= first
+            nxt = 8
+            while r > max(q, nxt):
+                sizes.append(nxt)
+                r -= nxt
+                nxt = min(nxt * 2, seg_iters)
+        while r > 0:
+            size = seg_iters if r >= seg_iters else q * ((r + q - 1) // q)
+            sizes.append(size)
+            r -= size
+        return sizes
+
+    def _segment_wavs(self, token_buf, cache, plan, sizes):
+        """Yields each segment's wav (1, samples) f32 on the device: the
+        segment's wavefront iterations (the session's own steps and engine,
+        graph replays on CUDA), then its chunks through the bulk vocoder,
+        carrying the vocoder's tails to the next segment; the last segment
+        adds the finalize tail.  Joined, the segments are the unsegmented
+        stream.  Reads nothing back to the host."""
+        self._own(token_buf, cache)
+        s_steps, cf, c = self.s_steps, self.cf, self.mel_cache_len
+        k = sum(1 for _, fin in plan if not fin)
+        has_tail = bool(plan and plan[-1][1])
+        need = k + s_steps - 1
+        if self._bulk is None:
+            self._bulk = BulkVocoder(self.dec, cf)
+        self._wave_enter(cache, k)
+        done, w0 = 0, 0
+        s_tail = w_tail = mel_ctx = None
+        for si, size in enumerate(sizes):
+            self._wave_iters(k, w0, min(w0 + size, need))
+            lo, hi = max(w0, s_steps - 1), min(w0 + size, need)
+            n_new = max(hi - lo, 0)
+            last = si == len(sizes) - 1
+            w0 += size
+            if n_new == 0 and not last:
+                continue
+            seg_mel = self._mels[lo:hi].reshape(1, n_new * cf, self.n_mel)
+            parts = [seg_mel]
+            tf, n_hops = 0, n_new
+            if last:
+                self._wave_exit(cache, k)
+                if has_tail:
+                    tail_mel, _ = self._hop(token_buf, cache, plan[-1][0],
+                                            True)
+                    parts.append(tail_mel)
+                    tf = tail_mel.shape[1]
+                else:
+                    # the stream's last steady chunk is its finalize hop
+                    tf, n_hops = cf, n_new - 1
+            if done == 0:
+                key = ("voc_first", n_hops - 1, tf, not last)
+                wav, s_tail, w_tail = self.meter.call(
+                    key, lambda: self._bulk.vocode_first(
+                        torch.cat(parts, dim=1), n_hops - 1, tf,
+                        hold=not last))
+            else:
+                key = ("voc_cont", n_hops, tf)
+                wav, s_tail, w_tail = self.meter.call(
+                    key, lambda: self._bulk.vocode_cont(
+                        torch.cat([mel_ctx] + parts, dim=1), s_tail, w_tail,
+                        n_hops, tf))
+            mel_ctx = seg_mel[:, -c:]
+            done += n_new
+            yield wav
+
+    def _copy_back(self, wavs, total: int, output: str):
+        """Copies each device wav of ``wavs`` into one host buffer (1,
+        total) as it is enqueued (16-bit PCM quantized on the device for
+        ``output="int16"``): on CUDA into pinned memory on a copy stream,
+        each copy after an event of its wav.  Yields (host buffer, start,
+        end, copy-done event or None) as each copy is enqueued."""
+        cuda = self.dev.type == "cuda"
+        dtype = torch.int16 if output == "int16" else torch.float32
+        host = torch.empty((1, total), dtype=dtype, pin_memory=cuda)
+        if cuda and self._copier is None:
+            self._copier = torch.cuda.Stream(self.dev)
+        off = 0
+        for wav in wavs:
+            wav = _pcm16(wav) if output == "int16" else wav
+            end = off + wav.shape[1]
+            done = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+                self._copier.wait_event(ready)
+                with torch.cuda.stream(self._copier):
+                    host[:, off:end].copy_(wav, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                wav.record_stream(self._copier)
+            else:
+                host[:, off:end].copy_(wav)
+            yield host, off, end, done
+            off = end
+        if off != total:
+            raise RuntimeError(f"the chunks hold {off} samples, not {total}")
+
+    def _fetch(self, wavs, total: int, output: str) -> np.ndarray:
+        """The stream of ``wavs`` on the host: every copy enqueued, then one
+        wait for the last."""
+        done = None
+        for host, _, _, done in self._copy_back(wavs, total, output):
+            pass
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
     # ----------------------------------------------------------- decode
-    @torch.inference_mode()
-    def stream_decode(self, tokens: np.ndarray, bulk_voc: bool = True,
-                      wavefront: bool = True) -> np.ndarray:
-        """Whole-stream decode of (1, n) tokens -> (1, n*ratio*u) f32 wav:
-        one token upload, prompt prefill, the flow (wavefront or per hop),
-        then bulk or per-hop vocoding, one fetch."""
+    def _start(self, tokens: np.ndarray):
+        """One token upload, a fresh state, the prompt prefill: (token
+        buffer, cache, vocoder state, plan)."""
         tokens = np.asarray(tokens)
         if tokens.ndim != 2 or tokens.shape[0] != 1:
             raise NotImplementedError("one stream per session; lockstep "
@@ -534,20 +734,104 @@ class KVStreamDecoder:
         cache, voc = self.init_state()
         if self.p:
             cache = self._prefill(token_buf, cache)
-        plan = self.schedule(tokens.shape[1])
+        return token_buf, cache, voc, self.schedule(tokens.shape[1])
+
+    def _hop_wavs(self, token_buf, cache, voc, plan):
+        """Yields each hop's wav through the per-hop flow step and the
+        per-hop vocoder."""
+        for i, (emit_tokens, finalize) in enumerate(plan):
+            mel, cache = self._hop(token_buf, cache, emit_tokens, finalize)
+            seg, voc = self._voc(mel, voc, first=i == 0, finalize=finalize)
+            yield seg
+
+    @torch.inference_mode()
+    def stream_decode(self, tokens: np.ndarray, output: str = "float32",
+                      bulk_voc: bool = True, wavefront: bool = True,
+                      segmented: bool = False,
+                      seg_iters: int = 32) -> np.ndarray:
+        """Whole-stream decode of (1, n) tokens -> (1, n*ratio*u) wav: one
+        token upload, prompt prefill, the flow (wavefront or per hop), then
+        bulk or per-hop vocoding, one copy back.  ``output="int16"``
+        quantizes on the device to 16-bit PCM (``_pcm16`` of the f32
+        stream).  ``segmented`` runs the wavefront in segments of
+        ``seg_iters`` iterations, each vocoded and copied back as it
+        leaves, the copies overlapping the later segments."""
+        if output not in ("float32", "int16"):
+            raise ValueError(f"output {output!r}: 'float32' or 'int16'")
+        token_buf, cache, voc, plan = self._start(tokens)
+        n_steady = sum(1 for _, fin in plan if not fin)
         if bulk_voc and len(plan) >= 2:
-            n_steady = sum(1 for _, fin in plan if not fin)
+            if wavefront and n_steady >= 2 and segmented:
+                sizes = self._seg_sizes(n_steady + self.s_steps - 1,
+                                        seg_iters)
+                return self._fetch(
+                    self._segment_wavs(token_buf, cache, plan, sizes),
+                    self._samples(plan), output)
             if wavefront and n_steady >= 2:
                 mel, _ = self._flow_mels_wave(token_buf, cache, plan)
             else:
                 mel, _ = self._flow_mels(token_buf, cache, plan)
             if self._bulk is None:
                 self._bulk = BulkVocoder(self.dec, self.cf)
-            wav = self._bulk.vocode(mel, [e * self.ratio for e, _ in plan])
-            return wav.cpu().numpy()
-        segs = []
-        for i, (emit_tokens, finalize) in enumerate(plan):
-            mel, cache = self._hop(token_buf, cache, emit_tokens, finalize)
-            seg, voc = self._voc(mel, voc, first=i == 0, finalize=finalize)
-            segs.append(seg)
-        return torch.cat(segs, dim=1).cpu().numpy()
+            frames = [e * self.ratio for e, _ in plan]
+            wav = self.meter.call(("bulk", tuple(frames)),
+                                  lambda: self._bulk.vocode(mel, frames))
+            return self._fetch([wav], wav.shape[1], output)
+        return self._fetch(self._hop_wavs(token_buf, cache, voc, plan),
+                           self._samples(plan), output)
+
+    def _samples(self, plan) -> int:
+        return sum(e for e, _ in plan) * self.ratio * (
+            self.dec.hift_cfg.total_upsample)
+
+    @torch.inference_mode()
+    def stream_chunks(self, tokens: np.ndarray, wavefront: bool = False,
+                      seg_iters: int = 32):
+        """Yields the stream's wav as float32 (1, samples) chunks, each as
+        soon as its copy to the host is done, while later chunks compute and
+        copy: the chunks are enqueued in turn, and after each one every
+        chunk whose copy has landed is yielded.  Default: one chunk per hop
+        (the per-hop flow step and vocoder).  ``wavefront=True``: the
+        segmented wavefront on the growing schedule (a first segment of S
+        iterations, then 8, doubling up to ``seg_iters``), one chunk per
+        segment.  The chunks joined are ``stream_decode``'s stream."""
+        token_buf, cache, voc, plan = self._start(tokens)
+        n_steady = sum(1 for _, fin in plan if not fin)
+        if wavefront and n_steady >= 2:
+            sizes = self._seg_sizes(n_steady + self.s_steps - 1, seg_iters,
+                                    grow=True)
+            wavs = self._segment_wavs(token_buf, cache, plan, sizes)
+        else:
+            wavs = self._hop_wavs(token_buf, cache, voc, plan)
+        pending = collections.deque()
+        for host, a, b, done in self._copy_back(wavs, self._samples(plan),
+                                                "float32"):
+            pending.append((a, b, done))
+            while pending and (pending[0][2] is None
+                               or pending[0][2].query()):
+                a, b, _ = pending.popleft()
+                yield host.numpy()[:, a:b]
+        for a, b, done in pending:
+            done.synchronize()
+            yield host.numpy()[:, a:b]
+
+    def warmup(self, n_tokens: int) -> None:
+        """Runs (and on CUDA captures) the steps of an n-token stream."""
+        self.stream_decode(np.zeros((1, n_tokens), np.int32))
+
+    def program_flops(self, n_tokens: int, **decode_kw) -> float:
+        """The FLOPs of one ``stream_decode(n_tokens, **decode_kw)`` as the
+        port runs it: one decode of n zero tokens through the session's
+        meter (``utils/flops.py``), each step's FLOPs counted in one eager
+        run and multiplied by its dispatches, the kernels by the JAX
+        package's formulas.  The live wavefront iterations only (the JAX
+        package's scan also ran its bucket's dead ones); the speaker
+        projection, made once per session, is not counted."""
+        self.meter.reset()
+        self.meter.enabled = True
+        try:
+            self.stream_decode(np.zeros((1, n_tokens), np.int32),
+                               **decode_kw)
+        finally:
+            self.meter.enabled = False
+        return self.meter.total_flops()

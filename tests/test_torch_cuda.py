@@ -818,3 +818,93 @@ def test_device_session_replays_without_host_sync(card, fused):
         torch.cuda.set_sync_debug_mode("default")
     assert len(sess._steps.graphs) == len(set(keys))
     np.testing.assert_array_equal(wav.cpu().numpy(), want)
+
+
+# ------------------------------------------- the KV session's API (A4, A13)
+def _pcm16_np(wav):
+    from moss_speech_decoder_cosy_torch.pipeline.kv_session import _pcm16
+    return _pcm16(torch.from_numpy(wav)).numpy()
+
+
+def test_kv_int16_and_segmented_streams_on_card(card):
+    """Graphed, f32: ``output="int16"`` is ``_pcm16`` of the f32 stream; the
+    segmented decode (3 iterations a segment) and ``stream_chunks(
+    wavefront=True)`` give the unsegmented stream bit for bit (the bulk
+    vocoder runs every batch of hop windows at one shape), in f32 and in
+    int16."""
+    kv = _tiny_kv_sessions(card, False)[0]
+    tokens = np.random.RandomState(7).randint(
+        0, kv.dec.flow_cfg.vocab_size, (1, 30))
+    f32 = kv.stream_decode(tokens)
+    i16 = kv.stream_decode(tokens, output="int16")
+    np.testing.assert_array_equal(i16, _pcm16_np(f32))
+    np.testing.assert_array_equal(
+        kv.stream_decode(tokens, segmented=True, seg_iters=3), f32)
+    np.testing.assert_array_equal(
+        kv.stream_decode(tokens, output="int16", segmented=True,
+                         seg_iters=3), i16)
+    chunks = list(kv.stream_chunks(tokens, wavefront=True, seg_iters=4))
+    assert len(chunks) >= 2
+    np.testing.assert_array_equal(np.concatenate(chunks, axis=1), f32)
+
+
+def test_kv_segments_enqueue_without_host_sync(card):
+    """A segmented decode's segments (wavefront replays, the finalize hop
+    and each segment's bulk vocode) read nothing back to the host."""
+    kv = _tiny_kv_sessions(card, False)[0]
+    tokens = np.random.RandomState(8).randint(
+        0, kv.dec.flow_cfg.vocab_size, (1, 30))
+    want = kv.stream_decode(tokens, segmented=True, seg_iters=3)
+    with torch.inference_mode():
+        buf, cache, _, plan = kv._start(tokens)
+        k = sum(1 for _, fin in plan if not fin)
+        sizes = kv._seg_sizes(k + kv.s_steps - 1, 3)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wavs = list(kv._segment_wavs(buf, cache, plan, sizes))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    got = torch.cat(wavs, dim=1).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [dict(fused=False),
+                                dict(write_mode="onehot"),
+                                dict(ring_tokens=7)],
+                         ids=["concat", "onehot", "ring_7"])
+def test_graphed_dataflow_options_match_eager(card, kw):
+    """The concat dataflow and the one-hot fused write (also at a ring that
+    is not a multiple of the hop), graphed against eager, f32, twice so the
+    second pass replays every graph."""
+    kw = dict(dict(ring_tokens=6), **kw)
+    ring = kw.pop("ring_tokens")
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+    flow_cfg, hift_cfg = C.tiny_flow_config(), C.tiny_hift_config()
+    dec = AudioDecoder(flow_cfg, hift_cfg, *seeded_states(flow_cfg, hift_cfg),
+                       C.PipelineConfig(block_size=3, mel_cache_len=2,
+                                        max_token_len=9), device=card)
+    graphed, eager = [dec.kv_stream_decoder(ring_tokens=ring, token_cap=64,
+                                            graphs=g, **kw)
+                      for g in (True, False)]
+    assert not graphed._kernel and graphed._graphs
+    tokens = np.random.RandomState(9).randint(0, flow_cfg.vocab_size,
+                                              (1, 30))
+    wavs = [[s.stream_decode(tokens) for _ in range(2)]
+            for s in (graphed, eager)]
+    assert ("wave", True) in graphed._graph
+    np.testing.assert_array_equal(wavs[0][1], wavs[0][0])
+    np.testing.assert_allclose(wavs[0][1], wavs[1][0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("enc_kernel", [False, True],
+                         ids=["per_layer_encoder", "enc_kernel"])
+def test_program_flops_same_on_card_and_cpu(card, enc_kernel):
+    """The kernels count their analytic FLOPs on the card (a ctypes launch)
+    and on the CPU (their plain versions), so a session counts the same
+    FLOPs on both."""
+    got = _tiny_kv_sessions(card, enc_kernel)[0].program_flops(30)
+    want = _tiny_kv_sessions(torch.device("cpu"),
+                             enc_kernel)[0].program_flops(30)
+    assert got == want > 0

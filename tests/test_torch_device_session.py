@@ -34,7 +34,7 @@ from moss_speech_decoder_cosy_tpu.utils.config import (
     PipelineConfig, tiny_flow_config, tiny_hift_config)
 from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder as TDecoder
 from moss_speech_decoder_cosy_torch.pipeline.device_session import (
-    DeviceStreamDecoder, stream_chunks)
+    stream_chunks)
 from moss_speech_decoder_cosy_torch.utils import config as tcfg
 from moss_speech_decoder_cosy_torch.weights import (
     flow_state_from_jax, hift_state_from_jax)
@@ -274,13 +274,6 @@ def test_schedule_matches_jax(setup, n, p, hop):
     want = jdec.device_stream_decoder(*prompt, block_size=hop).schedule(n)
     got = tdec.device_stream_decoder(*prompt, block_size=hop).schedule(n)
     assert got == want
-
-
-def test_program_flops_names_a13(setup):
-    sess = setup["session"]("torch")
-    assert isinstance(sess, DeviceStreamDecoder)
-    with pytest.raises(NotImplementedError, match="A13"):
-        sess.program_flops(30)
 
 
 def test_batch_mismatch_raises(setup):

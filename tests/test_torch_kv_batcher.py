@@ -16,7 +16,16 @@ port's NSF source gets the JAX draws.
   through the port's batcher with the unfused and the kernel engine,
   against the JAX batcher (its XLA engine): each stream's wav within 2e-5,
   the JAX test's bound.
-- The kernel gate and the options that are not ported."""
+- The concat lanes (``fused=False``: attention over [ring ++ chunk], the
+  chunk written after the estimator, canonical-capacity rings): one tick
+  against JAX ``KVLaneWaveStep(fused=False)`` and the staggered protocol
+  against the JAX batcher with ``fused=False``, both within 2e-5.
+- The dispatch meter: a second identical run doubles the dispatches and
+  the FLOPs (the JAX package's ``test_dispatch_meter_aggregate_flops``).
+- The kernel gate and the option that is not ported.
+
+Torch runs on one thread here: tiny CPU decodes run ~20x slower on its
+default thread pool when the suite's workers load every core."""
 
 import dataclasses
 
@@ -106,6 +115,14 @@ def staggered(b, streams):
             ((chunks, la), (chunks, lb), (chunks_c, lc))]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg = dataclasses.replace(tiny_flow_config(),
@@ -145,21 +162,29 @@ def _batcher(dec, **kw):
 
 @pytest.fixture(scope="module")
 def jax_staggered(setup):
-    """The JAX batcher (XLA engine) through the staggered protocol, once."""
-    return staggered(_batcher(setup["jdec"], kernel=False),
-                     setup["streams"])
+    """The JAX batcher (XLA engine) through the staggered protocol, once per
+    dataflow."""
+    got = {}
+
+    def run(fused=True):
+        if fused not in got:
+            got[fused] = staggered(_batcher(setup["jdec"], kernel=False,
+                                            fused=fused), setup["streams"])
+        return got[fused]
+    return run
 
 
 # ------------------------------------------------------------- one tick
-def _tick_inputs(cfg, seed):
+def _tick_inputs(cfg, seed, ring=RING + HOP):
     """Random lanes-tick inputs of three lanes: lane 0 stalled (w == avail),
     lane 1 draining (avail = k_total + S - 1, only its last slot valid),
-    lane 2 in ramp-up (w = 1); extended flat rings of rp = (7 + 2) * 4
-    slots with random contents, so every slot a row may attend counts."""
+    lane 2 in ramp-up (w = 1); flat rings of ``ring`` tokens (the fused
+    dataflow's extended rp = (7 + 2) * 4 slots by default) with random
+    contents, so every slot a row may attend counts."""
     s, lanes, cf, d = cfg.cfm.n_timesteps, 3, HOP * cfg.token_mel_ratio, \
         cfg.output_size
     rng = np.random.RandomState(seed)
-    est = J.init_kv_cache(cfg, RING + HOP, batch=lanes)["est"]
+    est = J.init_kv_cache(cfg, ring, batch=lanes)["est"]
     est = J.est_cache_to_flat(jax.tree.map(lambda a: jnp.asarray(
         rng.randn(*a.shape).astype(np.float32)), est))
     big = 1 << 30
@@ -190,12 +215,16 @@ def _close(got, want, what):
                                    atol=TOL, rtol=0, err_msg=what)
 
 
-@pytest.mark.parametrize("kernel", [False, True], ids=["unfused", "kernel"])
-def test_lanes_tick_matches_jax(setup, kernel):
-    """One tick: the unfused engine against JAX ``KVLaneWaveStep``, the
+@pytest.mark.parametrize("kernel,fused", [(False, True), (True, True),
+                                          (False, False)],
+                         ids=["unfused", "kernel", "concat"])
+def test_lanes_tick_matches_jax(setup, kernel, fused):
+    """One tick: the unfused engine against JAX ``KVLaneWaveStep`` (fused or
+    concat dataflow, canonical-capacity rings for the concat one), the
     kernel engine against ``wave_lanes_step_pallas`` (interpret mode)."""
     cfg = setup["cfg"]
-    est, waves, sc = _tick_inputs(cfg, 3 + kernel)
+    est, waves, sc = _tick_inputs(cfg, 3 + kernel + 2 * (not fused),
+                                  RING + HOP if fused else RING)
     jargs = [jnp.asarray(waves[k]) for k in ("x", "mu", "mu_buf", "spks")]
     jsc = [jnp.asarray(sc[k]) for k in ("w", "avail", "k_total", "base")]
     fparams = J.fuse_qkv_params(setup["jdec"].flow_params)
@@ -207,7 +236,7 @@ def test_lanes_tick_matches_jax(setup, kernel):
         jout = jout[:4] + (J.ungroup_est_flat(jout[4], cfg.estimator),
                            jout[5])
     else:
-        jout = J.KVLaneWaveStep(cfg, fused=True).apply(
+        jout = J.KVLaneWaveStep(cfg, fused=fused).apply(
             fparams, jargs[0], jargs[1], jargs[2], jargs[3], est, *jsc)
 
     flow = setup["tdec"].flow
@@ -226,7 +255,8 @@ def test_lanes_tick_matches_jax(setup, kernel):
                 est_g, *tsc)
             test = T.ungroup_est_flat(est_g, ecfg)
         else:
-            tout = T.wave_lanes_step(flow.decoder, fw, *targs, test, *tsc)
+            tout = T.wave_lanes_step(flow.decoder, fw, *targs, test, *tsc,
+                                     dataflow="fused" if fused else "concat")
     mel, ok, x, mu, w = tout
     assert np.array_equal(ok.numpy(), np.asarray(jout[1]))
     assert ok.tolist() == [False, True, False]
@@ -244,14 +274,18 @@ def test_lanes_tick_matches_jax(setup, kernel):
 
 
 # ----------------------------------------------------------- the protocol
-@pytest.mark.parametrize("kernel", [False, True], ids=["unfused", "kernel"])
-def test_staggered_lanes_match_jax_batcher(setup, jax_staggered, kernel):
-    b = _batcher(setup["tdec"], kernel=kernel)
+@pytest.mark.parametrize("kernel,fused", [(False, True), (True, True),
+                                          (False, False)],
+                         ids=["unfused", "kernel", "concat"])
+def test_staggered_lanes_match_jax_batcher(setup, jax_staggered, kernel,
+                                           fused):
+    b = _batcher(setup["tdec"], kernel=kernel, fused=fused)
     assert b._kernel is kernel and not b._graphs
+    assert b.rp == (RING + HOP * fused) * 4
     before = fb.launch_fused_tf_group.launches
     got = staggered(b, setup["streams"])
     assert fb.launch_fused_tf_group.launches == before   # the CPU: plain
-    for g, want, (_, _, _, toks) in zip(got, jax_staggered,
+    for g, want, (_, _, _, toks) in zip(got, jax_staggered(fused),
                                         setup["streams"]):
         assert g.shape == want.shape == (
             1, toks.shape[1] * 4 * tiny_hift_config().total_upsample)
@@ -306,15 +340,40 @@ def test_kernel_gate_asks_kernel_limit(setup, monkeypatch, est_dtype, hop,
                           token_cap=16)._kernel is True
 
 
-@pytest.mark.parametrize("kw,item", [(dict(ring_quant=True), "A3"),
-                                     (dict(fused=False), "A4")])
+@pytest.mark.parametrize("kw,item", [(dict(ring_quant=True), "A3")])
 def test_options_not_ported_raise(setup, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _batcher(setup["tdec"], **kw)
 
 
-def test_meter_not_ported_raises(setup):
-    b = _batcher(setup["tdec"])
-    for call in (lambda: b.meter, b.measured_flops):
-        with pytest.raises(NotImplementedError, match="A13"):
-            call()
+def test_concat_lanes_refuse_the_kernel_engine(setup):
+    assert _batcher(setup["tdec"], fused=False)._kernel is False
+    with pytest.raises(ValueError, match="fused=True"):
+        _batcher(setup["tdec"], fused=False, kernel=True)
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["unfused", "kernel"])
+def test_dispatch_meter_doubles_over_two_runs(setup, kernel):
+    """The meter counts every graphed step and eager call of a run; a
+    second identical run doubles the dispatches and the FLOPs, and nothing
+    is counted while it is off."""
+    streams = setup["streams"]
+    b = _batcher(setup["tdec"], kernel=kernel)
+
+    def run():
+        lane = b.admit(*streams[1][:3])
+        b.push(lane, streams[1][3])
+        b.finish(lane)
+        _drain(b, lane, {})
+
+    run()
+    assert b.meter.dispatches() == 0 and b.measured_flops() == 0
+    b.meter.enabled = True
+    run()
+    n1, f1 = b.meter.dispatches(), b.measured_flops()
+    assert n1 > 0 and f1 > 0
+    run()
+    b.meter.enabled = False
+    run()
+    assert b.meter.dispatches() == 2 * n1
+    assert b.measured_flops() == 2 * f1

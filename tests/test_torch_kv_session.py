@@ -20,7 +20,19 @@ Tolerances on the waveform:
 - 1e-5: bulk vocoding against the per-hop vocoder chain;
 - 0 (identical): one session decoding the same stream twice (its
   persistent buffers are reset in full), and the session's per-hop step at
-  its device n_tok against ``kv_flow_step`` with a host-int cache."""
+  its device n_tok against ``kv_flow_step`` with a host-int cache;
+- the concat dataflow (``fused=False``), the one-hot write
+  (``write_mode="onehot"``) and a ring that is not a multiple of the hop:
+  1e-4 against the JAX session with the same option, 1e-5 against the
+  port's default (fused, shared-offset) session;
+- the segmented wavefront (``segmented=True``) and ``stream_chunks``:
+  equal to the unsegmented stream (1e-6 on a promptless session, whose
+  reference is the JAX session), and the 16-bit PCM output
+  (``output="int16"``) equal to ``_pcm16`` of the f32 stream and, segmented,
+  to the unsegmented int16 stream.
+
+Torch runs on one thread here: tiny CPU decodes run ~20x slower on its
+default thread pool when the suite's workers load every core."""
 
 import numpy as np
 import pytest
@@ -36,6 +48,7 @@ from moss_speech_decoder_cosy_tpu.utils.config import (
 from moss_speech_decoder_cosy_torch.ops import fused_block as fb
 from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
 from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder as TDecoder
+from moss_speech_decoder_cosy_torch.pipeline.kv_session import _pcm16
 from moss_speech_decoder_cosy_torch.utils import config as tcfg
 from moss_speech_decoder_cosy_torch.weights import (
     flow_state_from_jax, hift_state_from_jax)
@@ -49,6 +62,14 @@ def jax_draws(harmonics, length, device):
     noise = jax.random.normal(k_noise, (1, length, harmonics), jnp.float32)
     return (torch.from_numpy(np.array(rand_ini)).to(device),
             torch.from_numpy(np.array(noise)).to(device))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -119,6 +140,17 @@ def setup():
                 wave_stepped=False))
         return wavs["jax_enc"]
 
+    def want_option(**kw):
+        """The JAX session's default decode with the option ``kw``."""
+        key = ("jax",) + tuple(sorted(kw.items()))
+        if key not in wavs:
+            kw = dict(dict(block_size=HOP, ring_tokens=RING, token_cap=64),
+                      **kw)
+            wavs[key] = np.asarray(jdec.kv_stream_decoder(
+                tokens[:, :P], prompt_feat, emb, **kw).stream_decode(
+                    tokens[:, P:]))
+        return wavs[key]
+
     def want_stepped():
         """The JAX session's stepped wavefront (one jitted iteration per
         step, device scalars), on the same session as ``want``."""
@@ -130,7 +162,8 @@ def setup():
 
     return dict(want=want, session=session, decode=decode,
                 want_enc_kernel=want_enc_kernel, want_stepped=want_stepped,
-                dec=tdec, tokens=tokens)
+                want_option=want_option, dec=tdec, tokens=tokens,
+                jdec=jdec)
 
 
 def test_wavefront_matches_jax_wavefront(setup):
@@ -249,7 +282,7 @@ def test_enc_kernel_matches_per_layer_encoder(setup):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(batch=2), "A3"), (dict(ring_quant=True), "A3"),
-    (dict(write_mode="onehot"), "onehot"), (dict(stacked=True), "stacked")])
+    (dict(stacked=True), "stacked")])
 def test_options_not_ported_raise(setup, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         setup["session"](**kw)
@@ -302,3 +335,124 @@ def test_auto_engine_avoids_what_the_kernel_cannot_lay_out(setup, monkeypatch,
     if not fits:
         with pytest.raises(ValueError, match="shared memory"):
             setup["session"](kernel=True, **kw)
+
+
+OPTIONS = {"concat": dict(fused=False),
+           "concat_onehot": dict(fused=False, write_mode="onehot"),
+           "onehot": dict(write_mode="onehot"),
+           "ring_7": dict(ring_tokens=7)}
+
+
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_dataflow_options_match_jax_and_the_default(setup, name):
+    """The concat dataflow (attention over [ring ++ chunk], the chunk
+    written after the estimator: at one shared offset under rotated rings,
+    or one-hot per row) and the fused one-hot write (``write_mode=
+    "onehot"``, or a ring of 7 tokens at hop 3): each against the JAX
+    session with the same option and against the port's default session.
+    Each runs the unfused engine, as in the JAX package."""
+    kw = OPTIONS[name]
+    kv = setup["session"](**kw)
+    assert not kv._kernel
+    assert kv._dataflow == ("concat" if "fused" in kw else "fused")
+    assert kv._write == ("dus" if name == "concat" else "onehot")
+    got = kv.stream_decode(setup["tokens"][:, P:])
+    want = setup["want_option"](**kw)
+    assert got.shape == want.shape and np.abs(want).max() > 0.05
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    if name != "ring_7":
+        np.testing.assert_allclose(got, setup["decode"](), atol=1e-5,
+                                   rtol=0)
+
+
+def test_kernel_engine_needs_the_fused_shared_offset_geometry(setup):
+    for kw in OPTIONS.values():
+        with pytest.raises(ValueError, match="kernel engine"):
+            setup["session"](kernel=True, **kw)
+    with pytest.raises(ValueError, match="write_mode"):
+        setup["session"](write_mode="dus")
+
+
+@pytest.fixture(scope="module")
+def decoded(setup):
+    """One session's unsegmented stream, f32 and int16."""
+    kv = setup["session"]()
+    stream = setup["tokens"][:, P:]
+    return dict(kv=kv, stream=stream, f32=kv.stream_decode(stream),
+                i16=kv.stream_decode(stream, output="int16"))
+
+
+@pytest.mark.parametrize("path", ["wavefront", "per_hop", "segmented"])
+def test_int16_output_is_pcm16_of_the_float_stream(setup, decoded, path):
+    kw = {"wavefront": {}, "per_hop": dict(bulk_voc=False),
+          "segmented": dict(segmented=True, seg_iters=3)}[path]
+    kv, stream = decoded["kv"], decoded["stream"]
+    f32 = kv.stream_decode(stream, **kw)
+    i16 = kv.stream_decode(stream, output="int16", **kw)
+    assert i16.dtype == np.int16 and i16.shape == f32.shape
+    np.testing.assert_array_equal(i16, _pcm16(torch.from_numpy(f32)).numpy())
+    with pytest.raises(ValueError, match="output"):
+        kv.stream_decode(stream, output="int8")
+
+
+@pytest.mark.parametrize("seg_iters", [2, 3, 5, 16])
+def test_segmented_decode_matches_unsegmented(decoded, seg_iters):
+    """The wavefront in segments, each vocoded with the carried tails:
+    sizes that leave segments with no finished chunk, a first segment with
+    one chunk, and one wider than the tail bucket.  The bulk vocoder runs
+    its hop windows in batches of one shape, so the segmented stream is the
+    unsegmented one bit for bit, in f32 and in int16."""
+    kv, stream = decoded["kv"], decoded["stream"]
+    sizes = kv._seg_sizes(10 + kv.s_steps - 1, seg_iters)
+    assert sum(sizes) >= 13 and (len(sizes) > 1 or seg_iters == 16)
+    got = kv.stream_decode(stream, segmented=True, seg_iters=seg_iters)
+    np.testing.assert_array_equal(got, decoded["f32"])
+    np.testing.assert_array_equal(
+        kv.stream_decode(stream, output="int16", segmented=True,
+                         seg_iters=seg_iters), decoded["i16"])
+
+
+def test_segmented_decode_without_a_prompt(setup):
+    tdec = setup["dec"]
+    kv = tdec.kv_stream_decoder(block_size=HOP, ring_tokens=RING,
+                                token_cap=64)
+    stream = setup["tokens"][:, P:]
+    want = kv.stream_decode(stream)
+    np.testing.assert_allclose(
+        kv.stream_decode(stream, segmented=True, seg_iters=3), want,
+        atol=1e-6, rtol=0)
+    jkv = setup["jdec"].kv_stream_decoder(block_size=HOP, ring_tokens=RING,
+                                          token_cap=64)
+    np.testing.assert_allclose(want, np.asarray(jkv.stream_decode(stream)),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("seg_iters", [4, 8])
+def test_stream_chunks_wavefront_join_to_the_stream(decoded, seg_iters):
+    """The growing segment schedule: a first segment of S iterations, so
+    the first chunk holds one hop."""
+    kv = decoded["kv"]
+    sizes = kv._seg_sizes(10 + kv.s_steps - 1, seg_iters, grow=True)
+    assert sizes[0] == min(kv.s_steps, seg_iters)
+    chunks = list(kv.stream_chunks(decoded["stream"], wavefront=True,
+                                   seg_iters=seg_iters))
+    assert len(chunks) >= 2
+    assert chunks[0].shape[1] == (kv.cf * kv.dec.hift_cfg.total_upsample
+                                  - kv.scl)
+    np.testing.assert_array_equal(np.concatenate(chunks, axis=1),
+                                  decoded["f32"])
+
+
+def test_stream_chunks_per_hop_join_to_the_per_hop_stream(decoded):
+    kv, stream = decoded["kv"], decoded["stream"]
+    chunks = list(kv.stream_chunks(stream))
+    assert len(chunks) == len(kv.schedule(stream.shape[1]))
+    np.testing.assert_array_equal(np.concatenate(chunks, axis=1),
+                                  kv.stream_decode(stream, bulk_voc=False))
+
+
+def test_warmup_runs_a_stream(setup):
+    kv = setup["session"]()
+    kv.warmup(12)
+    assert kv._cache is not None and int(kv._w) == 12 // HOP - 1 + \
+        kv.s_steps - 1
