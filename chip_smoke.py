@@ -88,7 +88,24 @@ Phases (any failure raises and the script exits non-zero):
    first row (flow scans) against the same stream alone.  The same for
    the KV session's concat dataflow (``fused=False``), its one-hot fused
    write (ring 36 at hop 5) and the batcher's concat lanes
-   (``kv_batcher(fused=False)``), each on the unfused engine.
+   (``kv_batcher(fused=False)``), each on the unfused engine.  Then
+   the lockstep pair (``batch=2``) card against CPU and each row against
+   the batch-1 session, the int8 session card against CPU
+   (``cross_kv_batch``), and the codec at full width card against CPU
+   (``cross_codec``: pooled tokenizer features and tokens over 10 s, a
+   3 s prompt's matcha mel and CAM++ embedding) with one ``convert_voice``
+   round trip timed on the card.
+   Lockstep streams, int8 rings and the tokenizer (after ``kv_api``):
+   ``kv_batch`` is ``bench.py --batch 4``'s protocol (4 streams of 250
+   tokens in lockstep, 812 ``fused_tf_group`` launches of 80 rows a
+   decode, graphed median of 3 and one eager decode, each row within
+   ``BATCH_ROWS_TOL`` of the batch-1 stream, device memory a stream);
+   ``kv_quant`` the int8-ring session against full-precision rings (RTF,
+   bytes, mel rel-L1 under the JAX package's 5e-2); ``tokenizer`` the
+   WhisperVQ encoder at full width over 20 s of seeded audio, batch and
+   80 ms streaming, their RTFs, chunk latency and token agreement.  The
+   kernel phase holds ``fused_tf_group`` at the lockstep launch too (the
+   mid group, 80 rows, one shared offset).
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -355,6 +372,12 @@ def fused_group_phase(torch, fb) -> list:
              ("mid", 256, "disabled_rows", dict(
                  shared=True, offset=0, nd=[rp + cf] * rows,
                  enable=[int(r % 3 != 0) for r in range(rows)], rot=rot))]
+    # the lockstep session at batch 4 (bench.py --batch 4): 2 * 4 * 10 rows
+    # at one shared offset, rows ordered s * 8 + cfg * 4 + b
+    lock = 2 * KV_BATCH * 10
+    cases.append(("mid", 256, f"lockstep_{KV_BATCH}", dict(
+        shared=True, offset=100, nd=[rp + cf] * lock, enable=[1] * lock,
+        rot=[((r // (2 * KV_BATCH)) * cf) % rp for r in range(lock)])))
     for n_lanes in range(1, len(LANE_STATES) + 1):
         nd, enable = lanes_rows(n_lanes, 10, cf)
         cases.append(("mid", 256, f"lanes_{n_lanes}", dict(
@@ -1459,6 +1482,406 @@ def cross_windowed_phase(torch) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# lockstep streams, int8 rings, the tokenizer side of the codec
+# --------------------------------------------------------------------------
+
+# bench.py --batch's stream count
+KV_BATCH = 4
+# int8 rings: the mel's rel-L1 against full-precision rings (the bound of
+# the JAX package's test_int8_ring_quant_session_and_batcher), and f32 card
+# against CPU for the same int8 session (a last-bit difference can move an
+# int8 value by one step)
+INT8_REL_L1_TOL = 5e-2
+INT8_CROSS_REL_L1_TOL = 5e-3
+# the tokenizer: token agreement of two paths (streaming and batch; card
+# and CPU), and its pooled pre-VQ features card against CPU, relative to
+# their peak
+TOKEN_AGREEMENT_MIN = 0.99
+POOLED_REL_TOL = 1e-4
+# the prompt: matcha mel card against CPU, and the CAM++ embedding relative
+# to its peak
+PROMPT_MEL_TOL = 1e-4
+SPK_REL_TOL = 1e-4
+
+
+def rel_l1(got, want) -> float:
+    return float(np.abs(got - want).sum() / np.abs(want).sum())
+
+
+def seeded_audio(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """Speech-like audio from a seed: a harmonic source gliding around
+    120 Hz, syllable-rate amplitude, a little noise."""
+    rng = np.random.RandomState(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = 120.0 + 40.0 * np.sin(2 * np.pi * 0.5 * t + rng.rand())
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 8))
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * 3.0 * t + rng.rand())
+    return (0.1 * env * voiced + 0.01 * rng.randn(n)).astype(np.float32)
+
+
+def kv_batch_phase(torch, fb) -> dict:
+    """``bench.py --batch 4``'s protocol: 4 lockstep streams of 250 seeded
+    tokens, block 5, ring 35, bf16, the kernel engine (one
+    ``fused_tf_group`` launch a group at 2 * 4 * 10 = 80 rows, shared
+    offset), graphed.  ``stream_decode(output="int16")`` 1 warm-up + median
+    of 3 with the launches checked (812 a decode), and one eager
+    (``graphs=False``) decode; aggregate x-realtime and the per-stream RTF;
+    each bf16 row against the batch-1 session on the same tokens within
+    ``BATCH_ROWS_TOL`` of the peak; the device memory a stream takes: the
+    peak over a decode less what was allocated before the session's first
+    decode (its buffers, graph pool and activations; the shared weights
+    not), over the streams, beside the batch-1 session's."""
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                    KV_TOKENS, compute_dtype=torch.bfloat16)
+    b = KV_BATCH
+    tokens = np.random.RandomState(4).randint(0, flow_cfg.vocab_size,
+                                              (b, KV_TOKENS))
+    samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    audio_s = samples / hift_cfg.sampling_rate
+    launches = wave_launches(kv, flow_cfg, KV_TOKENS)
+    want = {fb.launch_fused_tf_group: launches}
+    sessions = {g: kv.dec.kv_stream_decoder(token_cap=KV_TOKENS + 16,
+                                            batch=b, graphs=g)
+                for g in (True, False)}
+    for g, sess in sessions.items():
+        if not (sess.b == b and sess._kernel and sess._fused
+                and sess._graphs == (g and sess.dev.type == "cuda")
+                and sess.ring_tokens == 35):
+            raise AssertionError(f"kv_stream_decoder(batch={b}, graphs={g})"
+                                 f" did not select the kernel engine")
+    def session_bytes(call):
+        """(call's result, peak allocation over it less the allocation
+        before it, the peak itself)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = call()
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        return got, top - base, top
+
+    (pcm, walls), peak, top = session_bytes(lambda: timed_runs(
+        lambda: sessions[True].stream_decode(tokens, output="int16"),
+        "kv_batch graphed stream_decode", want))
+    fb.launch_fused_tf_group.launches = 0
+    t0 = time.perf_counter()
+    pcm_eager = sessions[False].stream_decode(tokens, output="int16")
+    eager_wall = time.perf_counter() - t0
+    got = fb.launch_fused_tf_group.launches
+    if got != launches:
+        raise AssertionError(f"the eager lockstep decode launched "
+                             f"fused_tf_group {got} times, expected "
+                             f"{launches}")
+    for got in (pcm, pcm_eager):
+        if got.shape != (b, samples) or got.dtype != np.int16:
+            raise AssertionError(f"bad lockstep int16 output {got.shape}")
+    wav = sessions[True].stream_decode(tokens)
+    rows = []
+    for i in range(b):
+        if i == 0:
+            one, peak1, _ = session_bytes(
+                lambda: kv.stream_decode(tokens[:1]))
+        else:
+            one = kv.stream_decode(tokens[i:i + 1])
+        peak_abs = float(np.abs(one).max())
+        rows.append(dict(max_abs_diff=float(np.abs(wav[i] - one[0]).max()),
+                         peak=peak_abs))
+        rows[-1]["share_of_peak"] = rows[-1]["max_abs_diff"] / peak_abs
+    wall = statistics.median(walls)
+    out = dict(streams=b, tokens=KV_TOKENS, audio_s_per_stream=audio_s,
+               launches=launches, rows_per_launch=2 * b * kv.s_steps,
+               wall_s=walls, median_s=wall, x_realtime=b * audio_s / wall,
+               stream_rtf=wall / audio_s, eager_wall_s=eager_wall,
+               eager_x_realtime=b * audio_s / eager_wall,
+               graphed_vs_eager_equal=bool(np.array_equal(pcm, pcm_eager)),
+               rows=rows, rows_tol=BATCH_ROWS_TOL,
+               max_memory_allocated_per_stream=top / b,
+               session_bytes_per_stream=peak / b,
+               session_bytes_batch1=peak1,
+               wav_max_abs=float(np.abs(wav).max()))
+    print("kv_batch", json.dumps(out), flush=True)
+    if not np.isfinite(wav).all() or \
+            any(r["share_of_peak"] > BATCH_ROWS_TOL for r in rows):
+        raise AssertionError(f"a lockstep row moved from its stream: {out}")
+    return out
+
+
+def kv_quant_phase(torch, fb) -> dict:
+    """``kv_stream_decoder(fused=False, ring_quant=True)`` on the KV
+    configuration (bf16, block 5, ring 35), 250 tokens, graphed: int8 rings
+    on the unfused concat engine, no kernel.  Its RTF (1 warm-up + median
+    of 3) beside the same session with full-precision rings; the bytes of
+    both rings and conv caches (``est_cache_bytes``); and the rel-L1 of its
+    mel against the full-precision session's, which must stay below the
+    JAX package's bound."""
+    from moss_speech_decoder_cosy_torch.models.flow.kv_stream import (
+        est_cache_bytes)
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                    KV_TOKENS, compute_dtype=torch.bfloat16)
+    tokens = np.random.RandomState(0).randint(0, flow_cfg.vocab_size,
+                                              (1, KV_TOKENS))
+    samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    audio_s = samples / hift_cfg.sampling_rate
+    out = dict(tokens=KV_TOKENS, audio_s=audio_s)
+    mels = {}
+    for name, kw in (("int8", dict(fused=False, ring_quant=True)),
+                     ("bf16", dict(fused=False))):
+        sess = kv.dec.kv_stream_decoder(token_cap=KV_TOKENS + 16, **kw)
+        if sess._kernel or sess._fused or sess._quant != (name == "int8") \
+                or sess._graphs != (sess.dev.type == "cuda"):
+            raise AssertionError(f"kv_stream_decoder({kw}) took the wrong "
+                                 f"engine")
+        wav, walls = timed_runs(lambda: sess.stream_decode(tokens),
+                                f"kv_quant {name}",
+                                {fb.launch_fused_tf_group: 0})
+        cache, _ = sess.init_state()
+        mel, _ = sess._flow_mels_wave(sess._token_buf(tokens), cache,
+                                      sess.schedule(KV_TOKENS))
+        mels[name] = mel.float().cpu().numpy()
+        out[name] = dict(wall_s=walls, rtf=statistics.median(walls)
+                         / audio_s,
+                         est_cache_bytes=est_cache_bytes(sess._ext_g),
+                         wav_max_abs=float(np.abs(wav).max()))
+        if wav.shape != (1, samples) or not np.isfinite(wav).all():
+            raise AssertionError(f"bad {name}-ring output {wav.shape}")
+        del sess
+    kv.init_state()
+    out["default_fused_est_cache_bytes"] = est_cache_bytes(kv._ext_g)
+    out["mel_rel_l1"] = rel_l1(mels["int8"], mels["bf16"])
+    out["mel_rel_l1_tol"] = INT8_REL_L1_TOL
+    out["bytes_ratio"] = (out["int8"]["est_cache_bytes"]
+                          / out["bf16"]["est_cache_bytes"])
+    print("kv_quant", json.dumps(out), flush=True)
+    if not 0 < out["mel_rel_l1"] < INT8_REL_L1_TOL:
+        raise AssertionError(f"int8 rings moved the mel: {out}")
+    return out
+
+
+def seeded_codec(torch, device, decoder=None, speaker: bool = False):
+    """``SpeechCodec`` at ``glm4_voice_tokenizer_config()`` (full width,
+    f32), tokenizer weights from seed 5, and with ``speaker`` a full-width
+    CAM++ (BatchNorm running statistics drawn too) from seed 6, on
+    ``device``."""
+    from moss_speech_decoder_cosy_torch.codec import SpeechCodec
+    from moss_speech_decoder_cosy_torch.models.campplus import (
+        CAMPPlus, SpeakerEncoder)
+    from moss_speech_decoder_cosy_torch.tokenizer import (
+        WhisperVQEncoder, glm4_voice_tokenizer_config)
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+    cfg = glm4_voice_tokenizer_config()
+    key = ("tok", "spk")
+    states = SEEDED.get(key)
+    if states is None:
+        with torch.device("meta"):
+            tok, cam = WhisperVQEncoder(cfg), CAMPPlus()
+        states = SEEDED[key] = (seeded_state(tok, 5), seeded_state(cam, 6))
+    spk = (SpeakerEncoder(states[1], device=device) if speaker else None)
+    return SpeechCodec(cfg, states[0], decoder, speaker_encoder=spk,
+                       device=device)
+
+
+SEEDED: dict = {}
+
+
+def tokenizer_phase(torch) -> dict:
+    """The WhisperVQ tokenizer at full width (16 layers, d 1280, a 16384
+    codebook, 1500-slot caches), f32, seeded weights, 20 s of seeded 16 kHz
+    audio: ``encode`` (1 warm-up + median of 3) and ``encode_streaming`` in
+    80 ms chunks (1 warm-up, 1 timed: its wall and each chunk's ms), their
+    RTFs, and the share of tokens where the two agree (each differing
+    position printed with the gap between its two nearest codes)."""
+    codec = seeded_codec(torch, "cuda")
+    seconds = 20.0
+    wav = seeded_audio(seconds, 16000, 7)
+    codec.encode(wav)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = codec.encode(wav)
+        walls.append(time.perf_counter() - t0)
+    step = codec.tok_cfg.samples_per_token
+
+    def stream():
+        sess = codec.new_encode_session()
+        toks, chunk_ms = [], []
+        t0 = time.perf_counter()
+        for s in range(0, len(wav), step):
+            t1 = time.perf_counter()
+            toks.extend(sess.push(wav[s: s + step]))
+            chunk_ms.append((time.perf_counter() - t1) * 1e3)
+        toks.extend(sess.flush())
+        return (np.concatenate(toks, axis=1), time.perf_counter() - t0,
+                chunk_ms)
+    stream()
+    streamed, stream_wall, chunk_ms = stream()
+    if streamed.shape != batch.shape or batch.shape != (
+            1, int(seconds * 12.5)):
+        raise AssertionError(f"token counts differ: batch {batch.shape}, "
+                             f"streaming {streamed.shape}")
+    differ = np.nonzero(streamed[0] != batch[0])[0]
+    gaps = []
+    if len(differ):
+        pooled = torch.cat([p for _, p in codec.encode_features(wav)], 1)
+        with torch.inference_mode():
+            x = pooled[0, torch.as_tensor(differ, device=pooled.device)]
+            cb = codec.tokenizer.codebook
+            d = ((x * x).sum(-1, keepdim=True) + (cb * cb).sum(-1)[None]
+                 - 2.0 * x @ cb.t())
+            two = torch.topk(d, 2, dim=-1, largest=False).values
+        gaps = [dict(position=int(p), batch=int(batch[0, p]),
+                     streaming=int(streamed[0, p]),
+                     gap=float(g[1] - g[0]))
+                for p, g in zip(differ, two.cpu().numpy())]
+    agree = 1.0 - len(differ) / batch.shape[1]
+    out = dict(seconds=seconds, tokens=int(batch.shape[1]),
+               encode_wall_s=walls,
+               encode_rtf=statistics.median(walls) / seconds,
+               streaming_wall_s=stream_wall,
+               streaming_rtf=stream_wall / seconds, chunks=len(chunk_ms),
+               chunk_ms_median=statistics.median(chunk_ms),
+               chunk_ms_p99=float(np.percentile(chunk_ms, 99)),
+               agreement=agree, agreement_min=TOKEN_AGREEMENT_MIN,
+               differing=gaps, params=sum(p.numel() for p in
+                                          codec.tokenizer.parameters()))
+    print("tokenizer", json.dumps(out), flush=True)
+    if agree < TOKEN_AGREEMENT_MIN:
+        raise AssertionError(f"streaming and batch tokens disagree: {out}")
+    return out
+
+
+def cross_codec_phase(torch, fa) -> dict:
+    """The codec at full width, f32: the card against the port's plain CPU
+    path on the same seeded weights.  10 s of audio: the pooled pre-VQ
+    features within ``POOLED_REL_TOL`` of their peak and the tokens'
+    agreement; a 3 s prompt through ``prepare_prompt``: the matcha mel
+    within ``PROMPT_MEL_TOL`` and the CAM++ embedding within
+    ``SPK_REL_TOL`` of its peak.  Then one ``convert_voice`` round trip on
+    the card (10 s through the tokenizer, then ``token2wav`` of the
+    full-width bf16 decoder with flash attention): its wall and RTF, with
+    the flash launches checked."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models()
+    dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                       compute_dtype=torch.bfloat16)
+    codecs = {dev: seeded_codec(torch, dev, dec, speaker=True)
+              for dev in ("cuda", "cpu")}
+    src = seeded_audio(10.0, 16000, 8)
+    feats = {}
+    for dev, c in codecs.items():
+        segs = c.encode_features(src)
+        feats[dev] = [torch.cat([s[j] for s in segs], 1).cpu().numpy()
+                      for j in range(2)]
+    (ids_g, pooled_g), (ids_c, pooled_c) = feats["cuda"], feats["cpu"]
+    pooled_rel = float(np.abs(pooled_g - pooled_c).max()
+                       / np.abs(pooled_c).max())
+    agree = float((ids_g == ids_c).mean())
+    p16 = seeded_audio(3.0, 16000, 9)
+    p24 = seeded_audio(3.0, 24000, 9)
+    prompts = {dev: c.prepare_prompt(p24, p16) for dev, c in codecs.items()}
+    pg, pc = prompts["cuda"], prompts["cpu"]
+    mel_err = float(np.abs(pg.feat - pc.feat).max())
+    spk_rel = float(np.abs(pg.embedding - pc.embedding).max()
+                    / np.abs(pc.embedding).max())
+    codec = codecs["cuda"]
+    codec.convert_voice(src, pg)                       # warm-up
+    tokens = int(ids_g.shape[1])
+    per_decode = launches_per_decode(flow_cfg)
+    fa.launch_flash_chunk_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = codec.convert_voice(src, pg)
+    wall = time.perf_counter() - t0
+    launches = fa.launch_flash_chunk_attention.launches
+    audio_s = wav.shape[1] / hift_cfg.sampling_rate
+    out = dict(seconds=10.0, tokens=tokens,
+               pooled_max_rel_diff=pooled_rel, pooled_tol=POOLED_REL_TOL,
+               token_agreement=agree, agreement_min=TOKEN_AGREEMENT_MIN,
+               prompt_tokens=int(pg.token.shape[1]),
+               prompt_tokens_equal=bool(np.array_equal(pg.token, pc.token)),
+               prompt_mel_shape=list(pg.feat.shape),
+               prompt_mel_max_abs_diff=mel_err, prompt_mel_tol=PROMPT_MEL_TOL,
+               speaker_max_rel_diff=spk_rel, speaker_tol=SPK_REL_TOL,
+               convert_voice=dict(wall_s=wall, audio_s=audio_s,
+                                  rtf=wall / audio_s,
+                                  flash_launches=launches,
+                                  wav_max_abs=float(np.abs(wav).max())))
+    print("cross_codec", json.dumps(out), flush=True)
+    want_shape = (1, tokens * flow_cfg.token_mel_ratio
+                  * hift_cfg.total_upsample)
+    if not (pooled_rel <= POOLED_REL_TOL and agree >= TOKEN_AGREEMENT_MIN
+            and mel_err <= PROMPT_MEL_TOL and spk_rel <= SPK_REL_TOL
+            and pg.feat.shape == pc.feat.shape and pg.feat.shape[1] > 0
+            and wav.shape == want_shape and np.isfinite(wav).all()
+            and launches == per_decode):
+        raise AssertionError(f"the codec's card and CPU paths disagree: "
+                             f"{out}")
+    return out
+
+
+def cross_kv_batch_phase(fb) -> dict:
+    """f32 at full width over 40 tokens: the lockstep pair (``batch=2``,
+    per-stream prompt-free streams) on the card graphed against the CPU
+    (plain path), mels within ``CROSS_TOL``; each row on the card against
+    the batch-1 session on the card, within ``CROSS_TOL``; and the int8
+    session (``fused=False, ring_quant=True``) on the card against the CPU,
+    mel rel-L1 within ``INT8_CROSS_REL_L1_TOL``."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    n_tokens = 40
+    tokens = np.random.RandomState(6).randint(0, flow_cfg.vocab_size,
+                                              (2, n_tokens))
+    mels = {}
+    for dev in ("cuda", "cpu"):
+        dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                           PipelineConfig(block_size=5, mel_cache_len=8,
+                                          max_token_len=40), device=dev)
+        runs = [("batch2", dict(batch=2), tokens),
+                ("int8", dict(fused=False, ring_quant=True), tokens[:1])]
+        if dev == "cuda":
+            runs += [(f"row{i}", {}, tokens[i:i + 1]) for i in range(2)]
+        for name, kw, toks in runs:
+            sess = dec.kv_stream_decoder(token_cap=n_tokens + 16, **kw)
+            cache, _ = sess.init_state()
+            fb.launch_fused_tf_group.launches = 0
+            mel, _ = sess._flow_mels_wave(sess._token_buf(toks), cache,
+                                          sess.schedule(n_tokens))
+            want = (wave_launches(sess, flow_cfg, n_tokens)
+                    if dev == "cuda" and sess._kernel else 0)
+            if fb.launch_fused_tf_group.launches != want:
+                raise AssertionError(f"{dev} {name} launched fused_tf_group "
+                                     f"{fb.launch_fused_tf_group.launches} "
+                                     f"times, expected {want}")
+            mels[dev, name] = mel.float().cpu().numpy()
+            del sess
+        del dec
+    b2 = mels["cuda", "batch2"]
+    out = dict(tokens=n_tokens, mel_shape=list(b2.shape),
+               mel_max_abs=float(np.abs(b2).max()),
+               batch2_card_vs_cpu=float(np.abs(b2 - mels["cpu", "batch2"])
+                                        .max()),
+               rows_vs_batch1=[float(np.abs(b2[i] - mels["cuda", f"row{i}"]
+                                            [0]).max()) for i in range(2)],
+               tol=CROSS_TOL,
+               int8_card_vs_cpu_rel_l1=rel_l1(mels["cuda", "int8"],
+                                              mels["cpu", "int8"]),
+               int8_tol=INT8_CROSS_REL_L1_TOL)
+    print("cross_kv_batch", json.dumps(out), flush=True)
+    if not (np.isfinite(b2).all() and out["batch2_card_vs_cpu"] <= CROSS_TOL
+            and max(out["rows_vs_batch1"]) <= CROSS_TOL
+            and out["int8_card_vs_cpu_rel_l1"] <= INT8_CROSS_REL_L1_TOL):
+        raise AssertionError(f"lockstep or int8 KV mels disagree: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -1515,10 +1938,13 @@ def main(argv=None) -> int:
     # 5. KV slice, and the continuous batcher
     kv_sl = phase("kv", kv_slice_phase, torch, fb, fc)
     api = phase("kv_api", kv_api_phase, torch, fb)
+    kvb = phase("kv_batch", kv_batch_phase, torch, fb)
+    kvq = phase("kv_quant", kv_quant_phase, torch, fb)
     bat = phase("batcher", batcher_phase, torch, fb)
     win = phase("windowed_device", windowed_device_phase, torch,
                 (fa.launch_flash_chunk_attention, fb.launch_fused_tf_group,
                  fc.launch_fused_conformer_group))
+    tok = phase("tokenizer", tokenizer_phase, torch)
 
     # 6. cross-device
     cross = phase("cross", cross_phase, torch)
@@ -1530,6 +1956,8 @@ def main(argv=None) -> int:
                                     cross_batcher_phase, fb, False)
     cross["windowed_device"] = phase("cross_windowed", cross_windowed_phase,
                                      torch)
+    cross["kv_batch"] = phase("cross_kv_batch", cross_kv_batch_phase, fb)
+    cross["codec"] = phase("cross_codec", cross_codec_phase, torch, fa)
 
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
@@ -1544,6 +1972,12 @@ def main(argv=None) -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     max_abs_err=max(r["max_abs_err"].values()))
                for r in group_records if r["mode"].startswith("lanes_")]
+    # the lockstep session's launch: 80 rows at one shared offset
+    lockstep = [dict(rows=r["shape"]["rows"], dtype=r["dtype"], ms=r["ms"],
+                     ms_warm_l2=r["ms_warm_l2"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     max_abs_err=max(r["max_abs_err"].values()))
+                for r in group_records if r["mode"].startswith("lockstep_")]
     kernels = [dict(
         name="flash_chunk_attention", route="cuda",
         source=f"{PACKAGE}/csrc/flash_chunk_attention.cu",
@@ -1562,7 +1996,8 @@ def main(argv=None) -> int:
         bound_ms=group_rec["bound_ms"], bound_by=group_rec["bound_by"],
         library_ms=None, library_note=FUSED_NOTE,
         batcher_launches=bat["graphed"]["fused_tf_group_launches"],
-        segmented_launches=api["segmented_launches"], per_row=per_row)]
+        segmented_launches=api["segmented_launches"], per_row=per_row,
+        lockstep_launches=kvb["launches"], lockstep=lockstep)]
     # the blocks group (the larger read) with a full ring, as the steady
     # stream runs it, timed with L2 flushed: each hop streams the
     # estimator's rings between two encoder launches
@@ -1586,8 +2021,9 @@ def main(argv=None) -> int:
                  cases=dict(flash_chunk_attention=records,
                             fused_tf_group=group_records,
                             fused_conformer_group=conf_records),
-                 slice=sl, kv_slice=kv_sl, kv_api=api, batcher=bat,
-                 windowed_device=win, cross=cross),
+                 slice=sl, kv_slice=kv_sl, kv_api=api, kv_batch=kvb,
+                 kv_quant=kvq, batcher=bat, windowed_device=win,
+                 tokenizer=tok, cross=cross),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -49,8 +49,13 @@ offset under per-slot rotated slot numbering (``{"offset", "enable"}``;
 ``rotate_rings`` or ``extend_rings_for_fused``'s ``rot``) or at each row's
 own position (``{"nd", "enable"}``; ``ring_write_rows``, the JAX
 package's one-hot write).  ``wave_step`` and ``wave_lanes_step`` take the
-dataflow; the continuous batcher's lanes always write per row.  The
-int8-ring variant is ROADMAP item A3.
+dataflow; the continuous batcher's lanes always write per row.
+
+Int8 rings (the JAX package's ``est_quant``): an estimator ring may be a
+dict {"v": int8 (..., R, 2d), "s": f32 (..., R, 1)}, each frame quantized
+on its own (``quantize_ring_chunk``).  Such rings run the concat dataflow
+only: the attention dequantizes the ring and appends the chunk, and the
+chunk is written afterwards through ``write_ring_leaf``.
 """
 
 from __future__ import annotations
@@ -120,6 +125,42 @@ def fuse_qkv_params(flow) -> Dict[str, Tuple[torch.Tensor,
 # --------------------------------------------------------------------------
 # ring utilities
 # --------------------------------------------------------------------------
+
+def quantize_ring_chunk(chunk: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-frame symmetric int8 quantization of a K/V chunk (..., C, 2d):
+    scale ``max|kv| / 127`` over the feature axis in f32, values
+    ``round(x / max(s, 1e-20))`` (half to even) clipped to +-127."""
+    af = torch.amax(torch.abs(chunk).float(), dim=-1, keepdim=True)
+    s = af / 127.0
+    v = torch.clamp(torch.round(chunk.float() / torch.clamp(s, min=1e-20)),
+                    -127, 127)
+    return {"v": v.to(torch.int8), "s": s}
+
+
+def dequantize_ring(ring: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
+    """{"v": int8, "s": f32} -> (..., R, 2d) in ``dtype``."""
+    return (ring["v"].float() * ring["s"]).to(dtype)
+
+
+def ring_leaf_len(leaf) -> int:
+    """Ring capacity of a plain or int8 ring."""
+    return (leaf["v"] if isinstance(leaf, dict) else leaf).shape[-2]
+
+
+def write_ring_leaf(write_fn, ring, chunk: torch.Tensor, *args, **kw):
+    """A ring write primitive (``ring_write``, ``ring_write_rows``,
+    ``ring_write_dus``) applied to a plain or an int8 ring, in place.  An
+    int8 ring: the chunk is quantized per frame, then the f32 image of the
+    values and the scales go through the same primitive and the values are
+    rounded back to int8 (integers up to 127 are exact in f32)."""
+    if not isinstance(ring, dict):
+        return write_fn(ring, chunk, *args, **kw)
+    qc = quantize_ring_chunk(chunk)
+    v = write_fn(ring["v"].float(), qc["v"].float(), *args, **kw)
+    ring["v"].copy_(torch.round(v))
+    write_fn(ring["s"], qc["s"], *args, **kw)
+    return ring
+
 
 def ring_write(ring: torch.Tensor, chunk: torch.Tensor, n_done: int
                ) -> torch.Tensor:
@@ -197,7 +238,12 @@ def rotate_rings(rings: torch.Tensor, rot: torch.Tensor,
     the row's ``rot`` (B,), in place: canonical slot numbering (frame f at
     slot f % R) to the rotated numbering of the shared-offset write (slot
     (f + rot) % R), and back with ``inverse``.  The JAX package's
-    ``rotate_rings``; once at the concat wavefront's entry and exit."""
+    ``rotate_rings``; once at the concat wavefront's entry and exit.  An
+    int8 ring rotates both its leaves."""
+    if isinstance(rings, dict):
+        for leaf in rings.values():
+            rotate_rings(leaf, rot, inverse)
+        return rings
     b, r, d = rings.shape
     shift = -rot if inverse else rot
     src = torch.remainder(torch.arange(r, device=rings.device)[None, :]
@@ -360,11 +406,17 @@ def unet_attention_step(attn, w_qkv, x, ring, mask, write=None):
     ``write`` {"offset", "enable"} (one shared offset) or {"nd", "enable"}
     (each row at its own position, the JAX package's ``{"mode": "onehot"}``):
     write the chunk into the ring first (in place), attend over the ring,
-    return the ring."""
+    return the ring.  An int8 ring (concat dataflow only) is dequantized
+    before the concat."""
     inner = attn.heads * attn.head_dim
     qkv = F.linear(x, w_qkv)
     q, kv_c = qkv[..., :inner], qkv[..., inner:]
-    if write is None:
+    if isinstance(ring, dict):
+        if write is not None:
+            raise ValueError("int8 rings run the concat dataflow only")
+        kvs = torch.cat([dequantize_ring(ring, kv_c.dtype), kv_c], dim=1)
+        ret = kv_c
+    elif write is None:
         kvs = torch.cat([ring.to(kv_c.dtype), kv_c], dim=1)
         ret = kv_c
     else:
@@ -423,7 +475,7 @@ def estimator_step(est, fused, x, mu, t, spks, cond, rings: Sequence,
     _check_single_level(c)
     t_emb, h = _embed_inputs(est, x, mu, t, spks, cond)
     cf = h.shape[1]
-    rf = rings[0].shape[-2]
+    rf = ring_leaf_len(rings[0])
     nd = torch.as_tensor(n_done, device=h.device)
     mask = (ring_mask(rf, cf, nd, rot) if write is None
             else ring_mask(rf, cf, nd + cf, rot, fused=True))
@@ -528,7 +580,7 @@ def cfm_step(cfm, fused, mu, spks, cond, est_cache: Dict, n_done,
     cd = _compute_dtype(c, mu_in)
     rate = consts["rate"]
     for s in range(c.n_timesteps):
-        kv_s = tuple(r[s] for r in est_cache["kv"])
+        kv_s = tuple(_tree_map(lambda a: a[s], r) for r in est_cache["kv"])
         convs_s = _tree_map(lambda a: a[s], est_cache["convs"])
         x_in = torch.cat([x, x], dim=0).to(cd)
         t_in = torch.full((2 * b,), float(t_span[s]), dtype=cd,
@@ -539,7 +591,7 @@ def cfm_step(cfm, fused, mu, spks, cond, est_cache: Dict, n_done,
         dphi = dphi.to(x.dtype)
         dphi = (1.0 + rate) * dphi[:b] - rate * dphi[b:]
         for ring, chunk in zip(kv_s, ckv):
-            ring_write(ring, chunk, n_done)
+            write_ring_leaf(ring_write, ring, chunk, n_done)
         _tree_map(lambda old, new: old.copy_(new.to(old.dtype)), convs_s,
                   new_convs)
         x = x + consts["dts"][s] * dphi
@@ -639,7 +691,7 @@ def wave_step(cfm, fused, x_wave, mu_wave, mu_new, spks, est_flat: Dict,
     writes at its own n_done, canonical numbering (``ring_write_rows``, the
     JAX package's one-hot write).  Returns (exit mel (B, cf, n_mel) f32,
     valid when S-1 <= w < S-1+k_total; x wave shifted; mu wave)."""
-    r = est_flat["kv"][0].shape[-2]
+    r = ring_leaf_len(est_flat["kv"][0])
     mu_wave, x_in, mu_in, cond_in, t_in, spks_in, rows, offset = \
         _wave_inputs(cfm, x_wave, mu_wave, mu_new, spks, w, k_total,
                      base_frames, r)
@@ -656,9 +708,9 @@ def wave_step(cfm, fused, x_wave, mu_wave, mu_new, spks, est_flat: Dict,
     if write is None:
         for ring, chunk in zip(est_flat["kv"], ckv):
             if dus:
-                ring_write_dus(ring, chunk, offset, en)
+                write_ring_leaf(ring_write_dus, ring, chunk, offset, en)
             else:
-                ring_write_rows(ring, chunk, nd, en)
+                write_ring_leaf(ring_write_rows, ring, chunk, nd, en)
     exit_mel, x_shift = _wave_finish(cfm, x_wave, dphi, est_flat["convs"],
                                      new_convs, en, w, base_frames)
     return exit_mel, x_shift, mu_wave
@@ -741,7 +793,7 @@ def wave_lanes_step(cfm, fused, x_wave, mu_wave, mu_buf, spks,
         write=write)
     if write is None:
         for ring, chunk in zip(est_flat["kv"], ckv):
-            ring_write_rows(ring, chunk, nd, en)
+            write_ring_leaf(ring_write_rows, ring, chunk, nd, en)
     exit_mel, x_shift, w_next = _lanes_finish(
         cfm, x_wave, dphi, est_flat["convs"], new_convs, en, advance, w,
         base_frames)
@@ -791,9 +843,12 @@ def kv_flow_step(flow, fused, token_chunk, context, cond_chunk, embedding,
 # --------------------------------------------------------------------------
 
 def init_kv_cache(cfg: FlowConfig, ring_tokens: int, batch: int = 1,
-                  dtype=torch.float32, est_dtype=None, device=None) -> Cache:
+                  dtype=torch.float32, est_dtype=None, device=None,
+                  est_quant: bool = False) -> Cache:
     """Zero KV cache for a ``ring_tokens``-token left context;
-    ``est_dtype`` overrides the estimator rings' and conv caches' dtype."""
+    ``est_dtype`` overrides the estimator rings' and conv caches' dtype;
+    ``est_quant`` stores the estimator rings as int8 values and f32 scales
+    (``quantize_ring_chunk``; the concat dataflow only)."""
     e = cfg.encoder
     s, d, rt = e.upsample_stride, e.output_size, ring_tokens
 
@@ -811,8 +866,35 @@ def init_kv_cache(cfg: FlowConfig, ring_tokens: int, batch: int = 1,
     steps, b2 = cfg.cfm.n_timesteps, 2 * batch
     rf = ring_tokens * cfg.token_mel_ratio
     convs = _est_convs(est_cfg, (steps, b2), edt, device)
-    kv = tuple(z(steps, b2, rf, 2 * inner, dt=edt) for _ in range(n_attn))
+    kv = tuple(_ring(steps, b2, rf, 2 * inner, dtype=edt, device=device,
+                     quant=est_quant)
+               for _ in range(n_attn))
     return {"enc": enc, "est": {"kv": kv, "convs": convs}, "n_tok": 0}
+
+
+def _ring(*shape, dtype, device, quant: bool):
+    """A zero ring (..., R, d2): plain in ``dtype``, or int8 values and f32
+    scales."""
+    if not quant:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return {"v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "s": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                             device=device)}
+
+
+def tensor_leaves(tree):
+    """The tensors of nested dicts, tuples and lists, in order."""
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, tuple, list)):
+            yield from tensor_leaves(v)
+        else:
+            yield v
+
+
+def est_cache_bytes(est: Dict) -> int:
+    """Bytes of an est cache (rings, scales and conv caches): the unit of
+    the device-memory plan of ``serving/audio_batcher.py``."""
+    return sum(t.numel() * t.element_size() for t in tensor_leaves(est))
 
 
 def _est_convs(est_cfg: EstimatorConfig, lead: Tuple[int, ...], dtype,
@@ -836,17 +918,19 @@ def _est_convs(est_cfg: EstimatorConfig, lead: Tuple[int, ...], dtype,
 
 
 def init_est_pool(cfg: FlowConfig, rows: int, rp: int, dtype,
-                  device=None) -> Dict:
+                  device=None, quant: bool = False) -> Dict:
     """Zero estimator cache of ``rows`` flat wavefront rows in the kernel's
-    grouped layout (``group_est_flat``): rings of ``rp`` slots, the mid
-    resnets' conv caches stacked.  ``ungroup_est_flat`` of it gives the
-    flat layout as views of the same tensors."""
+    grouped layout (``group_est_flat``): rings of ``rp`` slots (int8 values
+    and f32 scales with ``quant``), the mid resnets' conv caches stacked.
+    ``ungroup_est_flat`` of it gives the flat layout as views of the same
+    tensors."""
     est_cfg = cfg.estimator
     n, m = est_cfg.n_blocks, est_cfg.num_mid_blocks
     d2 = 2 * est_cfg.num_heads * est_cfg.attention_head_dim
 
     def rings():
-        return torch.zeros((n, rows, rp, d2), dtype=dtype, device=device)
+        return _ring(n, rows, rp, d2, dtype=dtype, device=device,
+                     quant=quant)
 
     convs = _est_convs(est_cfg, (rows,), dtype, device)
     mids = [convs.pop(f"mid_res_{i}") for i in range(m)]
@@ -866,10 +950,11 @@ def pe_tables(cfg: FlowConfig, max_tokens: int, device=None):
 
 
 def est_cache_to_flat(est: Dict) -> Dict:
-    """(S, B2, ...) leaves -> (S*B2, ...) views (row order s*B2 + b)."""
+    """(S, B2, ...) leaves -> (S*B2, ...) views (row order s*B2 + b); both
+    leaves of an int8 ring."""
     def flat(a):
         return a.reshape((a.shape[0] * a.shape[1],) + tuple(a.shape[2:]))
-    return {"kv": tuple(flat(a) for a in est["kv"]),
+    return {"kv": tuple(_tree_map(flat, a) for a in est["kv"]),
             "convs": _tree_map(flat, est["convs"])}
 
 
@@ -878,7 +963,7 @@ def est_cache_from_flat(flat: Dict, s_steps: int) -> Dict:
     views (the JAX package's ``est_cache_from_flat``)."""
     def unflat(a):
         return a.reshape((s_steps, a.shape[0] // s_steps) + tuple(a.shape[1:]))
-    return {"kv": tuple(unflat(a) for a in flat["kv"]),
+    return {"kv": tuple(_tree_map(unflat, a) for a in flat["kv"]),
             "convs": _tree_map(unflat, flat["convs"])}
 
 
@@ -1022,12 +1107,16 @@ def group_est_flat(est_flat: Dict, cfg: EstimatorConfig) -> Dict:
 
 
 def ungroup_est_flat(est_g: Dict, cfg: EstimatorConfig) -> Dict:
-    """Inverse of group_est_flat (views into the grouped tensors)."""
+    """Inverse of group_est_flat (views into the grouped tensors; both
+    leaves of an int8 ring)."""
     n, m = cfg.n_blocks, cfg.num_mid_blocks
     kv_g = est_g["kv"]
-    kv = ([kv_g["down"][j] for j in range(n)]
-          + [kv_g["mid"][i][j] for i in range(m) for j in range(n)]
-          + [kv_g["up"][j] for j in range(n)])
+
+    def layer(g, j):
+        return _tree_map(lambda a: a[j], g)
+    kv = ([layer(kv_g["down"], j) for j in range(n)]
+          + [layer(kv_g["mid"][i], j) for i in range(m) for j in range(n)]
+          + [layer(kv_g["up"], j) for j in range(n)])
     convs = dict(est_g["convs"])
     mid_res = convs.pop("mid_res")
     for i in range(m):

@@ -63,16 +63,20 @@ def _t(a: np.ndarray, device) -> torch.Tensor:
     return got[1]
 
 
-def frame(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """(B, L) -> (B, T, n_fft) frames, torch.stft(center=True) framing."""
-    x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+def frame(x: torch.Tensor, n_fft: int, hop: int,
+          center: bool = True) -> torch.Tensor:
+    """(B, L) -> (B, T, n_fft) frames, torch.stft framing (``center``:
+    n_fft // 2 reflect padding on both sides)."""
+    if center:
+        x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     return x.unfold(-1, n_fft, hop)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop: int, window: np.ndarray):
+def stft(x: torch.Tensor, n_fft: int, hop: int, window: np.ndarray,
+         center: bool = True):
     """torch.stft equivalent.  Returns (real, imag) each (B, T, F) in the
     input dtype; the DFT runs in f32."""
-    frames = frame(x.float(), n_fft, hop)
+    frames = frame(x.float(), n_fft, hop, center)
     frames = frames * _t(window, x.device)[None, None, :]
     cos_b, sin_b = _dft_bases(n_fft)
     real = frames @ _t(cos_b, x.device)

@@ -7,7 +7,8 @@ GLM_modules/flow_inference.py:48-243):
                           the HiFT mel/source/speech caches and Hamming
                           cross-fades
 - ``device_stream_decoder`` the same windowed semantics kept on the device
-- ``kv_stream_decoder``   the KV-cached streaming session, one stream
+- ``kv_stream_decoder``   the KV-cached streaming session, B lockstep
+                          streams
 - ``kv_batcher``          the continuous batcher, concurrent streams
 
 Model work runs on the decoder's device (CUDA unless ``device="cpu"``);
@@ -207,7 +208,8 @@ class AudioDecoder:
                           embedding=None, block_size: Optional[int] = None,
                           ring_tokens: Optional[int] = None,
                           token_cap: int = 2048, batch: int = 1,
-                          write_mode: str = "auto", fused: bool = True,
+                          write_mode: str = "auto",
+                          fused: Optional[bool] = None,
                           stacked: bool = False, kernel="auto",
                           ring_quant: bool = False,
                           enc_kernel: bool = False, graphs: bool = True):
@@ -226,12 +228,14 @@ class AudioDecoder:
         ``write_mode="onehot"``, or a ring that is not a multiple of the
         hop, writes each row at its own position instead of one shared
         offset; both run the unfused engine, as in the JAX package.
-        ``batch > 1``, ``ring_quant`` and ``stacked`` raise."""
-        missing = {"batch > 1 (lockstep streams)": batch != 1,
-                   "ring_quant (int8 rings)": ring_quant}
-        for what, asked in missing.items():
-            if asked:
-                raise NotImplementedError(f"{what} is ROADMAP item A3")
+        ``batch > 1`` decodes that many lockstep streams (tokens (B, T); a
+        prompt with a leading dim of 1 is shared by every stream).
+        ``ring_quant`` stores the estimator rings as int8 with per-frame
+        scales; it runs the concat dataflow, so ``fused`` defaults to True
+        without it and to False with it, and ``fused=True`` with it raises.
+        ``enc_kernel`` with ``batch > 1`` and ``stacked`` raise."""
+        if fused is None:
+            fused = not ring_quant
         if stacked:
             raise NotImplementedError("the stacked-scan engine is not "
                                       "ported (measured slower in "
@@ -246,11 +250,12 @@ class AudioDecoder:
                                hop, ring_tokens=ring_tokens,
                                token_cap=token_cap, fused=fused,
                                kernel=kernel, enc_kernel=enc_kernel,
-                               graphs=graphs, write_mode=write_mode)
+                               graphs=graphs, write_mode=write_mode,
+                               batch=batch, ring_quant=ring_quant)
 
     def kv_batcher(self, n_lanes: int = 4, block_size: Optional[int] = None,
                    ring_tokens: Optional[int] = None, token_cap: int = 1024,
-                   fused: bool = True, ring_quant: bool = False,
+                   fused: Optional[bool] = None, ring_quant: bool = False,
                    kernel="auto", graphs: bool = True):
         """Continuous-batching KV decoder (``kv_batcher.KVContinuousBatcher``,
         the JAX package's ``AudioDecoder.kv_batcher``): a pool of
@@ -260,7 +265,11 @@ class AudioDecoder:
         ``fused_tf_group``); ``graphs`` (on a CUDA device) replays the
         wavefront tick, the encoder hop, the steady vocoder hop and the
         finalize hop as CUDA graphs.  ``fused=False`` runs the concat dataflow
-        (the unfused engine); ``ring_quant`` raises."""
+        (the unfused engine); ``ring_quant`` int8 lane rings on the concat
+        dataflow, so ``fused`` defaults to ``not ring_quant`` and
+        ``fused=True`` with it raises."""
+        if fused is None:
+            fused = not ring_quant
         from .kv_batcher import KVContinuousBatcher
         return KVContinuousBatcher(self, n_lanes=n_lanes,
                                    block_size=block_size,

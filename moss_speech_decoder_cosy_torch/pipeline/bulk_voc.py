@@ -19,7 +19,15 @@ chain's output.  The
 chain also splits into segments (``vocode_first`` then ``vocode_cont``,
 each carrying the source and speech tails to the next) that give, joined,
 the one-pass output: the segmented KV wavefront vocodes each segment as it
-leaves.  One stream (batch 1); the multi-stream form is ROADMAP item A3.
+leaves.
+
+Several lockstep streams (mel (B, Tm, D)) vocode together: each stream
+keeps its own mel context and source and speech tails; the steady windows
+of all streams (stream-major) go through HiFT in the same batches of
+``WINDOW_BATCH``, and each stream's first and tail hop run as a batch of
+one, as they do for a stream alone.  The NSF source's draws depend only on the window's
+length and are shared by every row, so each stream gets the draws it would
+get alone, as the JAX package's per-stream ``vmap`` with one key does.
 
 The steady hops' windows go through HiFT in batches of ``WINDOW_BATCH``,
 the last one padded with zero windows.  On the card cuDNN and cuBLAS pick
@@ -27,7 +35,9 @@ their kernels by the batch, and bf16 HiFT turns the last-bit differences
 that follow into 12% of the wav's peak (an H100, full width, 48 windows at
 once against 22 then 26: 8.2e-4 of a 7.0e-3 peak; ``bin/window_batch.py``).
 With one batch shape a window's audio does not depend on how the stream was
-cut into segments, so segmented and one-pass vocoding agree bit for bit.
+cut into segments, nor on how many streams share the call: segmented and
+one-pass vocoding agree bit for bit, and so do a lockstep stream and the
+same stream alone wherever its windows fill the same batches.
 """
 
 from __future__ import annotations
@@ -56,6 +66,13 @@ def _in_batches(fn, *xs: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs)
 
 
+def _per_row(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn`` over each row of ``xs`` as a batch of one; the rows' results,
+    concatenated."""
+    return torch.cat([fn(*(x[i:i + 1] for x in xs))
+                      for i in range(xs[0].shape[0])])
+
+
 class BulkVocoder:
     """Vocodes a whole mel with the session's hop semantics (``emit_frames``
     mel frames per hop, ``mel_cache_len`` frames of context, cross-fades)."""
@@ -73,33 +90,40 @@ class BulkVocoder:
         self._fade_out = win[self.scl:].to(dec.device)
 
     def _steady(self, wins, last_s_tail, last_w_tail):
-        """Steady hops batched: wins (n, F+C, D) in the compute dtype.
-        Returns (emit (1, n*F*u) f32, s_tail, w_tail)."""
+        """Steady hops batched: wins (B, n, F+C, D) in the compute dtype,
+        the tails (B, scl, 1) and (B, scl).  Returns (emit (B, n*F*u) f32,
+        s_tail, w_tail)."""
         hift, scl = self.dec.hift, self.scl
-        ss = _in_batches(hift.source, wins)                  # (n, (F+C)u, 1)
-        prev_s = torch.cat([last_s_tail.to(ss.dtype), ss[:-1, -scl:]])
-        ss = torch.cat([prev_s, ss[:, scl:]], dim=1)
-        ws = _in_batches(hift.decode, wins, ss)              # (n, (F+C)u)
-        prev_w = torch.cat([last_w_tail.to(ws.dtype), ws[:-1, -scl:]])
-        heads = ws[:, :scl] * self._fade_in + prev_w * self._fade_out
-        ws_fixed = torch.cat([heads, ws[:, scl:].float()], dim=1)
-        emit = ws_fixed[:, : (self.F + self.C) * self.u - scl]
-        return emit.reshape(1, -1), ss[-1:, -scl:], ws[-1:, -scl:]
+        b, n = wins.shape[:2]
+        flat = wins.reshape((b * n,) + tuple(wins.shape[2:]))
+        ss = _in_batches(hift.source, flat).reshape(b, n, -1, 1)
+        prev_s = torch.cat([last_s_tail[:, None].to(ss.dtype),
+                            ss[:, :-1, -scl:]], dim=1)
+        ss = torch.cat([prev_s, ss[:, :, scl:]], dim=2)
+        ws = _in_batches(hift.decode, flat,
+                         ss.reshape((b * n,) + tuple(ss.shape[2:])))
+        ws = ws.reshape(b, n, -1)                        # (B, n, (F+C)u)
+        prev_w = torch.cat([last_w_tail[:, None].to(ws.dtype),
+                            ws[:, :-1, -scl:]], dim=1)
+        heads = ws[..., :scl] * self._fade_in + prev_w * self._fade_out
+        ws_fixed = torch.cat([heads, ws[..., scl:].float()], dim=2)
+        emit = ws_fixed[..., : (self.F + self.C) * self.u - scl]
+        return emit.reshape(b, -1), ss[:, -1, -scl:], ws[:, -1, -scl:]
 
     def _tail_hop(self, mel_t, last_s_tail, last_w_tail):
-        """Finalize hop over mel (1, C + tail, D): emits everything."""
+        """Finalize hop over mel (B, C + tail, D): emits everything."""
         hift, scl = self.dec.hift, self.scl
-        s_t = hift.source(mel_t)
+        s_t = _per_row(hift.source, mel_t)
         s_t = torch.cat([last_s_tail.to(s_t.dtype), s_t[:, scl:]], dim=1)
-        w_t = hift.decode(mel_t, s_t)
+        w_t = _per_row(hift.decode, mel_t, s_t)
         head = w_t[:, :scl] * self._fade_in + last_w_tail * self._fade_out
         return torch.cat([head, w_t[:, scl:].float()], dim=1)
 
     def _impl(self, mel: torch.Tensor, n_steady: int, tail_frames: int,
               first_frames: int, hold: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """mel (1, Tm, D), hop plan [first] + [F] * n_steady + [tail].
-        Returns (wav (1, samples) f32, s_tail, w_tail): the tails let a
+        """mel (B, Tm, D), hop plan [first] + [F] * n_steady + [tail].
+        Returns (wav (B, samples) f32, s_tail, w_tail): the tails let a
         later segment continue the chain (``vocode_cont``).  ``hold`` marks
         a segment that more segments follow: a lone first hop then withholds
         its last ``scl`` samples for the next cross-fade instead of emitting
@@ -108,8 +132,8 @@ class BulkVocoder:
         f, c, scl, u = self.F, self.C, self.scl, self.u
         hift = self.dec.hift
         mel0 = mel[:, :first_frames].to(dt)
-        s0 = hift.source(mel0)
-        w0 = hift.decode(mel0, s0)
+        s0 = _per_row(hift.source, mel0)
+        w0 = _per_row(hift.decode, mel0, s0)
         s_tail, w_tail = s0[:, -scl:], w0[:, -scl:]
         if n_steady == 0 and tail_frames == 0:
             if hold:                       # a mid-stream one-hop segment
@@ -129,22 +153,18 @@ class BulkVocoder:
 
     def _windows(self, mel: torch.Tensor, starts: torch.Tensor
                  ) -> torch.Tensor:
-        """The (n, F + C, D) hop windows of mel (1, Tm, D) at ``starts``."""
+        """The (B, n, F + C, D) hop windows of mel (B, Tm, D) at
+        ``starts``."""
         idx = starts[:, None] + torch.arange(self.F + self.C,
                                              device=mel.device)
-        return mel[0][idx]
-
-    def _check(self, mel: torch.Tensor) -> None:
-        if mel.shape[0] != 1:
-            raise NotImplementedError("bulk vocoding of several lockstep "
-                                      "streams is ROADMAP item A3")
+        return mel[:, idx]
 
     @torch.inference_mode()
     def vocode(self, mel: torch.Tensor, plan: Sequence[int]) -> torch.Tensor:
-        """mel (1, Tm, D) f32 on the decoder's device; ``plan`` the per-hop
-        emit mel-frame counts [F, ..., F, tail], or one finalize hop [n].
-        Returns the wav (1, sum(plan) * u) f32 on the device."""
-        self._check(mel)
+        """mel (B, Tm, D) f32 on the decoder's device, B lockstep streams;
+        ``plan`` the per-hop emit mel-frame counts [F, ..., F, tail], or one
+        finalize hop [n].  Returns the wav (B, sum(plan) * u) f32 on the
+        device."""
         if any(p != self.F for p in plan[:-1]):
             raise ValueError(f"every hop but the last emits {self.F} frames, "
                              f"got {list(plan)}")
@@ -160,21 +180,19 @@ class BulkVocoder:
         """The first segment of a segmented stream: the first hop and
         ``n_steady`` steady hops, plus the finalize tail when this is also
         the last segment (``hold=True`` when more segments follow).  mel
-        (1, F * (1 + n_steady) + tail, D).  Returns (wav, s_tail, w_tail)
+        (B, F * (1 + n_steady) + tail, D).  Returns (wav, s_tail, w_tail)
         for ``vocode_cont``."""
-        self._check(mel)
         return self._impl(mel, n_steady, tail_frames, self.F, hold)
 
     @torch.inference_mode()
     def vocode_cont(self, mel_ctx: torch.Tensor, s_tail: torch.Tensor,
                     w_tail: torch.Tensor, n_steady: int, tail_frames: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """A continuation segment: ``mel_ctx`` (1, C + F * n_steady + tail,
-        D) holds the stream's previous C mel frames, then the segment's;
+        """A continuation segment: ``mel_ctx`` (B, C + F * n_steady + tail,
+        D) holds each stream's previous C mel frames, then the segment's;
         ``s_tail`` / ``w_tail`` the previous segment's.  Returns (wav
-        (1, (F * n_steady + tail) * u) f32, s_tail, w_tail); the segments
+        (B, (F * n_steady + tail) * u) f32, s_tail, w_tail); the segments
         joined give the one-pass ``vocode`` bit for bit."""
-        self._check(mel_ctx)
         dt = self.dec._dt()
         f, c = self.F, self.C
         outs = []

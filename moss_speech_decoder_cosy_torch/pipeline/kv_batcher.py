@@ -22,7 +22,9 @@ one wavefront forward per tick whatever their positions:
 With ``fused=False`` the lanes run the concat dataflow (JAX
 ``CausalConditionalCFMWaveLanes`` with ``fused=False``): attention over
 [ring ++ chunk], each row's chunk written after the estimator, over rings at
-their canonical capacity, on the unfused engine.
+their canonical capacity, on the unfused engine.  ``ring_quant=True`` (concat
+lanes only) keeps the lane rings as int8 values with per-frame f32 scales,
+each row's chunk quantized and written through ``write_ring_leaf``.
 
 State lives on the device in pools made once: the est rings (``(ring +
 hop) * ratio`` slots for the fused dataflow, ``ring * ratio`` for the
@@ -67,20 +69,11 @@ from ..models.flow.kv_stream import (
     dyn_slice, est_cache_from_flat, est_cache_to_flat, extend_rings_for_fused,
     fuse_qkv_params, group_estimator_params, init_est_pool, init_kv_cache,
     kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables,
-    shrink_rings_from_fused, spk_embedding, ungroup_est_flat,
+    shrink_rings_from_fused, spk_embedding, tensor_leaves, ungroup_est_flat,
     wave_lanes_step, wave_lanes_step_kernel)
 from ..utils.flops import DispatchMeter
 from .kv_session import (KVVocState, StepGraphs, estimator_kernel_limit,
                          vocode_hop)
-
-
-def _leaves(tree):
-    """The tensors of a nested dict."""
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 def _pairs(a: Dict, b: Dict):
@@ -134,7 +127,8 @@ class KVContinuousBatcher:
     ``kernel=True`` raises a ValueError naming the limit where it does not.
     ``graphs`` replays the wavefront tick, the encoder hop, the steady
     vocoder hop and the finalize hop as CUDA graphs on a CUDA device.  ``ticks`` counts the
-    wavefront ticks run.  ``fused=False`` runs the concat dataflow.
+    wavefront ticks run.  ``fused=False`` runs the concat dataflow;
+    ``ring_quant=True`` (which needs it) keeps the lane rings in int8.
     ``meter`` (``utils/flops.py``), once enabled, counts the graphed steps
     and the eager calls; ``measured_flops()`` sums their FLOPs."""
 
@@ -143,9 +137,10 @@ class KVContinuousBatcher:
                  ring_tokens: Optional[int] = None, token_cap: int = 1024,
                  fused: bool = True, ring_quant: bool = False,
                  kernel="auto", graphs: bool = True):
-        if ring_quant:
-            raise NotImplementedError("int8 estimator rings (ring_quant) are "
-                                      "ROADMAP item A3")
+        if ring_quant and fused:
+            raise ValueError("ring_quant needs the concat dataflow "
+                             "(fused=False)")
+        self._quant = bool(ring_quant)
         self.dec = dec
         self._fused = bool(fused)
         self._dataflow = "fused" if self._fused else "concat"
@@ -210,7 +205,7 @@ class KVContinuousBatcher:
                                     self.cf, self.n_mel)
         cfg = self.cfg
         self._est_g = init_est_pool(cfg, s * 2 * lanes, self.rp, self.est_dt,
-                                    dev)
+                                    dev, quant=self._quant)
         self._est = ungroup_est_flat(self._est_g, cfg.estimator)
         sd = (torch.float32 if cfg.cfm.solver_dtype == "float32"
               else self.dt)
@@ -230,7 +225,8 @@ class KVContinuousBatcher:
         self._tok = longs(lanes, self.cap + self.hop + self.la + 1)
         # a batch-1 canonical cache for a lane's prefill and finalize hop
         self._scratch = init_kv_cache(cfg, self.ring_tokens, dtype=self.dt,
-                                      est_dtype=self.est_dt, device=dev)
+                                      est_dtype=self.est_dt, device=dev,
+                                      est_quant=self._quant)
         self._scratch_flat = est_cache_to_flat(self._scratch["est"])
         # per-lane encoder caches (leading lane axis), token counts and
         # prompt lengths
@@ -265,8 +261,9 @@ class KVContinuousBatcher:
 
     def _lane_leaves(self, est: Dict):
         """(pool leaf, lane-sized leaf) pairs of two flat est caches: the
-        rings, then the conv caches."""
-        yield from zip(self._est["kv"], est["kv"])
+        rings (both leaves of an int8 ring), then the conv caches."""
+        yield from zip(tensor_leaves(self._est["kv"]),
+                       tensor_leaves(est["kv"]))
         yield from _pairs(self._est["convs"], est["convs"])
 
     # ------------------------------------------------------------- steps
@@ -366,8 +363,8 @@ class KVContinuousBatcher:
         caches into the pools (the JAX package's ``_maybe_prefill`` and
         ``_admit_scatter_impl``)."""
         flow, sc = self.dec.flow, self._scratch
-        for t in (list(sc["enc"].values()) + list(sc["est"]["kv"])
-                  + list(_leaves(sc["est"]["convs"]))):
+        for t in list(tensor_leaves(sc["enc"])) + list(
+                tensor_leaves(sc["est"])):
             t.zero_()
         enc = sc["enc"]
         if st.prompt_len:
@@ -559,16 +556,18 @@ class KVContinuousBatcher:
             for k, v in self._enc.items():
                 sc["enc"][k].copy_(v[lane])
             n_frames = (st.prompt_len + st.k_total * self.hop) * self.ratio
-            lane_kv = tuple(
-                self._lane_view(a, lane).reshape((-1,) + tuple(a.shape[1:]))
-                for a in self._est["kv"])
+            def lane_rows(a):
+                return self._lane_view(a, lane).reshape(
+                    (-1,) + tuple(a.shape[1:]))
             if self._fused:
-                shrink_rings_from_fused({"kv": lane_kv, "convs": {}},
-                                        n_frames, self.cf, 0,
-                                        out=self._scratch_flat["kv"])
+                shrink_rings_from_fused(
+                    {"kv": tuple(lane_rows(a) for a in self._est["kv"]),
+                     "convs": {}}, n_frames, self.cf, 0,
+                    out=self._scratch_flat["kv"])
             else:
-                for leaf, ring in zip(self._scratch_flat["kv"], lane_kv):
-                    leaf.copy_(ring)
+                for leaf, ring in zip(tensor_leaves(self._scratch_flat["kv"]),
+                                      tensor_leaves(self._est["kv"])):
+                    leaf.copy_(lane_rows(ring))
             for pool, leaf in _pairs(self._est["convs"],
                                      self._scratch_flat["convs"]):
                 leaf.copy_(self._lane_view(pool, lane).reshape(leaf.shape))

@@ -40,6 +40,16 @@ The kernel engine needs the fused dataflow and the shared offset.
 ``program_flops(n)`` counts one decode's FLOPs through the session's
 ``meter`` (``utils/flops.py``).
 
+Lockstep streams (``batch=B``): B streams of the same length decode
+together, every buffer, device scalar and graph sized for B.  Tokens are
+(B, T); a prompt with a leading dim of 1 is shared by every stream.  The
+wavefront's estimator then runs S * 2B rows (row order s * 2B + cfg * B +
+b), one ``fused_tf_group`` launch per group as at B = 1, and the audio
+comes back as (B, samples).  ``ring_quant=True`` stores the estimator rings
+as int8 values with per-frame f32 scales (``kv_stream.quantize_ring_chunk``):
+it needs the concat dataflow (``fused=False``) and runs the unfused engine
+with per-row writes, as the JAX package does.
+
 The estimator rings live in HBM at 56 layers x (S*2B, ring + chunk,
 2*inner): 367 MB per stream in bf16 at the MOSS geometry.  They are updated
 IN PLACE (the kernel writes each chunk into its ring), which takes the
@@ -92,8 +102,8 @@ from ..models.flow.kv_stream import (
     extend_rings_for_fused, fuse_qkv_params, group_encoder_params,
     group_estimator_params, init_est_pool, init_kv_cache,
     kv_flow_encode_step, kv_flow_step, noise_chunk, pe_tables, rotate_rings,
-    shrink_rings_from_fused, spk_embedding, ungroup_est_flat, wave_step,
-    wave_step_kernel)
+    shrink_rings_from_fused, spk_embedding, tensor_leaves, ungroup_est_flat,
+    wave_step, wave_step_kernel)
 from ..ops.fused_block import kernel_limit, launch_fused_tf_group
 from ..ops.fused_conformer import launch_fused_conformer_group
 from ..utils.flops import DispatchMeter
@@ -227,23 +237,36 @@ def vocode_hop(hift, fade_in: torch.Tensor, fade_out: torch.Tensor,
 
 class KVStreamDecoder:
     """Incremental streaming decoder bound to an ``AudioDecoder``'s modules,
-    one stream.  Geometry: ``block_size`` tokens per hop, a ring of
-    ``ring_tokens`` tokens of left context, streams of at most
+    ``batch`` lockstep streams.  Geometry: ``block_size`` tokens per hop, a
+    ring of ``ring_tokens`` tokens of left context, streams of at most
     ``token_cap`` tokens; ``fused`` selects the write-then-attend wavefront
     (else the concat dataflow), ``write_mode="onehot"`` the per-row write
-    (the shared offset needs ``ring_tokens % block_size == 0``); ``graphs``
+    (the shared offset needs ``ring_tokens % block_size == 0``);
+    ``ring_quant`` int8 estimator rings (concat dataflow only); ``graphs``
     replays the wavefront iteration and the per-hop step as CUDA graphs on
-    a CUDA device."""
+    a CUDA device.  ``enc_kernel`` with ``batch > 1`` raises."""
 
     def __init__(self, dec, prompt_token: np.ndarray,
                  prompt_feat: np.ndarray, embedding: np.ndarray,
                  block_size: int, ring_tokens: int = 35,
                  token_cap: int = 2048, fused: bool = True, kernel="auto",
                  enc_kernel: bool = False, graphs: bool = True,
-                 write_mode: str = "auto"):
+                 write_mode: str = "auto", batch: int = 1,
+                 ring_quant: bool = False):
         if write_mode not in ("auto", "onehot"):
             raise ValueError(f"write_mode {write_mode!r}: 'auto' or 'onehot'")
+        if batch < 1:
+            raise ValueError(f"batch {batch}: at least one stream")
+        if ring_quant and fused:
+            raise ValueError("ring_quant needs the concat dataflow "
+                             "(fused=False)")
+        if enc_kernel and batch > 1:
+            raise ValueError("enc_kernel runs one stream: the "
+                             "fused_conformer_group kernel takes batch 1, "
+                             f"not {batch}")
         self.dec = dec
+        self.b = batch
+        self._quant = bool(ring_quant)
         self.hop = block_size
         self.ring_tokens = ring_tokens
         self.token_cap = token_cap
@@ -263,7 +286,7 @@ class KVStreamDecoder:
         self._dataflow = "fused" if self._fused else "concat"
         # the shared-offset write needs the ring a multiple of the hop; else
         # (or with write_mode="onehot") each row writes at its own position
-        self._dus_ok = (write_mode == "auto"
+        self._dus_ok = (write_mode == "auto" and not self._quant
                         and ring_tokens % block_size == 0)
         self._write = "dus" if self._dus_ok else "onehot"
         # prompt alignment of the shared write offset (frames % hop)
@@ -271,7 +294,7 @@ class KVStreamDecoder:
         est_cfg = cfg.estimator
         why = estimator_kernel_limit(
             est_cfg, self.cf, ring_tokens * self.ratio + self.cf, self.est_dt)
-        kernel_ok = (self._fused and self._dus_ok
+        kernel_ok = (self._fused and self._dus_ok and not self._quant
                      and est_cfg.act_fn == "gelu" and not why)
         if kernel == "auto":
             kernel = kernel_ok
@@ -286,11 +309,19 @@ class KVStreamDecoder:
         self._graph = self._steps.graphs
         self._copier = None            # the D2H copy stream, made at use
 
-        self._prompt_tok = torch.as_tensor(np.asarray(prompt_token),
+        def bcast(a):              # one prompt shared by every stream
+            a = np.asarray(a)
+            if a.shape[0] == 1 and batch > 1:
+                a = np.broadcast_to(a, (batch,) + a.shape[1:])
+            if a.shape[0] != batch:
+                raise ValueError(f"a prompt of {a.shape[0]} rows for "
+                                 f"{batch} streams")
+            return np.array(a)
+        self._prompt_tok = torch.as_tensor(bcast(prompt_token),
                                            dtype=torch.long).to(self.dev)
         self._prompt_feat = torch.as_tensor(
-            np.asarray(prompt_feat, np.float32)).to(self.dev, self.dt)
-        self._emb = torch.as_tensor(np.asarray(embedding, np.float32)).to(
+            bcast(prompt_feat).astype(np.float32)).to(self.dev, self.dt)
+        self._emb = torch.as_tensor(bcast(embedding).astype(np.float32)).to(
             self.dev, self.dt)
         self._pe_tok, self._pe_mel = pe_tables(cfg, token_cap + self.p + 16,
                                                self.dev)
@@ -325,22 +356,24 @@ class KVStreamDecoder:
         writes these addresses."""
         dev, cfg = self.dev, self.dec.flow_cfg
         est_cfg = cfg.estimator
-        cache = init_kv_cache(cfg, self.ring_tokens, dtype=self.dt,
-                              est_dtype=self.est_dt, device=dev)
+        b = self.b
+        cache = init_kv_cache(cfg, self.ring_tokens, batch=b, dtype=self.dt,
+                              est_dtype=self.est_dt, device=dev,
+                              est_quant=self._quant)
         cache["n_tok"] = torch.zeros((), dtype=torch.long, device=dev)
         # the extended rings in the kernel's grouped layout, and the flat
         # layout of the unfused engine as views of them; the canonical conv
         # caches are views of the same conv caches
-        rows = self.s_steps * 2
+        rows = self.s_steps * 2 * b
         rp = self.ring_tokens * self.ratio + (self.cf if self._fused else 0)
-        self._ext_g = init_est_pool(cfg, rows, rp, self.est_dt, dev)
+        self._ext_g = init_est_pool(cfg, rows, rp, self.est_dt, dev,
+                                    quant=self._quant)
         self._ext = ungroup_est_flat(self._ext_g, est_cfg)
         if not self._fused:
             # concat dataflow: the wavefront's flat rings are the canonical
             # ones, so the canonical rings are views of them
-            cache["est"]["kv"] = tuple(
-                a.view((self.s_steps, 2) + tuple(a.shape[1:]))
-                for a in self._ext["kv"])
+            cache["est"]["kv"] = est_cache_from_flat(
+                {"kv": self._ext["kv"], "convs": {}}, self.s_steps)["kv"]
         cache["est"]["convs"] = est_cache_from_flat(
             {"kv": (), "convs": self._ext["convs"]}, self.s_steps)["convs"]
         self._cache = cache
@@ -350,17 +383,17 @@ class KVStreamDecoder:
         s, cf, n_mel = self.s_steps, self.cf, self.n_mel
         sd = (torch.float32 if cfg.cfm.solver_dtype == "float32"
               else self.dt)
-        self._x_w = torch.zeros((s, 1, cf, n_mel), dtype=sd, device=dev)
-        self._mu_w = torch.zeros((s, 1, cf, n_mel), dtype=self.est_dt,
+        self._x_w = torch.zeros((s, b, cf, n_mel), dtype=sd, device=dev)
+        self._mu_w = torch.zeros((s, b, cf, n_mel), dtype=self.est_dt,
                                  device=dev)
-        self._mu_zero = torch.zeros((1, cf, n_mel), dtype=self.dt,
+        self._mu_zero = torch.zeros((b, cf, n_mel), dtype=self.dt,
                                     device=dev)
         self._w, self._k, self._base = (
             torch.zeros((), dtype=torch.long, device=dev) for _ in range(3))
         # exit mel of iteration w at row w
-        self._mels = torch.zeros((self.token_cap // self.hop + s, 1, cf,
+        self._mels = torch.zeros((self.token_cap // self.hop + s, b, cf,
                                   n_mel), dtype=torch.float32, device=dev)
-        self._tok = torch.zeros((1, self.token_cap + self.hop + self.la + 1),
+        self._tok = torch.zeros((b, self.token_cap + self.hop + self.la + 1),
                                 dtype=torch.long, device=dev)
         self._hop_out: Dict[Tuple[int, bool], torch.Tensor] = {}
 
@@ -371,21 +404,17 @@ class KVStreamDecoder:
         if self._cache is None:
             self._alloc()
         c = self._cache
-        for t in (list(c["enc"].values()) + list(c["est"]["kv"])
-                  + [c["n_tok"]]):
+        for t in list(tensor_leaves(c["enc"])) + list(tensor_leaves(
+                c["est"])) + [c["n_tok"]]:
             t.zero_()
-
-        def zero(tree):
-            for v in tree.values():
-                zero(v) if isinstance(v, dict) else v.zero_()
-        zero(c["est"]["convs"])
         z = lambda *s: torch.zeros(s, device=self.dev)  # noqa: E731
-        return c, KVVocState(z(1, self.mel_cache_len, self.n_mel),
-                             z(1, self.scl, 1), z(1, self.scl))
+        b = self.b
+        return c, KVVocState(z(b, self.mel_cache_len, self.n_mel),
+                             z(b, self.scl, 1), z(b, self.scl))
 
     @torch.inference_mode()
     def _token_buf(self, tokens: np.ndarray) -> torch.Tensor:
-        """The session's token buffer holding ``tokens`` (1, n <= token_cap)
+        """The session's token buffer holding ``tokens`` (B, n <= token_cap)
         then zeros: one upload."""
         n = tokens.shape[1]
         if n > self.token_cap:
@@ -427,7 +456,7 @@ class KVStreamDecoder:
         n_tok (the JAX package's ``_hop_impl``); the mel into ``out``."""
         cache = self._cache
         chunk, ctx = self._slices(self._tok, cache["n_tok"], emit_tokens)
-        cond = torch.zeros((1, emit_tokens * self.ratio, self.n_mel),
+        cond = torch.zeros((self.b, emit_tokens * self.ratio, self.n_mel),
                            dtype=self.dt, device=self.dev)
         mel, new = kv_flow_step(self.dec.flow, self._fw, chunk, ctx, cond,
                                 self._emb, cache, self._pe_tok, self._pe_mel,
@@ -477,13 +506,14 @@ class KVStreamDecoder:
     def _hop(self, token_buf, cache, emit_tokens: int, finalize: bool):
         """One flow hop through the per-hop KV step: the next chunk (and its
         lookahead) at the cache's own position, replayed as a graph per
-        ``(emit_tokens, finalize)``.  Returns (mel f32, cache)."""
+        ``(emit_tokens, finalize)``.  Returns (mel (B, frames, n_mel) f32,
+        cache)."""
         self._own(token_buf, cache)
         key = (emit_tokens, bool(finalize))
         out = self._hop_out.get(key)
         if out is None:
             out = self._hop_out[key] = torch.empty(
-                (1, emit_tokens * self.ratio, self.n_mel),
+                (self.b, emit_tokens * self.ratio, self.n_mel),
                 dtype=torch.float32, device=self.dev)
         self._run(("hop",) + key, functools.partial(
             self._hop_impl, emit_tokens, bool(finalize), out))
@@ -492,7 +522,7 @@ class KVStreamDecoder:
     @torch.inference_mode()
     def _voc(self, emit_mel, voc: KVVocState, first: bool, finalize: bool):
         """HiFT with the mel/source caches and the Hamming cross-fade.
-        Returns (wav chunk (1, n) f32, new state)."""
+        Returns (wav chunk (B, n) f32, new state)."""
         return self.meter.call(
             ("voc", first, finalize, emit_mel.shape[1]),
             lambda: vocode_hop(self.dec.hift, self._fade_in, self._fade_out,
@@ -512,7 +542,7 @@ class KVStreamDecoder:
 
     # -------------------------------------------------------------- flow
     def _flow_mels(self, token_buf, cache, plan):
-        """The flow side of the plan hop by hop: (mel (1, T, n_mel), cache)."""
+        """The flow side of the plan hop by hop: (mel (B, T, n_mel), cache)."""
         mels = []
         for emit_tokens, finalize in plan:
             mel, cache = self._hop(token_buf, cache, emit_tokens, finalize)
@@ -534,7 +564,7 @@ class KVStreamDecoder:
     def _rot(self, rp: int) -> List[int]:
         """Per flat row, the slot rotation of the shared-offset scheme."""
         return [(s * self.cf) % rp for s in range(self.s_steps)
-                for _ in range(2)]
+                for _ in range(2 * self.b)]
 
     def _wave_enter(self, cache, k: int) -> None:
         """The wavefront's entry: the x / mu waves and positions reset, the
@@ -584,19 +614,23 @@ class KVStreamDecoder:
         forward per iteration, over the k + S - 1 live iterations; the rings
         are brought into the wavefront's layout before and back after, in
         place.  Then the finalize tail through the per-hop step.  Returns
-        (mel (1, T, n_mel) f32, cache)."""
+        (mel (B, T, n_mel) f32, cache)."""
         self._own(token_buf, cache)
         s_steps = self.s_steps
         k = sum(1 for _, fin in plan if not fin)
         self._wave_enter(cache, k)
         self._wave_iters(k, 0, k + s_steps - 1)
         self._wave_exit(cache, k)
-        mels = ([self._mels[s_steps - 1:s_steps - 1 + k].reshape(
-            1, k * self.cf, self.n_mel)] if k else [])
+        mels = [self._exit_mels(s_steps - 1, s_steps - 1 + k)] if k else []
         if plan and plan[-1][1]:
             mel, cache = self._hop(token_buf, cache, plan[-1][0], True)
             mels.append(mel)
         return torch.cat(mels, dim=1), cache
+
+    def _exit_mels(self, lo: int, hi: int) -> torch.Tensor:
+        """The exit mels of iterations lo .. hi - 1 as (B, frames, n_mel)."""
+        return self._mels[lo:hi].transpose(0, 1).reshape(
+            self.b, (hi - lo) * self.cf, self.n_mel)
 
     # ------------------------------------------------------ segmented
     def _seg_sizes(self, need: int, seg_iters: int,
@@ -625,7 +659,7 @@ class KVStreamDecoder:
         return sizes
 
     def _segment_wavs(self, token_buf, cache, plan, sizes):
-        """Yields each segment's wav (1, samples) f32 on the device: the
+        """Yields each segment's wav (B, samples) f32 on the device: the
         segment's wavefront iterations (the session's own steps and engine,
         graph replays on CUDA), then its chunks through the bulk vocoder,
         carrying the vocoder's tails to the next segment; the last segment
@@ -649,7 +683,7 @@ class KVStreamDecoder:
             w0 += size
             if n_new == 0 and not last:
                 continue
-            seg_mel = self._mels[lo:hi].reshape(1, n_new * cf, self.n_mel)
+            seg_mel = self._exit_mels(lo, hi)
             parts = [seg_mel]
             tf, n_hops = 0, n_new
             if last:
@@ -679,14 +713,14 @@ class KVStreamDecoder:
             yield wav
 
     def _copy_back(self, wavs, total: int, output: str):
-        """Copies each device wav of ``wavs`` into one host buffer (1,
+        """Copies each device wav of ``wavs`` into one host buffer (B,
         total) as it is enqueued (16-bit PCM quantized on the device for
         ``output="int16"``): on CUDA into pinned memory on a copy stream,
         each copy after an event of its wav.  Yields (host buffer, start,
         end, copy-done event or None) as each copy is enqueued."""
         cuda = self.dev.type == "cuda"
         dtype = torch.int16 if output == "int16" else torch.float32
-        host = torch.empty((1, total), dtype=dtype, pin_memory=cuda)
+        host = torch.empty((self.b, total), dtype=dtype, pin_memory=cuda)
         if cuda and self._copier is None:
             self._copier = torch.cuda.Stream(self.dev)
         off = 0
@@ -725,11 +759,10 @@ class KVStreamDecoder:
         """One token upload, a fresh state, the prompt prefill: (token
         buffer, cache, vocoder state, plan)."""
         tokens = np.asarray(tokens)
-        if tokens.ndim != 2 or tokens.shape[0] != 1:
-            raise NotImplementedError("one stream per session; lockstep "
-                                      "batches are ROADMAP item A3, "
-                                      "concurrent streams run through "
-                                      "AudioDecoder.kv_batcher")
+        if tokens.ndim != 2 or tokens.shape[0] != self.b:
+            raise ValueError(f"tokens {tokens.shape}: the session decodes "
+                             f"{self.b} lockstep streams, (B, T) with "
+                             f"B = {self.b}")
         token_buf = self._token_buf(tokens)
         cache, voc = self.init_state()
         if self.p:
@@ -749,7 +782,7 @@ class KVStreamDecoder:
                       bulk_voc: bool = True, wavefront: bool = True,
                       segmented: bool = False,
                       seg_iters: int = 32) -> np.ndarray:
-        """Whole-stream decode of (1, n) tokens -> (1, n*ratio*u) wav: one
+        """Whole-stream decode of (B, n) tokens -> (B, n*ratio*u) wav: one
         token upload, prompt prefill, the flow (wavefront or per hop), then
         bulk or per-hop vocoding, one copy back.  ``output="int16"``
         quantizes on the device to 16-bit PCM (``_pcm16`` of the f32
@@ -787,7 +820,7 @@ class KVStreamDecoder:
     @torch.inference_mode()
     def stream_chunks(self, tokens: np.ndarray, wavefront: bool = False,
                       seg_iters: int = 32):
-        """Yields the stream's wav as float32 (1, samples) chunks, each as
+        """Yields the streams' wav as float32 (B, samples) chunks, each as
         soon as its copy to the host is done, while later chunks compute and
         copy: the chunks are enqueued in turn, and after each one every
         chunk whose copy has landed is yielded.  Default: one chunk per hop
@@ -817,7 +850,7 @@ class KVStreamDecoder:
 
     def warmup(self, n_tokens: int) -> None:
         """Runs (and on CUDA captures) the steps of an n-token stream."""
-        self.stream_decode(np.zeros((1, n_tokens), np.int32))
+        self.stream_decode(np.zeros((self.b, n_tokens), np.int32))
 
     def program_flops(self, n_tokens: int, **decode_kw) -> float:
         """The FLOPs of one ``stream_decode(n_tokens, **decode_kw)`` as the
@@ -830,7 +863,7 @@ class KVStreamDecoder:
         self.meter.reset()
         self.meter.enabled = True
         try:
-            self.stream_decode(np.zeros((1, n_tokens), np.int32),
+            self.stream_decode(np.zeros((self.b, n_tokens), np.int32),
                                **decode_kw)
         finally:
             self.meter.enabled = False

@@ -8,7 +8,8 @@
   all lanes and fans the wav chunks out to per-request asyncio queues, and
   sleeps while ``KVContinuousBatcher.has_work()`` says a burst would advance
   nothing.
-- ``plan_lanes``: the device-memory plan of the est ring pool.
+- ``plan_lanes``: the device-memory plan of the est ring pool: full rings,
+  else int8 rings, else fewer lanes.
 
 The HTTP front end of the JAX module (``AudioBatcherHTTPServer``,
 ``decode_stream_client``) is not ported: it needs ``aiohttp`` and, for its
@@ -24,7 +25,7 @@ from typing import AsyncIterator, Dict, Optional
 import numpy as np
 import torch
 
-from ..models.flow.kv_stream import init_kv_cache
+from ..models.flow.kv_stream import est_cache_bytes, init_kv_cache
 
 
 class AudioStream:
@@ -58,54 +59,64 @@ class AudioStream:
         return chunk
 
 
-def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def plan_lanes(decoder, n_lanes: int, ring_tokens: Optional[int],
-               block_size: Optional[int], hbm_budget_bytes: int):
-    """Device-memory plan of the est pool for ``n_lanes`` lanes: the lanes'
-    extended rings and conv caches, counted from tensors on the ``meta``
-    device (nothing is allocated).  The rings carry ``ring + hop`` frames
-    in the write-then-attend layout; the conv caches are not extended.
-    Returns (n_lanes, False, per_lane_bytes, note) when the full-precision
-    pool fits ``hbm_budget_bytes``.  Where it does not, the JAX package
-    spills to int8 rings; that is ROADMAP item A3, and this raises
-    ``NotImplementedError`` rather than capping the lanes."""
+               block_size: Optional[int], hbm_budget_bytes: int,
+               fused: bool = True):
+    """Device-memory plan of the est pool (the JAX package's spill policy):
+    given a budget for the lanes' rings and conv caches, the cheapest
+    configuration that serves ``n_lanes``:
+
+    1. the full-precision rings (extended to ``ring + hop`` frames for the
+       write-then-attend dataflow when ``fused``), if they fit;
+    2. int8 rings (``ring_quant``, the concat dataflow), if they fit;
+    3. else int8 rings and the lanes capped to what the budget affords (a
+       request then waits for a free lane).
+
+    Bytes are counted from tensors on the ``meta`` device (nothing is
+    allocated); the extension covers the rings only, not the conv caches.
+    Returns (n_lanes, ring_quant, per_lane_bytes, note)."""
     hop = block_size or decoder.pipe_cfg.block_size
     ring = (ring_tokens if ring_tokens is not None
             else decoder.pipe_cfg.max_token_len - hop)
     dt = decoder.compute_dtype or torch.float32
-    est = init_kv_cache(decoder.flow_cfg, ring, dtype=dt,
-                        est_dtype=decoder.estimator_dtype or dt,
-                        device="meta")["est"]
-    rf = ring * decoder.ratio
-    rp = rf + hop * decoder.ratio
-    ring_b = _nbytes(est["kv"]) // rf * rp
 
-    def leaves(tree):
-        for v in tree.values():
-            yield from (leaves(v) if isinstance(v, dict) else (v,))
-    per_lane = ring_b + _nbytes(leaves(est["convs"]))
-    if n_lanes * per_lane <= hbm_budget_bytes:
-        return n_lanes, False, per_lane, "full-precision rings fit"
-    raise NotImplementedError(
-        f"{n_lanes} lanes need {n_lanes * per_lane} bytes of rings and conv "
-        f"caches, over the budget of {hbm_budget_bytes}; spilling to int8 "
-        f"rings is ROADMAP item A3")
+    def lane_bytes(quant: bool) -> int:
+        est = init_kv_cache(decoder.flow_cfg, ring, dtype=dt,
+                            est_dtype=decoder.estimator_dtype or dt,
+                            device="meta", est_quant=quant)["est"]
+        if not (fused and not quant):
+            return est_cache_bytes(est)
+        rf = ring * decoder.ratio
+        ring_b = est_cache_bytes({"kv": est["kv"]})
+        return (ring_b // rf * (rf + hop * decoder.ratio)
+                + est_cache_bytes({"convs": est["convs"]}))
+
+    full_b = lane_bytes(False)
+    if n_lanes * full_b <= hbm_budget_bytes:
+        return n_lanes, False, full_b, "full-precision rings fit"
+    q_b = lane_bytes(True)
+    if n_lanes * q_b <= hbm_budget_bytes:
+        return (n_lanes, True, q_b,
+                f"spilled to int8 rings ({full_b} -> {q_b} bytes a lane)")
+    capped = max(1, hbm_budget_bytes // q_b)
+    return (capped, True, q_b,
+            f"int8 rings and lanes capped {n_lanes} -> {capped} (budget "
+            f"{hbm_budget_bytes} bytes)")
 
 
 class AudioBatchEngine:
     """Lane admission and the pump loop over one ``KVContinuousBatcher``.
 
-    ``hbm_budget_bytes`` (optional) checks the pool against ``plan_lanes``
-    before allocating it; the plan is kept in ``self.lane_plan``."""
+    ``hbm_budget_bytes`` (optional) applies ``plan_lanes`` before the pool
+    is allocated: the batcher opens with the plan's lanes and
+    ``ring_quant``; the plan is kept in ``self.lane_plan``."""
 
     def __init__(self, decoder, n_lanes: int = 4,
                  block_size: Optional[int] = None,
                  ring_tokens: Optional[int] = None, token_cap: int = 1024,
                  pump_iters: int = 8, idle_sleep_s: float = 0.002,
                  hbm_budget_bytes: Optional[int] = None):
+        ring_quant = False
         self.lane_plan = None
         if hbm_budget_bytes is not None:
             n_lanes, ring_quant, per_lane, note = plan_lanes(
@@ -114,7 +125,7 @@ class AudioBatchEngine:
                               "per_lane_bytes": per_lane, "note": note}
         self.batcher = decoder.kv_batcher(
             n_lanes=n_lanes, block_size=block_size, ring_tokens=ring_tokens,
-            token_cap=token_cap)
+            token_cap=token_cap, ring_quant=ring_quant)
         self.decoder = decoder
         self.pump_iters = pump_iters
         self.idle_sleep_s = idle_sleep_s

@@ -11,6 +11,10 @@ and every leaf is used exactly once.  Layouts:
   ``ConvTranspose1d`` is torch's with ``W[i, o, k] = kernel[k, i, o]``)
 - LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
 - weight-norm ``g``, ``bias``, Snake ``alpha``, ``pos_bias_u/v`` as they are
+- the tokenizer's ``embed_positions`` and ``codebook`` as they are
+- CAM++: Conv2d kernel (KH, KW, I, O) -> (O, I, KH, KW), BatchNorm ``scale``
+  -> ``weight`` and its ``mean`` / ``var`` -> the ``running_mean`` /
+  ``running_var`` buffers
 """
 
 from __future__ import annotations
@@ -40,18 +44,22 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def state_from_jax_tree(params: Mapping[str, Any],
-                        is_transpose: Callable[[str], bool] = lambda mod: False
+                        is_transpose: Callable[[str], bool] = (
+                            lambda mod: False),
+                        same=frozenset(), renamed=None
                         ) -> Dict[str, torch.Tensor]:
     """Any flax param tree -> state dict by the layout rules above;
-    ``is_transpose(module_path)`` marks conv-transpose kernels."""
+    ``is_transpose(module_path)`` marks conv-transpose kernels; ``same``
+    more leaf names kept as they are, ``renamed`` more leaf renames."""
     tree = params.get("params", params)
+    renames = dict(_RENAME, **(renamed or {}))
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(tree):
         mod, name = ".".join(path[:-1]), path[-1]
-        if name in _SAME:
+        if name in _SAME or name in same:
             new, arr = name, leaf
-        elif name in _RENAME:
-            new, arr = _RENAME[name], leaf
+        elif name in renames:
+            new, arr = renames[name], leaf
         elif name in ("kernel", "v"):
             new = "weight" if name == "kernel" else "v"
             if leaf.ndim == 2:
@@ -59,6 +67,8 @@ def state_from_jax_tree(params: Mapping[str, Any],
             elif leaf.ndim == 3:
                 arr = leaf.transpose((1, 2, 0) if is_transpose(mod)
                                      else (2, 1, 0))
+            elif leaf.ndim == 4:
+                arr = leaf.transpose(3, 2, 0, 1)
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
         else:
@@ -92,6 +102,23 @@ def hift_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         params, lambda mod: re.fullmatch(r"ups_\d+", mod) is not None)
 
 
+def tokenizer_state_from_jax(params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX ``WhisperVQEncoder`` params (numpy leaves) -> state dict of this
+    package's ``tokenizer.WhisperVQEncoder``."""
+    return state_from_jax_tree(params,
+                               same={"embed_positions", "codebook"})
+
+
+def campplus_state_from_jax(params: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``CAMPPlus`` params (numpy leaves, the BatchNorm running
+    statistics among them) -> state dict of this package's
+    ``models.campplus.CAMPPlus``."""
+    return state_from_jax_tree(params, renamed={"mean": "running_mean",
+                                                "var": "running_var"})
+
+
 # modules the JAX HiFT initialises with normal(0.01) (its ``_INIT_001``)
 _SMALL_INIT = re.compile(r"(?:^|\.)(?:ups_\d+|conv_post|conv[12]_\d+)$")
 
@@ -103,7 +130,11 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     weights are lecun-normal (std 1/sqrt(fan_in)), HiFT's ``_INIT_001``
     convs normal(0.01), weight-norm gains ||v|| (so the kernel starts equal
     to v), norms and Snake alphas ones, biases zeros, pos biases
-    xavier-uniform, embeddings normal(1)."""
+    xavier-uniform, embeddings normal(1), the tokenizer's position table
+    and codebook normal(0.02); a BatchNorm's running mean normal(0.1) and
+    running variance uniform in [0.5, 1.5], so that inference BatchNorm is
+    not the identity."""
+    from .models.campplus import BatchNorm, Conv2d
     g = torch.Generator().manual_seed(seed)
     state: Dict[str, torch.Tensor] = {}
 
@@ -124,6 +155,12 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
                 val = (torch.rand(shape, generator=g, device="cpu") * 2 - 1) * bound
             elif isinstance(mod, nn.Embedding):
                 val = normal(shape, 1.0)
+            elif name in ("embed_positions", "codebook"):
+                val = normal(shape, 0.02)
+            elif isinstance(mod, BatchNorm):
+                val = torch.ones(shape, device="cpu")
+            elif isinstance(mod, Conv2d):
+                val = normal(shape, 1.0 / math.sqrt(math.prod(shape[1:])))
             elif isinstance(mod, nn.Linear):
                 val = normal(shape, 1.0 / math.sqrt(shape[1]))
             elif isinstance(mod, (Conv1d, ConvTranspose1d)) and name in (
@@ -137,6 +174,11 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"no init rule for {pre}{name}")
             state[pre + name] = val
+        if isinstance(mod, BatchNorm):
+            n = mod.running_mean.shape[0]
+            state[pre + "running_mean"] = normal((n,), 0.1)
+            state[pre + "running_var"] = 0.5 + torch.rand(
+                (n,), generator=g, device="cpu")
         if getattr(mod, "weight_norm", False):
             v = state[pre + "v"]
             state[pre + "g"] = torch.sqrt((v * v).sum(dim=(1, 2)))

@@ -7,9 +7,11 @@ CPU, tiny configs, f32:
   ``test_engine_concurrent_clients_match_sequential``);
 - ``plan_lanes`` counts ring and conv-cache bytes apart: its per-lane bytes
   equal the batcher's allocated pool over its lanes and are at most the
-  JAX package's figure (which extends the conv caches too); a budget that
-  fits gives the JAX package's plan, and one that needs int8 rings
-  raises."""
+  JAX package's figure (which extends the conv caches too); over budgets
+  that hit each of its three branches (full rings, the spill to int8
+  rings, int8 rings with the lanes capped) it gives the JAX package's
+  ``(n_lanes, ring_quant)``, and the engine opens its batcher with the
+  plan's lanes and int8 rings."""
 
 import asyncio
 import dataclasses
@@ -20,6 +22,7 @@ import torch
 
 from moss_speech_decoder_cosy_tpu.serving import audio_batcher as JB
 from moss_speech_decoder_cosy_tpu.utils import config as jcfg
+from moss_speech_decoder_cosy_torch.models.flow import kv_stream as T
 from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
 from moss_speech_decoder_cosy_torch.serving.audio_batcher import (
     AudioBatchEngine, plan_lanes)
@@ -110,36 +113,75 @@ def _jax_stand_in(dec):
     return d
 
 
-def test_plan_lanes_counts_the_pool(dec):
-    n, quant, per_lane, note = plan_lanes(dec, 4, RING, HOP, 1 << 30)
-    assert (n, quant) == (4, False) and "fit" in note
+def _allocated(b) -> int:
+    """Bytes of a batcher's est pool: rings (and int8 scales), conv
+    caches."""
+    return T.est_cache_bytes(b._est_g)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+def test_plan_lanes_counts_the_pool(dec, quant):
+    budget = 1 << 30
+    if quant:                      # just under the full rings of 4 lanes
+        budget = 4 * plan_lanes(dec, 4, RING, HOP, 1 << 30)[2] - 1
+    n, got_quant, per_lane, note = plan_lanes(dec, 4, RING, HOP, budget)
+    assert (n, got_quant) == (4, quant)
+    assert ("int8" if quant else "fit") in note
     b = dec.kv_batcher(n_lanes=4, block_size=HOP, ring_tokens=RING,
-                       token_cap=16)
-    pool = b._est_g
-    leaves = (list(pool["kv"]["mid"]) + [pool["kv"]["down"],
-                                         pool["kv"]["up"]])
-    stack = [pool["convs"]]
-    while stack:
-        for v in stack.pop().values():
-            (stack.append if isinstance(v, dict) else leaves.append)(v)
-    allocated = sum(t.numel() * t.element_size() for t in leaves)
-    assert per_lane * 4 == allocated
+                       token_cap=16, ring_quant=quant)
+    assert per_lane * 4 == _allocated(b)
     jn, jquant, jper_lane, _ = JB.plan_lanes(_jax_stand_in(dec), 4, RING,
-                                             HOP, 1 << 30)
-    assert (jn, jquant) == (n, quant)
+                                             HOP, budget)
+    assert (jn, jquant) == (n, got_quant)
     assert per_lane <= jper_lane
 
 
-def test_plan_lanes_needing_int8_rings_raises(dec):
-    _, _, per_lane, _ = plan_lanes(dec, 4, RING, HOP, 1 << 30)
-    assert plan_lanes(dec, 4, RING, HOP, 4 * per_lane)[0] == 4
-    with pytest.raises(NotImplementedError, match="A3"):
-        plan_lanes(dec, 4, RING, HOP, 4 * per_lane - 1)
-    with pytest.raises(NotImplementedError, match="A3"):
-        AudioBatchEngine(dec, n_lanes=4, block_size=HOP, ring_tokens=RING,
-                         hbm_budget_bytes=4 * per_lane - 1)
+def test_plan_lanes_spills_and_caps_as_jax(dec):
+    full = plan_lanes(dec, 4, RING, HOP, 1 << 30)[2]
+    q = plan_lanes(dec, 4, RING, HOP, 4 * full - 1)[2]
+    assert q < full
+    jdec = _jax_stand_in(dec)
+    jfull = JB.plan_lanes(jdec, 4, RING, HOP, 1 << 30)[2]
+    assert jfull >= full          # the JAX package extends the conv caches
+    assert plan_lanes(dec, 4, RING, HOP, 4 * full)[:2] == (4, False)
+    for budget, want in ((4 * jfull, (4, False)), (4 * full - 1, (4, True)),
+                         (4 * q, (4, True)), (4 * q - 1, (3, True)),
+                         (q + 1, (1, True)), (1, (1, True))):
+        n, quant, per_lane, _ = plan_lanes(dec, 4, RING, HOP, budget)
+        jn, jquant, jper_lane, _ = JB.plan_lanes(jdec, 4, RING, HOP, budget)
+        assert (n, quant) == (jn, jquant) == want, budget
+        assert per_lane <= jper_lane
     engine = AudioBatchEngine(dec, n_lanes=4, block_size=HOP,
                               ring_tokens=RING, token_cap=16,
-                              hbm_budget_bytes=4 * per_lane)
-    assert engine.lane_plan["per_lane_bytes"] == per_lane
-    assert torch.device(engine.batcher.dev).type == "cpu"
+                              hbm_budget_bytes=3 * q)
+    assert engine.lane_plan["ring_quant"] is True
+    assert engine.lane_plan["n_lanes"] == engine.batcher.lanes == 3
+    b = engine.batcher
+    assert b._quant and not b._fused and not b._kernel
+    assert _allocated(b) == 3 * q
+    assert torch.device(b.dev).type == "cpu"
+
+
+def test_engine_on_int8_rings_serves_a_stream(dec):
+    """The capped int8 engine serves a stream as the int8 batcher does."""
+    q = plan_lanes(dec, 4, RING, HOP, 1)[2]
+    (ptok, pfeat, emb, toks), _ = _streams(dec)
+
+    async def run():
+        engine = AudioBatchEngine(dec, n_lanes=4, block_size=HOP,
+                                  ring_tokens=RING, token_cap=64,
+                                  hbm_budget_bytes=q)
+        assert engine.batcher.lanes == 1 and engine.batcher._quant
+        return await _client(engine, ptok, pfeat, emb, toks, pieces=2)
+
+    got = asyncio.run(run())
+    b = dec.kv_batcher(n_lanes=1, block_size=HOP, ring_tokens=RING,
+                       token_cap=64, ring_quant=True)
+    lane = b.admit(ptok, pfeat, emb)
+    b.push(lane, toks)
+    b.finish(lane)
+    chunks = []
+    while b._lanes[lane].active:
+        chunks.extend(b.pump().values())
+    np.testing.assert_allclose(got, np.concatenate(chunks, axis=1),
+                               atol=2e-5, rtol=0)

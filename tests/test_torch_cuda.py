@@ -908,3 +908,80 @@ def test_program_flops_same_on_card_and_cpu(card, enc_kernel):
     want = _tiny_kv_sessions(torch.device("cpu"),
                              enc_kernel)[0].program_flops(30)
     assert got == want > 0
+
+
+@pytest.mark.parametrize("kw", [dict(batch=2), dict(ring_quant=True),
+                                dict(batch=2, ring_quant=True)],
+                         ids=["lockstep", "int8", "int8_lockstep"])
+def test_graphed_lockstep_and_int8_sessions_match_eager(card, kw):
+    """Lockstep streams (the kernel engine at 2 * B * S rows, one
+    fused_tf_group launch a group as at batch 1) and int8 rings (the
+    unfused concat engine, no kernel), graphed against eager on the card,
+    f32, twice so the second pass replays every graph: equal."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    graphed, eager = _tiny_kv_sessions(card, False, **kw)
+    b = kw.get("batch", 1)
+    assert graphed.b == b and graphed._kernel is not kw.get("ring_quant",
+                                                            False)
+    tokens = np.random.RandomState(12).randint(
+        0, graphed.dec.flow_cfg.vocab_size, (b, 30))
+    k = sum(1 for _, fin in graphed.schedule(30) if not fin)
+    wavs = {}
+    for sess in (graphed, eager):
+        for rep in range(2):
+            fb.launch_fused_tf_group.launches = 0
+            wavs[sess._graphs, rep] = sess.stream_decode(tokens)
+            assert fb.launch_fused_tf_group.launches == (
+                0 if kw.get("ring_quant") else (k + sess.s_steps - 1) * 3)
+    assert wavs[True, 0].shape[0] == b and ("wave", True) in graphed._graph
+    np.testing.assert_array_equal(wavs[True, 1], wavs[True, 0])
+    np.testing.assert_array_equal(wavs[True, 0], wavs[False, 0])
+    if b > 1:
+        assert np.abs(wavs[True, 0][0] - wavs[True, 0][1]).max() > 0
+
+
+def test_tokenizer_step_on_card_matches_cpu(card):
+    """The tiny WhisperVQ encoder's streaming step on the card (f32, no
+    host sync inside a step: the position is a device scalar) against the
+    same step on the CPU: pooled features within 1e-5, tokens equal; and
+    the batch forward on the card equal to its stream."""
+    from moss_speech_decoder_cosy_torch.tokenizer import (
+        WhisperVQEncoder, tiny_tokenizer_config)
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+    cfg = tiny_tokenizer_config()
+    with torch.device("meta"):
+        meta = WhisperVQEncoder(cfg)
+    state = seeded_state(meta, 3)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        with torch.device("meta"):
+            m = WhisperVQEncoder(cfg)
+        m.load_state_dict(state, strict=True, assign=True)
+        models[dev] = m.to(dev).eval()
+    mel = torch.from_numpy(np.random.RandomState(13).randn(
+        1, 40, cfg.num_mel_bins).astype(np.float32))
+    out = {}
+    with torch.inference_mode():
+        for dev, m in models.items():
+            st = m.init_state(1)
+            steps = []
+            for i in range(0, 40, 8):
+                chunk = mel[:, i:i + 8].to(dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    steps.append(m.step_features(chunk, st))
+                finally:
+                    if dev == "cuda":
+                        torch.cuda.set_sync_debug_mode("default")
+            out[dev] = [torch.cat([s[j] for s in steps], 1).cpu().numpy()
+                        for j in range(2)]
+        bids, _, bpooled = models["cuda"].encode(
+            mel.cuda(), torch.ones((1, 40), dtype=torch.bool, device="cuda"))
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(bids.cpu().numpy(), out["cuda"][0])
+    np.testing.assert_allclose(bpooled.cpu().numpy(), out["cuda"][1],
+                               atol=1e-5, rtol=0)

@@ -41,5 +41,8 @@ def test_scan_covers_the_package():
                 "models/flow/kv_stream.py", "pipeline/kv_session.py",
                 "pipeline/bulk_voc.py", "pipeline/kv_batcher.py",
                 "pipeline/device_session.py", "serving/audio_batcher.py",
-                "serving/session_manager.py", "utils/flops.py"):
+                "serving/session_manager.py", "utils/flops.py",
+                "tokenizer/model.py", "tokenizer/features.py",
+                "tokenizer/config.py", "ops/melspec.py",
+                "models/campplus.py", "codec.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod

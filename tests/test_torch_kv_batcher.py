@@ -20,9 +20,15 @@ port's NSF source gets the JAX draws.
   chunk written after the estimator, canonical-capacity rings): one tick
   against JAX ``KVLaneWaveStep(fused=False)`` and the staggered protocol
   against the JAX batcher with ``fused=False``, both within 2e-5.
+- The int8 lanes (``ring_quant=True``, concat lanes with int8 rings and
+  per-frame scales, each row's chunk written through ``write_ring_leaf``):
+  one tick against JAX ``KVLaneWaveStep(fused=False)`` over the same int8
+  rings (int8 values equal, scales and the rest within 2e-5) and the
+  staggered protocol against the JAX batcher with ``ring_quant=True``,
+  within 2e-5.
 - The dispatch meter: a second identical run doubles the dispatches and
   the FLOPs (the JAX package's ``test_dispatch_meter_aggregate_flops``).
-- The kernel gate and the option that is not ported.
+- The kernel gate.
 
 Torch runs on one thread here: tiny CPU decodes run ~20x slower on its
 default thread pool when the suite's workers load every core."""
@@ -163,14 +169,16 @@ def _batcher(dec, **kw):
 @pytest.fixture(scope="module")
 def jax_staggered(setup):
     """The JAX batcher (XLA engine) through the staggered protocol, once per
-    dataflow."""
+    dataflow (``quant``: int8 rings, which the JAX package runs on concat
+    lanes)."""
     got = {}
 
-    def run(fused=True):
-        if fused not in got:
-            got[fused] = staggered(_batcher(setup["jdec"], kernel=False,
-                                            fused=fused), setup["streams"])
-        return got[fused]
+    def run(fused=True, quant=False):
+        if (fused, quant) not in got:
+            got[fused, quant] = staggered(
+                _batcher(setup["jdec"], kernel=False, fused=fused,
+                         ring_quant=quant), setup["streams"])
+        return got[fused, quant]
     return run
 
 
@@ -215,16 +223,20 @@ def _close(got, want, what):
                                    atol=TOL, rtol=0, err_msg=what)
 
 
-@pytest.mark.parametrize("kernel,fused", [(False, True), (True, True),
-                                          (False, False)],
-                         ids=["unfused", "kernel", "concat"])
-def test_lanes_tick_matches_jax(setup, kernel, fused):
+@pytest.mark.parametrize("kernel,fused,quant", [
+    (False, True, False), (True, True, False), (False, False, False),
+    (False, False, True)], ids=["unfused", "kernel", "concat", "int8"])
+def test_lanes_tick_matches_jax(setup, kernel, fused, quant):
     """One tick: the unfused engine against JAX ``KVLaneWaveStep`` (fused or
-    concat dataflow, canonical-capacity rings for the concat one), the
-    kernel engine against ``wave_lanes_step_pallas`` (interpret mode)."""
+    concat dataflow, canonical-capacity rings for the concat one; int8
+    rings for ``quant``), the kernel engine against
+    ``wave_lanes_step_pallas`` (interpret mode)."""
     cfg = setup["cfg"]
-    est, waves, sc = _tick_inputs(cfg, 3 + kernel + 2 * (not fused),
-                                  RING + HOP if fused else RING)
+    est, waves, sc = _tick_inputs(cfg, 3 + kernel + 2 * (not fused)
+                                  + quant, RING + HOP if fused else RING)
+    if quant:
+        est = dict(est, kv=tuple(J.quantize_ring_chunk(a)
+                                 for a in est["kv"]))
     jargs = [jnp.asarray(waves[k]) for k in ("x", "mu", "mu_buf", "spks")]
     jsc = [jnp.asarray(sc[k]) for k in ("w", "avail", "k_total", "base")]
     fparams = J.fuse_qkv_params(setup["jdec"].flow_params)
@@ -268,24 +280,28 @@ def test_lanes_tick_matches_jax(setup, kernel, fused):
     _close(test, jout[4], "est")
     # the stalled lane's rows (lane 0 of every (s, cfg)) keep their rings
     rows0 = np.arange(cfg.cfm.n_timesteps * 2) * 3
-    for g, before in zip(test["kv"], est["kv"]):
+    leaves = (lambda kv: [a for r in kv for a in (
+        (r["v"], r["s"]) if isinstance(r, dict) else (r,))])
+    for g, before in zip(leaves(test["kv"]), leaves(est["kv"])):
         np.testing.assert_array_equal(g.numpy()[rows0],
                                       np.asarray(before)[rows0])
 
 
 # ----------------------------------------------------------- the protocol
-@pytest.mark.parametrize("kernel,fused", [(False, True), (True, True),
-                                          (False, False)],
-                         ids=["unfused", "kernel", "concat"])
+@pytest.mark.parametrize("kernel,fused,quant", [
+    (False, True, False), (True, True, False), (False, False, False),
+    (False, False, True)], ids=["unfused", "kernel", "concat", "int8"])
 def test_staggered_lanes_match_jax_batcher(setup, jax_staggered, kernel,
-                                           fused):
-    b = _batcher(setup["tdec"], kernel=kernel, fused=fused)
+                                           fused, quant):
+    b = _batcher(setup["tdec"], kernel=kernel, fused=fused,
+                 ring_quant=quant)
     assert b._kernel is kernel and not b._graphs
     assert b.rp == (RING + HOP * fused) * 4
+    assert isinstance(b._est["kv"][0], dict) is quant
     before = fb.launch_fused_tf_group.launches
     got = staggered(b, setup["streams"])
     assert fb.launch_fused_tf_group.launches == before   # the CPU: plain
-    for g, want, (_, _, _, toks) in zip(got, jax_staggered(fused),
+    for g, want, (_, _, _, toks) in zip(got, jax_staggered(fused, quant),
                                         setup["streams"]):
         assert g.shape == want.shape == (
             1, toks.shape[1] * 4 * tiny_hift_config().total_upsample)
@@ -338,12 +354,6 @@ def test_kernel_gate_asks_kernel_limit(setup, monkeypatch, est_dtype, hop,
         dec.kv_batcher(kernel=True, **kw)
     assert dec.kv_batcher(n_lanes=1, block_size=HOP, ring_tokens=RING,
                           token_cap=16)._kernel is True
-
-
-@pytest.mark.parametrize("kw,item", [(dict(ring_quant=True), "A3")])
-def test_options_not_ported_raise(setup, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _batcher(setup["tdec"], **kw)
 
 
 def test_concat_lanes_refuse_the_kernel_engine(setup):

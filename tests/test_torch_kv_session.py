@@ -280,9 +280,7 @@ def test_enc_kernel_matches_per_layer_encoder(setup):
                                setup["decode"](), atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(batch=2), "A3"), (dict(ring_quant=True), "A3"),
-    (dict(stacked=True), "stacked")])
+@pytest.mark.parametrize("kw,item", [(dict(stacked=True), "stacked")])
 def test_options_not_ported_raise(setup, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         setup["session"](**kw)
