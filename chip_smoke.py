@@ -1688,19 +1688,27 @@ def seeded_codec(torch, device, decoder=None, speaker: bool = False):
 SEEDED: dict = {}
 
 
-def tokenizer_phase(torch) -> dict:
-    """The WhisperVQ tokenizer at full width (16 layers, d 1280, a 16384
-    codebook, 1500-slot caches), f32, seeded weights, 20 s of seeded 16 kHz
-    audio: ``encode`` (1 warm-up + median of 3) and ``encode_streaming`` in
-    80 ms chunks (1 warm-up, 1 timed: its wall and each chunk's ms), their
-    RTFs, and the share of tokens where the two agree (each differing
-    position printed with the gap between its two nearest codes)."""
-    codec = seeded_codec(torch, "cuda")
-    seconds = 20.0
-    wav = seeded_audio(seconds, 16000, 7)
-    codec.encode(wav)
+def expected_tokens(codec, n_samples: int) -> int:
+    """Tokens of ``n_samples`` through ``codec.encode``: per segment the
+    floor of its mel frames over 8, at least 1."""
+    seg, hop = codec.segment_samples, codec.tok_cfg.hop_length
+    mel_per_tok = 2 * codec.tok_cfg.pooling_kernel_size
+    return sum(max(1, (min(seg, n_samples - s) // hop) // mel_per_tok)
+               for s in range(0, n_samples, seg))
+
+
+def stream_against_batch(torch, codec, wav, seconds: float, batch_runs: int,
+                         warm: bool) -> dict:
+    """``encode`` (``batch_runs`` timed, the median kept) and
+    ``encode_streaming`` in 80 ms chunks (one timed; each after one
+    warm-up when ``warm``) on ``wav``: walls, RTFs, each chunk's ms, the
+    token count checked, and the share of tokens where the two agree
+    (each differing position with the gap between its two nearest
+    codes)."""
+    if warm:
+        codec.encode(wav)
     walls = []
-    for _ in range(3):
+    for _ in range(batch_runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batch = codec.encode(wav)
@@ -1718,12 +1726,13 @@ def tokenizer_phase(torch) -> dict:
         toks.extend(sess.flush())
         return (np.concatenate(toks, axis=1), time.perf_counter() - t0,
                 chunk_ms)
-    stream()
+    if warm:
+        stream()
     streamed, stream_wall, chunk_ms = stream()
-    if streamed.shape != batch.shape or batch.shape != (
-            1, int(seconds * 12.5)):
+    want = expected_tokens(codec, len(wav))
+    if streamed.shape != batch.shape or batch.shape != (1, want):
         raise AssertionError(f"token counts differ: batch {batch.shape}, "
-                             f"streaming {streamed.shape}")
+                             f"streaming {streamed.shape}, expected {want}")
     differ = np.nonzero(streamed[0] != batch[0])[0]
     gaps = []
     if len(differ):
@@ -1738,19 +1747,34 @@ def tokenizer_phase(torch) -> dict:
                      streaming=int(streamed[0, p]),
                      gap=float(g[1] - g[0]))
                 for p, g in zip(differ, two.cpu().numpy())]
-    agree = 1.0 - len(differ) / batch.shape[1]
-    out = dict(seconds=seconds, tokens=int(batch.shape[1]),
-               encode_wall_s=walls,
-               encode_rtf=statistics.median(walls) / seconds,
-               streaming_wall_s=stream_wall,
-               streaming_rtf=stream_wall / seconds, chunks=len(chunk_ms),
-               chunk_ms_median=statistics.median(chunk_ms),
-               chunk_ms_p99=float(np.percentile(chunk_ms, 99)),
-               agreement=agree, agreement_min=TOKEN_AGREEMENT_MIN,
-               differing=gaps, params=sum(p.numel() for p in
-                                          codec.tokenizer.parameters()))
+    return dict(seconds=seconds, tokens=int(batch.shape[1]),
+                segments=-(-len(wav) // codec.segment_samples),
+                encode_wall_s=walls,
+                encode_rtf=statistics.median(walls) / seconds,
+                streaming_wall_s=stream_wall,
+                streaming_rtf=stream_wall / seconds, chunks=len(chunk_ms),
+                chunk_ms_median=statistics.median(chunk_ms),
+                chunk_ms_p99=float(np.percentile(chunk_ms, 99)),
+                agreement=1.0 - len(differ) / batch.shape[1],
+                agreement_min=TOKEN_AGREEMENT_MIN, differing=gaps)
+
+
+def tokenizer_phase(torch) -> dict:
+    """The WhisperVQ tokenizer at full width (16 layers, d 1280, a 16384
+    codebook, 1500-slot caches), f32, seeded weights: 20 s of seeded 16 kHz
+    audio through ``encode`` (1 warm-up + median of 3) and
+    ``encode_streaming`` in 80 ms chunks (1 warm-up, 1 timed), then 35 s
+    (a full 30 s segment, whose 3000 mel frames fill the 1500 positions,
+    and a 5 s one; each path once): RTFs, each chunk's ms and the share of
+    tokens where the two paths agree."""
+    codec = seeded_codec(torch, "cuda")
+    out = stream_against_batch(torch, codec, seeded_audio(20.0, 16000, 7),
+                               20.0, 3, warm=True)
+    out["long"] = stream_against_batch(
+        torch, codec, seeded_audio(35.0, 16000, 10), 35.0, 1, warm=False)
+    out["params"] = sum(p.numel() for p in codec.tokenizer.parameters())
     print("tokenizer", json.dumps(out), flush=True)
-    if agree < TOKEN_AGREEMENT_MIN:
+    if min(out["agreement"], out["long"]["agreement"]) < TOKEN_AGREEMENT_MIN:
         raise AssertionError(f"streaming and batch tokens disagree: {out}")
     return out
 

@@ -37,6 +37,17 @@ def _bucket(n: int, step: int = 512) -> int:
     return max(step, ((n + step - 1) // step) * step)
 
 
+def _segment_frames(t: int, mel_per_tok: int, max_frames: int):
+    """(tokens, padded frames) of a segment of ``t`` mel frames: tokens by
+    floor, as the conv stride trims; frames padded to a bucket of 16 tokens
+    but never past ``max_frames``, the position table's 2 frames a slot (a
+    full 30 s segment is 3000 frames, whose bucket of 3072 would need 1536
+    of the 1500 slots)."""
+    n_tok = max(1, t // mel_per_tok)
+    return n_tok, min(_bucket(n_tok * mel_per_tok, 16 * mel_per_tok),
+                      max_frames)
+
+
 @dataclasses.dataclass
 class Prompt:
     token: np.ndarray        # (1, P)
@@ -119,10 +130,11 @@ class SpeechCodec:
         self.features = WhisperFeatureExtractor(
             tok_cfg.n_fft, tok_cfg.hop_length, tok_cfg.num_mel_bins,
             tok_cfg.sampling_rate)
-        # a segment never exceeds the position table: at the GLM-4-Voice
-        # config the 30 s segmentation is the ring's capacity (1500
-        # post-conv positions * 2 * hop = 30 s), rounded down to whole
-        # tokens so that no frame is dropped at a segment's end
+        # a segment's frames never exceed the position table: at the
+        # GLM-4-Voice config the 30 s segmentation is the ring's capacity
+        # (1500 post-conv positions * 2 * hop = 30 s), rounded down to
+        # whole tokens so that no frame is dropped at a segment's end; the
+        # bucket padding is capped at the table too (``_segment_frames``)
         ring_samples = tok_cfg.max_source_positions * 2 * tok_cfg.hop_length
         seg = min(int(segment_seconds * tok_cfg.sampling_rate), ring_samples)
         self.segment_samples = max(tok_cfg.samples_per_token,
@@ -145,8 +157,8 @@ class SpeechCodec:
             feats, _ = self.features(self._wav(wav[:, s: s +
                                                    self.segment_samples]))
             t = feats.shape[1]
-            n_tok = max(1, t // mel_per_tok)         # floor, as the stride
-            t_pad = _bucket(n_tok * mel_per_tok, 16 * mel_per_tok)
+            n_tok, t_pad = _segment_frames(
+                t, mel_per_tok, 2 * self.tok_cfg.max_source_positions)
             feats = torch.nn.functional.pad(
                 feats, (0, 0, 0, max(t_pad - t, 0)))[:, :t_pad]
             valid = torch.zeros((1, t_pad), dtype=torch.bool,

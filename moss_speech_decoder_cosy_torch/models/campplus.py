@@ -16,6 +16,7 @@ A6).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -40,6 +41,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def seed_init(self, name, shape, g):
+        """``weights.seeded_state``'s draws: weight ones, a running mean
+        normal(0.1) and a running variance uniform in [0.5, 1.5], so that
+        inference BatchNorm is not the identity."""
+        if name == "weight":
+            return torch.ones(shape)
+        if name == "running_mean":
+            return torch.randn(shape, generator=g) * 0.1
+        if name == "running_var":
+            return 0.5 + torch.rand(shape, generator=g)
+        return None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ((x - self.running_mean) * torch.rsqrt(self.running_var
                                                       + self.eps)
@@ -57,6 +70,11 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(torch.empty((features, in_channels)
                                                + tuple(kernel_size)))
         self.stride, self.padding = tuple(stride), tuple(padding)
+
+    def seed_init(self, name, shape, g):
+        """``weights.seeded_state``'s draw: lecun-normal weight."""
+        return torch.randn(shape, generator=g) * (
+            1.0 / math.sqrt(math.prod(shape[1:])))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, None, self.stride,

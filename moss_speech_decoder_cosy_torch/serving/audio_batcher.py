@@ -60,14 +60,14 @@ class AudioStream:
 
 
 def plan_lanes(decoder, n_lanes: int, ring_tokens: Optional[int],
-               block_size: Optional[int], hbm_budget_bytes: int,
-               fused: bool = True):
+               block_size: Optional[int], hbm_budget_bytes: int):
     """Device-memory plan of the est pool (the JAX package's spill policy):
     given a budget for the lanes' rings and conv caches, the cheapest
     configuration that serves ``n_lanes``:
 
     1. the full-precision rings (extended to ``ring + hop`` frames for the
-       write-then-attend dataflow when ``fused``), if they fit;
+       write-then-attend dataflow the engine's full-precision lanes run),
+       if they fit;
     2. int8 rings (``ring_quant``, the concat dataflow), if they fit;
     3. else int8 rings and the lanes capped to what the budget affords (a
        request then waits for a free lane).
@@ -84,7 +84,7 @@ def plan_lanes(decoder, n_lanes: int, ring_tokens: Optional[int],
         est = init_kv_cache(decoder.flow_cfg, ring, dtype=dt,
                             est_dtype=decoder.estimator_dtype or dt,
                             device="meta", est_quant=quant)["est"]
-        if not (fused and not quant):
+        if quant:
             return est_cache_bytes(est)
         rf = ring * decoder.ratio
         ring_b = est_cache_bytes({"kv": est["kv"]})

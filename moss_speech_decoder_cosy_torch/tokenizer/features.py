@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import stft as stft_ops
+from ..utils.device import resolve_device
 
 
 def _hz_to_mel_slaney(freq: np.ndarray) -> np.ndarray:
@@ -105,11 +106,11 @@ class StreamingFeatures:
     emitted frame has its true context.  The clamp uses the maximum of the
     first emitted block, then stays (the fork's ``max_log_spec`` carry).
     Samples are kept on the host; each emitted block is computed on
-    ``device``."""
+    ``device`` (CUDA unless the caller passes ``device="cpu"``)."""
 
     def __init__(self, fe: WhisperFeatureExtractor, device=None):
         self.fe = fe
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self._buf = np.zeros(0, np.float32)   # samples from frame _f0's left
         self._f0 = 0                          # next frame to emit
         self._started = False

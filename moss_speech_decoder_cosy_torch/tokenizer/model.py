@@ -121,6 +121,13 @@ class WhisperVQEncoder(nn.Module):
         self.codebook = nn.Parameter(
             torch.empty(c.quantize_vocab_size, c.d_model))
 
+    def seed_init(self, name, shape, g):
+        """``weights.seeded_state``'s draw: the position table and the
+        codebook normal(0.02)."""
+        if name in ("embed_positions", "codebook"):
+            return torch.randn(shape, generator=g) * 0.02
+        return None
+
     # ------------------------------------------------------------- shared
     def _convs(self, mel: torch.Tensor,
                conv1_cache: Optional[torch.Tensor] = None,

@@ -130,11 +130,10 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     weights are lecun-normal (std 1/sqrt(fan_in)), HiFT's ``_INIT_001``
     convs normal(0.01), weight-norm gains ||v|| (so the kernel starts equal
     to v), norms and Snake alphas ones, biases zeros, pos biases
-    xavier-uniform, embeddings normal(1), the tokenizer's position table
-    and codebook normal(0.02); a BatchNorm's running mean normal(0.1) and
-    running variance uniform in [0.5, 1.5], so that inference BatchNorm is
-    not the identity."""
-    from .models.campplus import BatchNorm, Conv2d
+    xavier-uniform, embeddings normal(1).  A module with a
+    ``seed_init(name, shape, g)`` method draws its own leaves first: it
+    returns a tensor for a parameter or buffer it sets, None to leave a
+    parameter to these rules (its buffers are then left out)."""
     g = torch.Generator().manual_seed(seed)
     state: Dict[str, torch.Tensor] = {}
 
@@ -144,9 +143,13 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     for mod_name, mod in module.named_modules():
         pre = f"{mod_name}." if mod_name else ""
         small = _SMALL_INIT.search(mod_name) is not None
+        hook = getattr(mod, "seed_init", None)
         for name, p in mod.named_parameters(recurse=False):
             shape = tuple(p.shape)
-            if name == "bias":
+            val = hook(name, shape, g) if hook is not None else None
+            if val is not None:
+                pass
+            elif name == "bias":
                 val = torch.zeros(shape, device="cpu")
             elif isinstance(mod, (LayerNorm, GroupNorm)) or name == "alpha":
                 val = torch.ones(shape, device="cpu")
@@ -155,12 +158,6 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
                 val = (torch.rand(shape, generator=g, device="cpu") * 2 - 1) * bound
             elif isinstance(mod, nn.Embedding):
                 val = normal(shape, 1.0)
-            elif name in ("embed_positions", "codebook"):
-                val = normal(shape, 0.02)
-            elif isinstance(mod, BatchNorm):
-                val = torch.ones(shape, device="cpu")
-            elif isinstance(mod, Conv2d):
-                val = normal(shape, 1.0 / math.sqrt(math.prod(shape[1:])))
             elif isinstance(mod, nn.Linear):
                 val = normal(shape, 1.0 / math.sqrt(shape[1]))
             elif isinstance(mod, (Conv1d, ConvTranspose1d)) and name in (
@@ -174,11 +171,11 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"no init rule for {pre}{name}")
             state[pre + name] = val
-        if isinstance(mod, BatchNorm):
-            n = mod.running_mean.shape[0]
-            state[pre + "running_mean"] = normal((n,), 0.1)
-            state[pre + "running_var"] = 0.5 + torch.rand(
-                (n,), generator=g, device="cpu")
+        if hook is not None:
+            for name, b in mod.named_buffers(recurse=False):
+                val = hook(name, tuple(b.shape), g)
+                if val is not None:
+                    state[pre + name] = val
         if getattr(mod, "weight_norm", False):
             v = state[pre + "v"]
             state[pre + "g"] = torch.sqrt((v * v).sum(dim=(1, 2)))

@@ -16,7 +16,8 @@ on the CPU, tiny configs, the same weights (``tokenizer_state_from_jax``,
   ``SpeakerEncoder`` likewise;
 - ``SpeechCodec.encode`` / ``encode_streaming`` against the JAX codec on
   single and multi-segment audio: tokens equal, and streaming equal to
-  batch;
+  batch; full segments of a position table off the bucket grid against
+  the JAX tokenizer segment by segment;
 - ``prepare_prompt`` (loudest segment, RMS normalization, the matcha mel,
   the CAM++ embedding) within 1e-5;
 - ``convert_voice`` (tokens, then ``token2wav``) with the same NSF draws:
@@ -210,7 +211,7 @@ def test_streaming_features_match_jax_and_offline():
     wav = _early_peak_wav(rng, 4321)
     jfe, tfe = JF.WhisperFeatureExtractor(n_mels=8), \
         TF.WhisperFeatureExtractor(n_mels=8)
-    js, ts = JF.StreamingFeatures(jfe), TF.StreamingFeatures(tfe)
+    js, ts = JF.StreamingFeatures(jfe), TF.StreamingFeatures(tfe, "cpu")
     jout, tout = [], []
     for a, b in ((0, 150), (150, 777), (777, 2000), (2000, 4321)):
         for s, out in ((js, jout), (ts, tout)):
@@ -382,6 +383,55 @@ def test_encode_streaming_matches_jax_and_batch(codecs, copies):
             got, jc.encode_streaming(wav, chunk_samples=step))
 
 
+def test_segment_frames_stay_in_the_position_table():
+    """At the GLM-4-Voice config a full 30 s segment is 3000 mel frames:
+    375 tokens, padded to 3000 frames (its bucket, 3072, would need 1536
+    of the 1500 positions); shorter segments keep their bucket."""
+    cfg = tcfg_tok.glm4_voice_tokenizer_config()
+    table = 2 * cfg.max_source_positions
+    assert TC._segment_frames(3000, 8, table) == (375, 3000)
+    assert TC._segment_frames(500, 8, table) == (62, 512)
+    assert TC._segment_frames(3, 8, table) == (1, 128)
+
+
+def test_encode_full_segments_off_the_bucket_grid(tok):
+    """A position table that is no multiple of the 16-token bucket (60
+    slots: 15 tokens, 120 frames a segment): ``encode`` over three full
+    segments and a tail equals the JAX tokenizer run on each segment
+    padded to the table (the JAX codec pads such a segment to 128 frames
+    and overruns its table), and ``encode_streaming`` equals it."""
+    jcfg = dataclasses.replace(tiny_tokenizer_config(),
+                               max_source_positions=60)
+    m = JT.WhisperVQEncoder(jcfg)
+    params = _np(jax.jit(m.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 16, jcfg.num_mel_bins)),
+                                 jnp.ones((1, 16), bool)))
+    tc = TC.SpeechCodec(
+        dataclasses.replace(tcfg_tok.tiny_tokenizer_config(),
+                            max_source_positions=60),
+        tokenizer_state_from_jax(params), None, device="cpu")
+    seg = tc.segment_samples
+    assert seg == 60 * 2 * 160
+    base = _early_peak_wav(np.random.RandomState(13), seg)
+    wav = np.concatenate([np.tile(base, 3), base[:5000]])
+    jfe = JF.WhisperFeatureExtractor(n_mels=jcfg.num_mel_bins)
+    want = []
+    for s in range(0, len(wav), seg):
+        feats, _ = jfe(jnp.asarray(wav[None, s: s + seg]))
+        t = feats.shape[1]
+        n_tok = t // 8
+        feats = jnp.pad(feats, ((0, 0), (0, 120 - t), (0, 0)))
+        valid = np.zeros((1, 120), bool)
+        valid[:, : n_tok * 8] = True
+        ids, token_valid = m.apply(params, feats, jnp.asarray(valid))
+        want.append(np.asarray(ids)[np.asarray(token_valid)])
+    want = np.concatenate(want)[None]
+    got = tc.encode(wav)
+    assert got.shape == want.shape == (1, 3 * 15 + 3)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tc.encode_streaming(wav), got)
+
+
 @pytest.mark.parametrize("knobs", [dict(), dict(pick_loudest_seconds=0.25,
                                                 target_rms=0.05)],
                          ids=["plain", "loudest_rms"])
@@ -428,10 +478,12 @@ def test_codec_helpers_match_jax():
 
 
 def test_codec_runs_on_cuda_unless_asked(tok):
-    """The codec's default device is CUDA: without a card it raises rather
-    than falling back to the CPU."""
+    """The codec's and the streaming features' default device is CUDA:
+    without a card they raise rather than fall back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TC.SpeechCodec(tcfg_tok.tiny_tokenizer_config(),
                        tokenizer_state_from_jax(_np(tok[2])), None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TF.StreamingFeatures(TF.WhisperFeatureExtractor(n_mels=8))
