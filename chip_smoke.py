@@ -106,6 +106,16 @@ Phases (any failure raises and the script exits non-zero):
    80 ms streaming, their RTFs, chunk latency and token agreement.  The
    kernel phase holds ``fused_tf_group`` at the lockstep launch too (the
    mid group, 80 rows, one shared offset).
+   The serving path (``serve``, after ``tokenizer``): a full-width model
+   directory (``flow.pt``, ``hift.pt`` under the reference's key names)
+   through ``load_model_dir`` bit-equal to the seeded states; the decode
+   server's engine warmed by ``boot_warmup_batcher``, then four concurrent
+   250-token ``decode_stream`` requests (pcm16; time to first byte, x
+   realtime, bodies equal to the engine's chunks, 14 launches a tick, no
+   graph captured after the boot), one oggopus request and an unknown
+   format; the voice-conversion websocket core (``ChatSession`` over
+   ``make_vc_handler``) fed 10 s of audio in 80 ms frames; and which host
+   libraries the machine has.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1906,6 +1916,379 @@ def cross_kv_batch_phase(fb) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ serving
+SERVE_REQUESTS = 4
+VC_PROMPT_S, VC_AUDIO_S = 3.0, 10.0
+# the port's plan reshapes, inverted: port layout -> the reference's layout
+PLAN_INVERSE = {"g": lambda t: t.reshape(-1, 1, 1),
+                "conv1": lambda t: t[..., None]}
+
+
+def reference_state(kind: str, cfg, state: dict, prefix: str = "") -> dict:
+    """A reference-named state dict (what ``flow.pt`` / ``hift.pt`` hold)
+    from a port state dict, through the inverse of the port's plan."""
+    from moss_speech_decoder_cosy_torch.utils.checkpoint import (
+        conversion_plan)
+    return {prefix + src: (PLAN_INVERSE[r](state[dst]) if r
+                           else state[dst]).contiguous()
+            for dst, src, r in conversion_plan(kind, cfg)}
+
+
+def states_equal(torch, module, want: dict, dtype) -> bool:
+    """Every tensor of ``want`` cast to ``dtype`` equals the module's, bit
+    for bit (the module holds nothing else)."""
+    got = module.state_dict()
+    return set(got) == set(want) and all(
+        torch.equal(got[k].cpu(), v.to(got[k].dtype)) and
+        got[k].dtype == dtype for k, v in want.items())
+
+
+def graph_ids(b) -> dict:
+    return {k: id(g) for k, (g, _) in b._steps.graphs.items()}
+
+
+class TeeEngine:
+    """An ``AudioBatchEngine`` whose streams also keep the float chunks they
+    hand to ``decode_stream`` (request i's in ``chunks[i]``)."""
+
+    def __init__(self, engine):
+        self.engine, self.decoder, self.chunks = engine, engine.decoder, []
+
+    async def open(self, **kw):
+        rec = []
+        self.chunks.append(rec)
+        stream = await self.engine.open(**kw)
+
+        class Tee:
+            push, finish = stream.push, stream.finish
+
+            async def __aiter__(self):
+                async for c in stream:
+                    rec.append(c)
+                    yield c
+        return Tee()
+
+
+async def http_request(engine, params) -> dict:
+    """One request through the aiohttp shell (``AudioBatcherHTTPServer``)
+    on a localhost socket of a free port and its client: the audio and the
+    host wall from the request's start to its end."""
+    import socket
+    from aiohttp import web
+    from moss_speech_decoder_cosy_torch.serving.audio_batcher import (
+        AudioBatcherHTTPServer, decode_stream_client)
+    runner = web.AppRunner(AudioBatcherHTTPServer(engine).app)
+    await runner.setup()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    try:
+        await web.SockSite(runner, sock).start()
+        url = f"http://127.0.0.1:{sock.getsockname()[1]}/decode_stream"
+        t0 = time.perf_counter()
+        wav = await decode_stream_client(url, params)
+        return dict(wav=wav, done_s=time.perf_counter() - t0)
+    finally:
+        await runner.cleanup()
+        sock.close()
+
+
+async def timed_request(decode_stream, engine, params) -> dict:
+    """One ``decode_stream`` request: status, body, and the host walls of
+    its first byte and its end from its start."""
+    t0 = time.perf_counter()
+    status, headers, body = await decode_stream(engine, params)
+    chunks, first = [], None
+    async for data in body:
+        if first is None:
+            first = time.perf_counter() - t0
+        chunks.append(data)
+    return dict(status=status, headers=headers, body=b"".join(chunks),
+                ttfb_s=first, done_s=time.perf_counter() - t0,
+                encode_s=getattr(body, "encode_s", None))
+
+
+def emitted_samples(dec, n_tokens: int, prompt_tokens: int) -> int:
+    """Samples a windowed ``StreamSession`` has given out after
+    ``n_tokens`` pushed and no ``finish``: its hops as its ``push`` loop
+    takes them, the source cache held back."""
+    hop, la = dec.pipe_cfg.block_size, dec.lookahead
+    pad = -(-prompt_tokens // hop) * hop - prompt_tokens
+    off = 0
+    while n_tokens - off >= (hop + pad if off == 0 else hop) + la:
+        off += hop + pad if off == 0 else hop
+    return (off * dec.ratio * dec.hift_cfg.total_upsample
+            - dec.source_cache_len) if off else 0
+
+
+def serve_phase(torch, fb, device: str = "cuda") -> dict:
+    """The serving path at full width through the entry points a server
+    calls (``bin/decode_server.py``, ``bin/serve.py``), bf16:
+
+    1. a model directory: ``flow.pt`` and ``hift.pt`` (``generator.``
+       prefix) under the reference's key names, written from the seeded
+       states through the inverse of the port's plan; ``load_model_dir``
+       onto the card in f32 and in bf16, every tensor bit-equal to the
+       seeded state (cast), no reference key unused; load seconds, bytes;
+    2. ``AudioBatchEngine(md.decoder, n_lanes=4)`` warmed by
+       ``boot_warmup_batcher`` (timed), after which the requests capture
+       no graph (the same graph objects under the same keys);
+    3. ``SERVE_REQUESTS`` concurrent ``decode_stream`` requests of
+       ``KV_TOKENS`` tokens, JSON-shaped as the HTTP shell passes them,
+       pcm16: each one's time to first byte and to its end, the aggregate
+       x-realtime; each body equal, sample for sample, to the
+       clip-and-scale of the engine's float chunks for it; 14
+       ``fused_tf_group`` launches a tick; with libopus one more request as
+       oggopus, read back with ``OggOpusReader`` to the pcm16 length within
+       an Opus frame, and its encoding seconds on the event loop; an
+       unknown format gives 400;
+    4. ``make_vc_handler`` (the full-width codec and the model directory's
+       decoder) with a ``VC_PROMPT_S`` s seeded prompt, fed ``VC_AUDIO_S``
+       s of seeded audio as pcm16 ``KIND_AUDIO`` frames through a
+       ``ChatSession``: each frame's handler ms (median, p99), the handler
+       seconds against the audio's, the samples sent back, which must be
+       what the tokens the session emitted decode to;
+    5. which of libopus, aiohttp, yaml and safetensors the machine has."""
+    import asyncio
+    import importlib.util
+    import tempfile
+    from moss_speech_decoder_cosy_torch import native
+    from moss_speech_decoder_cosy_torch.eval.audio_io import resample
+    from moss_speech_decoder_cosy_torch.model_dir import load_model_dir
+    from moss_speech_decoder_cosy_torch.serving import opus, protocol
+    from moss_speech_decoder_cosy_torch.serving.audio_batcher import (
+        AudioBatchEngine, decode_stream)
+    from moss_speech_decoder_cosy_torch.serving.boot import (
+        boot_warmup_batcher)
+    from moss_speech_decoder_cosy_torch.serving.ogg import OggOpusReader
+    from moss_speech_decoder_cosy_torch.serving.web_demo import (
+        make_vc_handler)
+    from moss_speech_decoder_cosy_torch.serving.ws_server import ChatSession
+    from moss_speech_decoder_cosy_torch.utils.device import card_line
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    if not native.available():
+        raise AssertionError("the host C++ library (native/) did not build")
+    # 1. the model directory
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        torch.save(reference_state("flow", flow_cfg, flow_state),
+                   f"{tmp}/flow.pt")
+        torch.save(reference_state("hift", hift_cfg, hift_state,
+                                   "generator."), f"{tmp}/hift.pt")
+        write_s = time.perf_counter() - t0
+        nbytes = {f: Path(tmp, f).stat().st_size
+                  for f in ("flow.pt", "hift.pt")}
+        loads = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            sync()
+            t0 = time.perf_counter()
+            md = load_model_dir(tmp, device=device, verbose=False,
+                                compute_dtype=None if name == "f32" else dt)
+            sync()
+            loads[name] = dict(
+                load_s=time.perf_counter() - t0, report=md.report,
+                bit_equal=(states_equal(torch, md.decoder.flow, flow_state,
+                                        dt)
+                           and states_equal(torch, md.decoder.hift,
+                                            hift_state, dt)))
+            if name == "f32":
+                del md
+    out["model_dir"] = dict(files_bytes=nbytes, write_s=write_s, **loads)
+    print("serve_model_dir", json.dumps(out["model_dir"]), flush=True)
+    if not all(v["bit_equal"] and not any(v["report"].values())
+               for v in loads.values()):
+        raise AssertionError(f"the model directory did not load the "
+                             f"seeded weights: {out['model_dir']}")
+    dec = md.decoder
+
+    # 2. boot
+    engine = AudioBatchEngine(dec, n_lanes=4)
+    b = engine.batcher
+    if not (b._kernel and b._graphs == (device == "cuda")
+            and b.ring_tokens == 35):
+        raise AssertionError("the engine's batcher did not take the kernel "
+                             "engine and CUDA graphs over a 35-token ring")
+    boot_s = boot_warmup_batcher(b, pump_iters=engine.pump_iters,
+                                 verbose=False)
+    graphs = graph_ids(b)
+    out["boot"] = dict(boot_s=boot_s, graph_keys=sorted(map(str, graphs)))
+    print("serve_boot", json.dumps(out["boot"]), flush=True)
+
+    # 3. the decode server's core
+    rng = np.random.RandomState(21)
+    reqs = [json.loads(json.dumps({
+        "tokens": rng.randint(0, flow_cfg.vocab_size,
+                              (1, KV_TOKENS)).tolist(),
+        "embedding": rng.randn(1, flow_cfg.spk_embed_dim).tolist(),
+        "format": "pcm16"})) for _ in range(SERVE_REQUESTS)]
+    samples = KV_TOKENS * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    audio_s = samples / hift_cfg.sampling_rate
+    groups = 2 + flow_cfg.estimator.num_mid_blocks
+    counter = fb.launch_fused_tf_group
+
+    async def serve():
+        """Every request of this part on one event loop (the engine's)."""
+        tee = TeeEngine(engine)
+        counter.launches = 0
+        ticks0 = b.ticks
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[timed_request(decode_stream, tee, r)
+                                     for r in reqs])
+        wall = time.perf_counter() - t0
+        ticks, launches = b.ticks - ticks0, counter.launches
+        og = (await timed_request(decode_stream, engine,
+                                  dict(reqs[0], format="oggopus"))
+              if opus.available() else None)
+        bad = await timed_request(decode_stream, engine,
+                                  dict(reqs[0], format="mp3"))
+        http = (await http_request(engine, reqs[0])
+                if importlib.util.find_spec("aiohttp") else None)
+        return got, tee.chunks, wall, ticks, launches, og, bad, http
+
+    got, chunks, wall, ticks, launches, og, bad, http = asyncio.run(serve())
+    want_launches = groups * ticks if device == "cuda" else 0
+    bodies_equal = []
+    for g, rec in zip(got, chunks):
+        pcm = np.frombuffer(g["body"], "<i2")
+        want = (np.clip(np.concatenate(rec, axis=1)[0], -1.0, 1.0)
+                * 32767.0).astype("<i2")
+        bodies_equal.append(bool(g["status"] == 200 and
+                                 pcm.shape == (samples,) and
+                                 np.array_equal(pcm, want)))
+    dec_rec = dict(
+        requests=SERVE_REQUESTS, tokens=KV_TOKENS, audio_s=audio_s,
+        wall_s=wall, aggregate_x_realtime=SERVE_REQUESTS * audio_s / wall,
+        ttfb_s=[g["ttfb_s"] for g in got], done_s=[g["done_s"] for g in got],
+        pcm16_encode_s=[g["encode_s"] for g in got], ticks=ticks,
+        fused_tf_group_launches=launches, expected_launches=want_launches,
+        bodies_equal_engine_chunks=bodies_equal,
+        no_new_graphs=graph_ids(b) == graphs)
+    print("serve_decode_stream", json.dumps(dec_rec), flush=True)
+    if not (all(bodies_equal) and launches == want_launches and ticks > 0
+            and dec_rec["no_new_graphs"]):
+        raise AssertionError(f"the decode server's core failed: {dec_rec}")
+    out["decode_stream"] = dec_rec
+
+    if og is not None:
+        pcm = OggOpusReader(hift_cfg.sampling_rate).decode(og["body"])
+        frame = hift_cfg.sampling_rate * 20 // 1000
+        opus_rec = dict(status=og["status"], bytes=len(og["body"]),
+                        samples=int(pcm.shape[0]), pcm16_samples=samples,
+                        encode_s=og["encode_s"], done_s=og["done_s"],
+                        encode_share=og["encode_s"] / og["done_s"])
+        print("serve_oggopus", json.dumps(opus_rec), flush=True)
+        if not (og["status"] == 200 and abs(pcm.shape[0] - samples) <= frame
+                and np.isfinite(pcm).all()):
+            raise AssertionError(f"the oggopus body is wrong: {opus_rec}")
+        out["oggopus"] = opus_rec
+    else:
+        print("serve_oggopus skipped: libopus is not installed on this "
+              "machine", flush=True)
+        out["oggopus"] = None
+    if bad["status"] != 400:
+        raise AssertionError(f"an unknown format gave {bad['status']}")
+    if http is not None:
+        # the same request as the first one, alone, over HTTP; the client
+        # reads int16 / 32767
+        core = np.frombuffer(got[0]["body"], "<i2").astype(np.int32)
+        pcm = np.rint(http["wav"][0] * 32767.0).astype(np.int32)
+        http_rec = dict(done_s=http["done_s"], samples=int(pcm.shape[0]),
+                        max_lsb_diff_vs_core=(int(np.abs(pcm - core).max())
+                                              if pcm.shape == core.shape
+                                              else None))
+        print("serve_http", json.dumps(http_rec), flush=True)
+        if pcm.shape != core.shape:
+            raise AssertionError(f"the HTTP body is wrong: {http_rec}")
+        out["http"] = http_rec
+    else:
+        print("serve_http skipped: aiohttp is not installed on this "
+              "machine", flush=True)
+        out["http"] = None
+    out["unknown_format_status"] = bad["status"]
+    out["no_new_graphs_after_all"] = graph_ids(b) == graphs
+    if not out["no_new_graphs_after_all"]:
+        raise AssertionError("a request after the boot captured a graph")
+    del engine, b
+
+    # 4. the voice-conversion websocket core
+    codec = seeded_codec(torch, device, dec, speaker=True)
+    p16 = seeded_audio(VC_PROMPT_S, 16000, 22)
+    prompt = codec.prepare_prompt(resample(p16, 16000, 24000), p16)
+    emitted = []
+
+    class Recording:
+        decoder = codec.decoder
+
+        @staticmethod
+        def new_encode_session():
+            sess = codec.new_encode_session()
+
+            class Session:
+                @staticmethod
+                def push(wav):
+                    toks = sess.push(wav)
+                    emitted.extend(toks)
+                    return toks
+            return Session()
+
+    handler = make_vc_handler(Recording, prompt)
+    session = ChatSession(handler, codec="pcm16")
+    wav = seeded_audio(VC_AUDIO_S, protocol.SAMPLE_RATE, 23)
+
+    async def feed():
+        """Frame by frame; also whether each frame's handler gave audio (a
+        decoded hop) or none (the tokenizer's step alone)."""
+        replies, hop_frames = [], []
+        for i in range(0, len(wav), protocol.FRAME_SAMPLES):
+            got = await session.feed(protocol.frame_message(
+                protocol.KIND_AUDIO, protocol.pcm16_encode(
+                    wav[i:i + protocol.FRAME_SAMPLES])))
+            hop_frames.append(bool(got))
+            replies += got
+        return replies, hop_frames
+
+    replies, hop_frames = asyncio.run(feed())
+    sent = sum(len(protocol.pcm16_decode(protocol.parse_message(r)[1]))
+               for r in replies)
+    n_tok = int(sum(t.shape[-1] for t in emitted))
+    want_sent = emitted_samples(dec, n_tok, int(prompt.token.shape[1]))
+    ms = session.handler_ms
+    vc = dict(frames=len(ms), audio_s=VC_AUDIO_S,
+              prompt_tokens=int(prompt.token.shape[1]), tokens=n_tok,
+              handler_ms_median=statistics.median(ms),
+              handler_ms_p99=float(np.percentile(ms, 99)),
+              handler_ms_max=max(ms), handler_s=sum(ms) / 1e3,
+              hop_frames=sum(hop_frames),
+              hop_frame_ms_median=statistics.median(
+                  [m for m, h in zip(ms, hop_frames) if h] or [0.0]),
+              other_frame_ms_median=statistics.median(
+                  [m for m, h in zip(ms, hop_frames) if not h] or [0.0]),
+              handler_rtf=sum(ms) / 1e3 / VC_AUDIO_S,
+              samples_sent=sent, samples_expected=want_sent)
+    print("serve_vc", json.dumps(vc), flush=True)
+    if not (len(ms) == len(wav) // protocol.FRAME_SAMPLES and n_tok > 0
+            and sent == want_sent > 0):
+        raise AssertionError(f"the voice-conversion session failed: {vc}")
+    out["vc"] = vc
+
+    # 5. the machine
+    env = {m: importlib.util.find_spec(m) is not None
+           for m in ("aiohttp", "yaml", "safetensors")}
+    env["libopus"] = opus.available()
+    env["native"] = True
+    card = card_line() if device == "cuda" else "cpu"
+    out["env"] = dict(card=card, **env)
+    print(f"serve_env {card}: " + ", ".join(
+        f"{k} {'present' if v else 'missing'}" for k, v in env.items()),
+        flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -1969,6 +2352,7 @@ def main(argv=None) -> int:
                 (fa.launch_flash_chunk_attention, fb.launch_fused_tf_group,
                  fc.launch_fused_conformer_group))
     tok = phase("tokenizer", tokenizer_phase, torch)
+    srv = phase("serve", serve_phase, torch, fb)
 
     # 6. cross-device
     cross = phase("cross", cross_phase, torch)
@@ -2020,6 +2404,7 @@ def main(argv=None) -> int:
         bound_ms=group_rec["bound_ms"], bound_by=group_rec["bound_by"],
         library_ms=None, library_note=FUSED_NOTE,
         batcher_launches=bat["graphed"]["fused_tf_group_launches"],
+        serve_launches=srv["decode_stream"]["fused_tf_group_launches"],
         segmented_launches=api["segmented_launches"], per_row=per_row,
         lockstep_launches=kvb["launches"], lockstep=lockstep)]
     # the blocks group (the larger read) with a full ring, as the steady
@@ -2047,7 +2432,7 @@ def main(argv=None) -> int:
                             fused_conformer_group=conf_records),
                  slice=sl, kv_slice=kv_sl, kv_api=api, kv_batch=kvb,
                  kv_quant=kvq, batcher=bat, windowed_device=win,
-                 tokenizer=tok, cross=cross),
+                 tokenizer=tok, serve=srv, cross=cross),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

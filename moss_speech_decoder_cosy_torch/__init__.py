@@ -18,9 +18,16 @@ Layout
                 ``StreamSession`` and its device-resident twin
                 ``device_stream_decoder``, the KV session and the
                 continuous batcher.
-- ``serving``   the asyncio batch engine and the multi-stream manager.
+- ``serving``   the decode server (asyncio batch engine, ``/decode_stream``),
+                the websocket voice server and web page, Opus / Ogg, the
+                boot warm-up, the multi-stream manager.
+- ``model_dir`` a reference-layout checkpoint directory -> decoder, codec,
+                speaker prompts (``utils/checkpoint.py``: the reference's
+                torch key names -> this package's).
 - ``weights``   JAX param trees -> this package's state dicts.
-- ``csrc``      CUDA C++ kernels (``sm_90a``).
+- ``bin``       CLIs: ``inference``, ``serve``, ``decode_server`` and the
+                card's measurement tools.
+- ``csrc``      CUDA C++ kernels (``sm_90a``); ``native`` host C++.
 """
 
 __version__ = "0.1.0"

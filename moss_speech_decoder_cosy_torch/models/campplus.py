@@ -251,3 +251,24 @@ class SpeakerEncoder:
 
     def __call__(self, wav_16k) -> np.ndarray:
         return self.embed(wav_16k).float().cpu().numpy()
+
+    @classmethod
+    def from_onnx(cls, path, model: CAMPPlus = None,
+                  device=None) -> "SpeakerEncoder":
+        """The reference's ``campplus.onnx`` (GLM_modules/
+        flow_inference.py:86-89): its initializers through
+        ``utils.checkpoint.convert_campplus_state_dict`` into ``model``
+        (default ``CAMPPlus()``), run by the port."""
+        from ..utils.checkpoint import convert_campplus_state_dict
+        from ..utils.onnx_io import load_onnx_initializers
+        if model is None:
+            with torch.device("meta"):
+                model = CAMPPlus()
+        state, unused = convert_campplus_state_dict(
+            load_onnx_initializers(path), model.block_layers)
+        if unused:
+            import logging
+            logging.getLogger(__name__).warning(
+                "campplus.onnx: %d unused initializers (e.g. %s)",
+                len(unused), unused[:3])
+        return cls(state, model, device=device)

@@ -1,7 +1,6 @@
 """Continuous-batching audio serving: the asyncio engine over
-``pipeline/kv_batcher.py``, after the JAX package's
-``serving/audio_batcher.py`` (``AudioStream``, ``AudioBatchEngine``,
-``plan_lanes``).
+``pipeline/kv_batcher.py`` and its HTTP front end, after the JAX package's
+``serving/audio_batcher.py``.
 
 - ``AudioBatchEngine``: admission awaits a free lane; push and finish change
   the batcher's state only under the engine lock; ONE pump task advances
@@ -10,22 +9,31 @@
   nothing.
 - ``plan_lanes``: the device-memory plan of the est ring pool: full rings,
   else int8 rings, else fewer lanes.
-
-The HTTP front end of the JAX module (``AudioBatcherHTTPServer``,
-``decode_stream_client``) is not ported: it needs ``aiohttp`` and, for its
-Ogg Opus format, the serving codecs (ROADMAP items A6 and A11).
+- ``decode_stream``: one ``POST /decode_stream`` request with no transport:
+  JSON-shaped params in, (status, headers, body) out, the body an async
+  iterator over the encoded audio while the decode still runs:
+  ``audio/L16`` (raw little-endian int16 at the decoder's rate) or
+  ``audio/ogg`` (Ogg Opus, RFC 7845).  501 where libopus is missing, 400
+  for an unknown format.
+- ``AudioBatcherHTTPServer``: the aiohttp shell that writes
+  ``decode_stream``'s result out; ``decode_stream_client`` its client.
+  aiohttp is imported only where either is built.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
-from typing import AsyncIterator, Dict, Optional
+import time
+from typing import AsyncIterator, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.flow.kv_stream import est_cache_bytes, init_kv_cache
+from . import protocol
+from .ws_server import aiohttp_module
 
 
 class AudioStream:
@@ -210,3 +218,126 @@ class AudioBatchEngine:
             raise
         finally:
             self._pump_task = None
+
+
+FORMATS = {"pcm16": "audio/L16", "oggopus": "audio/ogg"}
+
+
+class AudioBody:
+    """The body of one ``decode_stream`` response: async iteration over the
+    encoded bytes.  ``encode_s`` sums the host seconds the format's encoder
+    took on the event loop (the Ogg Opus encoder, or the pcm16 packing)."""
+
+    def __init__(self, chunks: AsyncIterator[np.ndarray], writer=None):
+        self._chunks = chunks
+        self._writer = writer
+        self.encode_s = 0.0
+
+    def _encode(self, fn, *a) -> bytes:
+        t0 = time.perf_counter()
+        data = fn(*a)
+        self.encode_s += time.perf_counter() - t0
+        return data
+
+    async def __aiter__(self):
+        async for chunk in self._chunks:
+            pcm = np.clip(np.asarray(chunk[0], np.float32), -1.0, 1.0)
+            if self._writer is None:
+                yield self._encode(protocol.pcm16_encode, pcm)
+            else:
+                data = self._encode(self._writer.encode, pcm)
+                if data:
+                    yield data
+        if self._writer is not None:
+            yield self._encode(self._writer.flush)
+
+
+async def _once(data: bytes):
+    yield data
+
+
+def _error(status: int, message: str):
+    return (status, {"Content-Type": "application/json"},
+            _once(json.dumps({"error": message}).encode()))
+
+
+async def decode_stream(engine: "AudioBatchEngine", params: dict
+                        ) -> Tuple[int, Dict[str, str], AsyncIterator[bytes]]:
+    """One ``/decode_stream`` request through ``engine``.  ``params`` as the
+    request's JSON: ``{"tokens": [[...]], "prompt_token": [[...]]?,
+    "prompt_feat": [[[...]]]?, "embedding": [[...]]?, "format":
+    "pcm16"|"oggopus"}``.  Returns (status, headers, body); with status 200
+    the body is an ``AudioBody`` that streams while later chunks are still
+    being computed."""
+    fmt = params.get("format", "pcm16")
+    sr = engine.decoder.pipe_cfg.sample_rate
+    if fmt not in FORMATS:
+        return _error(400, f"unknown format {fmt!r}")
+    writer = None
+    if fmt == "oggopus":
+        from .opus import available
+        if not available():
+            return _error(501, "libopus not available")
+        from .ogg import OggOpusWriter
+        writer = OggOpusWriter(sample_rate=sr)
+
+    def arr(key, dtype):
+        v = params.get(key)
+        return None if v is None else np.asarray(v, dtype)
+
+    stream = await engine.open(prompt_token=arr("prompt_token", np.int32),
+                               prompt_feat=arr("prompt_feat", np.float32),
+                               embedding=arr("embedding", np.float32))
+    await stream.push(np.asarray(params["tokens"], np.int32))
+    await stream.finish()
+    return 200, {"Content-Type": FORMATS[fmt], "X-Sample-Rate": str(sr),
+                 "Cache-Control": "no-cache"}, AudioBody(stream, writer)
+
+
+class AudioBatcherHTTPServer:
+    """``POST /decode_stream`` over an ``AudioBatchEngine``: the aiohttp
+    shell of ``decode_stream``."""
+
+    def __init__(self, engine: AudioBatchEngine,
+                 host: str = "0.0.0.0", port: int = 10010):
+        web = aiohttp_module("AudioBatcherHTTPServer").web
+        self.engine = engine
+        self.host, self.port = host, port
+        self.app = web.Application()
+        self.app.add_routes([web.post("/decode_stream", self.handle)])
+
+    async def handle(self, request):
+        web = aiohttp_module("AudioBatcherHTTPServer").web
+        status, headers, body = await decode_stream(self.engine,
+                                                     await request.json())
+        if status != 200:
+            return web.Response(status=status, headers=headers,
+                                body=b"".join([c async for c in body]))
+        resp = web.StreamResponse(headers=headers)
+        await resp.prepare(request)
+        async for data in body:
+            await resp.write(data)
+        await resp.write_eof()
+        return resp
+
+    def run(self):                                      # pragma: no cover
+        aiohttp_module("AudioBatcherHTTPServer").web.run_app(
+            self.app, host=self.host, port=self.port)
+
+
+async def decode_stream_client(url: str, payload: dict) -> np.ndarray:
+    """Client of ``/decode_stream``: float32 (1, samples) (pcm16 read back
+    as int16 / 32767, the JAX package's client)."""
+    aiohttp = aiohttp_module("decode_stream_client")
+    async with aiohttp.ClientSession() as session:
+        async with session.post(url, json=payload) as resp:
+            resp.raise_for_status()
+            body = await resp.read()
+            ctype = resp.headers["Content-Type"]
+            sr = int(resp.headers["X-Sample-Rate"])
+    if ctype == "audio/L16":
+        return (np.frombuffer(body, "<i2").astype(np.float32)
+                / 32767.0)[None]
+    from .ogg import OggOpusReader
+    return np.asarray(OggOpusReader(sample_rate=sr).decode(body),
+                      np.float32)[None]

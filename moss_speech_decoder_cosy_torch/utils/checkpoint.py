@@ -1,0 +1,434 @@
+"""The reference's torch checkpoints in the port: ``flow.pt`` and ``hift.pt``
+(flow_inference.py:53-64), the HF WhisperVQ tokenizer
+(speech_tokenizer/utils.py:18-38) and CAM++ (``campplus.onnx``
+initializers or a ``campplus.pt`` state dict), after the JAX package's
+``utils/checkpoint.py``.
+
+The port's modules carry the JAX package's parameter names (``weights.py``),
+so a reference tensor maps onto a port key straight, with no detour through
+the flax layout: torch Linear, Conv1d, ConvTranspose1d and Conv2d weights
+already have the port's layout, LayerNorm and GroupNorm keep ``weight`` and
+``bias``, BatchNorm its running statistics.  Two reshapes remain:
+
+- ``"g"``: a weight-norm gain (O, 1, 1) -> the port's 1-D ``g`` (its ``v``
+  keeps the torch layout);
+- ``"conv1"``: a kernel-1 Conv1d weight (O, I, 1) that the port holds as a
+  Linear weight (O, I).
+
+Each converter is a plan of ``(port_key, reference_key, reshape)`` rows,
+built by ``_map_*`` functions that mirror the JAX package's one for one
+(``conversion_plan``), so it leaves the same reference keys unused.  Every
+tensor converts to float32, as ``weights.py`` does.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import FlowConfig, HiFTConfig
+
+Row = Tuple[str, str, Optional[str]]
+RESHAPES = {
+    "g": lambda w: w.reshape(-1),
+    "conv1": lambda w: w[:, :, 0],
+}
+
+
+class _Plan:
+    """Collects the rows of one converter.  ``keys`` (the reference state
+    dict's keys) resolves what depends on the checkpoint, as the JAX
+    ``_Mapper`` does on its state dict: an optional tensor (``maybe``)
+    joins only if present, and a weight-norm pair is found under torch's
+    parametrization names or the legacy ``weight_g`` / ``weight_v``.  With
+    ``keys=None`` every optional row joins and weight norm takes the
+    parametrization names (the JAX package's record mode)."""
+
+    def __init__(self, keys=None):
+        self.keys = None if keys is None else set(keys)
+        self.rows: List[Row] = []
+        self.ignored: set = set()
+
+    def put(self, dst: str, src: str, reshape: Optional[str] = None):
+        self.rows.append((dst, src, reshape))
+
+    def maybe(self, dst: str, src: str, reshape: Optional[str] = None):
+        if self.keys is None or src in self.keys:
+            self.put(dst, src, reshape)
+
+    def ignore(self, src: str):
+        """A torch-only bookkeeping key (BatchNorm ``num_batches_tracked``)
+        consumed without a port tensor."""
+        self.ignored.add(src)
+
+    def linear(self, dst: str, src: str, bias: bool = True):
+        self.put(f"{dst}.weight", f"{src}.weight")
+        if bias:
+            self.maybe(f"{dst}.bias", f"{src}.bias")
+
+    def conv(self, dst: str, src: str, weight_norm: bool = False):
+        if weight_norm:
+            pairs = ((f"{src}.parametrizations.weight.original0",
+                      f"{src}.parametrizations.weight.original1"),
+                     (f"{src}.weight_g", f"{src}.weight_v"))
+            if self.keys is None:
+                gk, vk = pairs[0]
+            else:
+                for gk, vk in pairs:
+                    if gk in self.keys:
+                        break
+                else:
+                    raise KeyError(f"no weight_norm params for {src}")
+            self.put(f"{dst}.g", gk, "g")
+            self.put(f"{dst}.v", vk)
+        else:
+            self.put(f"{dst}.weight", f"{src}.weight")
+        self.maybe(f"{dst}.bias", f"{src}.bias")
+
+    def norm(self, dst: str, src: str):
+        self.put(f"{dst}.weight", f"{src}.weight")
+        self.put(f"{dst}.bias", f"{src}.bias")
+
+    def batchnorm(self, dst: str, src: str):
+        self.norm(dst, src)
+        self.put(f"{dst}.running_mean", f"{src}.running_mean")
+        self.put(f"{dst}.running_var", f"{src}.running_var")
+
+    def conv2d(self, dst: str, src: str):
+        self.put(f"{dst}.weight", f"{src}.weight")
+
+
+# --------------------------------------------------------------- estimator
+def _map_basic_tf_block(m: _Plan, dst: str, src: str):
+    """Matcha BasicTransformerBlock (flow/decoder.py via matcha)."""
+    m.norm(f"{dst}.norm1", f"{src}.norm1")
+    m.norm(f"{dst}.norm3", f"{src}.norm3")
+    m.linear(f"{dst}.attn1.to_q", f"{src}.attn1.to_q", bias=False)
+    m.linear(f"{dst}.attn1.to_k", f"{src}.attn1.to_k", bias=False)
+    m.linear(f"{dst}.attn1.to_v", f"{src}.attn1.to_v", bias=False)
+    m.linear(f"{dst}.attn1.to_out", f"{src}.attn1.to_out.0")
+    m.linear(f"{dst}.ff_proj", f"{src}.ff.net.0.proj")
+    m.linear(f"{dst}.ff_out", f"{src}.ff.net.2")
+
+
+def _map_resnet(m: _Plan, dst: str, src: str):
+    """CausalResnetBlock1D (flow/decoder.py:83-88): the causal conv at
+    ``block.0``, the LayerNorm at ``block.2``."""
+    m.conv(f"{dst}.block1.conv.conv", f"{src}.block1.block.0")
+    m.norm(f"{dst}.block1.norm", f"{src}.block1.block.2")
+    m.conv(f"{dst}.block2.conv.conv", f"{src}.block2.block.0")
+    m.norm(f"{dst}.block2.norm", f"{src}.block2.block.2")
+    m.linear(f"{dst}.mlp", f"{src}.mlp.1")
+    m.conv(f"{dst}.res_conv", f"{src}.res_conv")
+
+
+def _map_estimator(m: _Plan, dst: str, src: str, cfg: FlowConfig):
+    est = cfg.estimator
+    m.linear(f"{dst}.time_mlp.linear_1", f"{src}.time_mlp.linear_1")
+    m.linear(f"{dst}.time_mlp.linear_2", f"{src}.time_mlp.linear_2")
+    n_ch = len(est.channels)
+    for i in range(n_ch):
+        _map_resnet(m, f"{dst}.down_res_{i}", f"{src}.down_blocks.{i}.0")
+        for j in range(est.n_blocks):
+            _map_basic_tf_block(m, f"{dst}.down_tf_{i}_{j}",
+                                f"{src}.down_blocks.{i}.1.{j}")
+        if i == n_ch - 1:
+            m.conv(f"{dst}.down_conv_{i}.conv", f"{src}.down_blocks.{i}.2")
+        else:
+            m.conv(f"{dst}.down_conv_{i}.conv",
+                   f"{src}.down_blocks.{i}.2.conv")
+    for i in range(est.num_mid_blocks):
+        _map_resnet(m, f"{dst}.mid_res_{i}", f"{src}.mid_blocks.{i}.0")
+        for j in range(est.n_blocks):
+            _map_basic_tf_block(m, f"{dst}.mid_tf_{i}_{j}",
+                                f"{src}.mid_blocks.{i}.1.{j}")
+    for i in range(n_ch):
+        _map_resnet(m, f"{dst}.up_res_{i}", f"{src}.up_blocks.{i}.0")
+        for j in range(est.n_blocks):
+            _map_basic_tf_block(m, f"{dst}.up_tf_{i}_{j}",
+                                f"{src}.up_blocks.{i}.1.{j}")
+        if i == n_ch - 1:
+            m.conv(f"{dst}.up_conv_{i}.conv", f"{src}.up_blocks.{i}.2")
+        else:       # a ConvTranspose1d: torch's layout is the port's
+            m.conv(f"{dst}.up_conv_{i}.conv", f"{src}.up_blocks.{i}.2.conv")
+    m.conv(f"{dst}.final_block.conv.conv", f"{src}.final_block.block.0")
+    m.norm(f"{dst}.final_block.norm", f"{src}.final_block.block.2")
+    m.conv(f"{dst}.final_proj", f"{src}.final_proj")
+
+
+# ----------------------------------------------------------------- encoder
+def _map_conformer_layer(m: _Plan, dst: str, src: str, cfg: FlowConfig):
+    """wenet rel-pos conformer layer without macaron FF or conv module (the
+    port's encoder raises for those, ROADMAP A12)."""
+    m.norm(f"{dst}.norm_mha", f"{src}.norm_mha")
+    m.norm(f"{dst}.norm_ff", f"{src}.norm_ff")
+    a, d = f"{src}.self_attn", f"{dst}.self_attn"
+    m.linear(f"{d}.linear_q", f"{a}.linear_q")
+    m.linear(f"{d}.linear_k", f"{a}.linear_k", bias=cfg.encoder.key_bias)
+    m.linear(f"{d}.linear_v", f"{a}.linear_v")
+    m.linear(f"{d}.linear_out", f"{a}.linear_out")
+    m.linear(f"{d}.linear_pos", f"{a}.linear_pos", bias=False)
+    m.put(f"{d}.pos_bias_u", f"{a}.pos_bias_u")
+    m.put(f"{d}.pos_bias_v", f"{a}.pos_bias_v")
+    m.linear(f"{dst}.feed_forward.w_1", f"{src}.feed_forward.w_1")
+    m.linear(f"{dst}.feed_forward.w_2", f"{src}.feed_forward.w_2")
+
+
+def _map_flow(m: _Plan, cfg: FlowConfig):
+    """CausalMaskedDiffWithXvec (cosyvoice/flow/flow.py:151-186,
+    transformer/upsample_encoder.py:105-246)."""
+    m.put("input_embedding.weight", "input_embedding.weight")
+    m.linear("spk_embed_affine_layer", "spk_embed_affine_layer")
+    m.linear("encoder_proj", "encoder_proj")
+    e = "encoder"
+    m.linear(f"{e}.embed.linear", f"{e}.embed.out.0")
+    m.norm(f"{e}.embed.norm", f"{e}.embed.out.1")
+    m.conv(f"{e}.pre_lookahead_layer.conv1", f"{e}.pre_lookahead_layer.conv1")
+    m.conv(f"{e}.pre_lookahead_layer.conv2", f"{e}.pre_lookahead_layer.conv2")
+    for i in range(cfg.encoder.num_blocks):
+        _map_conformer_layer(m, f"{e}.encoders_{i}", f"{e}.encoders.{i}",
+                             cfg)
+    m.conv(f"{e}.up_layer.conv", f"{e}.up_layer.conv")
+    m.linear(f"{e}.up_embed.linear", f"{e}.up_embed.out.0")
+    m.norm(f"{e}.up_embed.norm", f"{e}.up_embed.out.1")
+    for i in range(cfg.encoder.num_up_blocks):
+        _map_conformer_layer(m, f"{e}.up_encoders_{i}",
+                             f"{e}.up_encoders.{i}", cfg)
+    m.norm(f"{e}.after_norm", f"{e}.after_norm")
+    _map_estimator(m, "decoder.estimator", "decoder.estimator", cfg)
+
+
+def _map_hift(m: _Plan, cfg: HiFTConfig):
+    """HiFTGenerator (hifigan/generator.py:392-470), ``generator.``
+    stripped."""
+    for i in range(5):
+        m.conv(f"f0_predictor.cond{i}", f"f0_predictor.condnet.{2 * i}",
+               weight_norm=True)
+    m.linear("f0_predictor.classifier", "f0_predictor.classifier")
+    m.linear("m_source.l_linear", "m_source.l_linear")
+    m.conv("conv_pre", "conv_pre", weight_norm=True)
+    m.conv("conv_post", "conv_post", weight_norm=True)
+    for i in range(len(cfg.upsample_rates)):
+        m.conv(f"ups_{i}", f"ups.{i}", weight_norm=True)
+        m.conv(f"source_down_{i}", f"source_downs.{i}")
+        ks = cfg.source_resblock_dilation_sizes[i]
+        for j in range(len(ks)):
+            for name, tname in (("conv1", "convs1"), ("conv2", "convs2")):
+                m.conv(f"source_res_{i}.{name}_{j}",
+                       f"source_resblocks.{i}.{tname}.{j}", weight_norm=True)
+            for name, tname in (("act1", "activations1"),
+                                ("act2", "activations2")):
+                m.put(f"source_res_{i}.{name}_{j}.alpha",
+                      f"source_resblocks.{i}.{tname}.{j}.alpha")
+        for j in range(len(cfg.resblock_kernel_sizes)):
+            r = i * len(cfg.resblock_kernel_sizes) + j
+            for k in range(len(cfg.resblock_dilation_sizes[j])):
+                m.conv(f"resblock_{i}_{j}.conv1_{k}",
+                       f"resblocks.{r}.convs1.{k}", weight_norm=True)
+                m.conv(f"resblock_{i}_{j}.conv2_{k}",
+                       f"resblocks.{r}.convs2.{k}", weight_norm=True)
+                m.put(f"resblock_{i}_{j}.act1_{k}.alpha",
+                      f"resblocks.{r}.activations1.{k}.alpha")
+                m.put(f"resblock_{i}_{j}.act2_{k}.alpha",
+                      f"resblocks.{r}.activations2.{k}.alpha")
+
+
+def _map_tokenizer(m: _Plan, cfg):
+    """HF WhisperVQEncoder, the pre-VQ stack (``generator.encoder.`` or
+    ``encoder.`` stripped)."""
+    m.conv("conv1", "conv1")
+    m.conv("conv2", "conv2")
+    m.put("embed_positions", "embed_positions.weight")
+    m.put("codebook", "codebook.weight")
+    for i in range(cfg.quantize_position):
+        s, d = f"layers.{i}", f"layers_{i}"
+        m.norm(f"{d}.self_attn_layer_norm", f"{s}.self_attn_layer_norm")
+        m.norm(f"{d}.final_layer_norm", f"{s}.final_layer_norm")
+        m.linear(f"{d}.self_attn.q_proj", f"{s}.self_attn.q_proj")
+        m.linear(f"{d}.self_attn.k_proj", f"{s}.self_attn.k_proj",
+                 bias=False)
+        m.linear(f"{d}.self_attn.v_proj", f"{s}.self_attn.v_proj")
+        m.linear(f"{d}.self_attn.out_proj", f"{s}.self_attn.out_proj")
+        m.linear(f"{d}.fc1", f"{s}.fc1")
+        m.linear(f"{d}.fc2", f"{s}.fc2")
+
+
+def _map_campplus(m: _Plan, block_layers=(12, 24, 16)):
+    """modelscope speakerlab CAMPPlus names (the torch model the reference's
+    campplus.onnx was exported from, GLM_modules/flow_inference.py:86-89).
+    ONNX exports keep the state dict's names for initializers, so the same
+    plan serves ``campplus.pt`` and ``utils.onnx_io``'s output."""
+    m.conv2d("head.conv1", "head.conv1")
+    m.batchnorm("head.bn1", "head.bn1")
+    for i in range(2):
+        for j, tag in enumerate("ab"):
+            s = f"head.layer{i + 1}.{j}"
+            d = f"head.block{i}{tag}"
+            m.conv2d(f"{d}.conv1", f"{s}.conv1")
+            m.batchnorm(f"{d}.bn1", f"{s}.bn1")
+            m.conv2d(f"{d}.conv2", f"{s}.conv2")
+            m.batchnorm(f"{d}.bn2", f"{s}.bn2")
+            if j == 0:                       # the strided block's shortcut
+                m.conv2d(f"{d}.shortcut_conv", f"{s}.shortcut.0")
+                m.batchnorm(f"{d}.shortcut_bn", f"{s}.shortcut.1")
+    m.conv2d("head.conv2", "head.conv2")
+    m.batchnorm("head.bn2", "head.bn2")
+
+    m.put("tdnn_conv.weight", "xvector.tdnn.linear.weight")
+    m.batchnorm("tdnn_bn", "xvector.tdnn.nonlinear.batchnorm")
+    for bi, n_layers in enumerate(block_layers):
+        for li in range(n_layers):
+            s = f"xvector.block{bi + 1}.tdnnd{li + 1}"
+            d = f"block{bi}_layer{li}"
+            m.batchnorm(f"{d}.bn1", f"{s}.nonlinear1.batchnorm")
+            m.put(f"{d}.linear1.weight", f"{s}.linear1.weight")
+            m.batchnorm(f"{d}.bn2", f"{s}.nonlinear2.batchnorm")
+            cam, cd = f"{s}.cam_layer", f"{d}.cam_layer"
+            m.put(f"{cd}.linear_local.weight", f"{cam}.linear_local.weight")
+            m.put(f"{cd}.linear1.weight", f"{cam}.linear1.weight")
+            m.maybe(f"{cd}.linear1.bias", f"{cam}.linear1.bias")
+            m.put(f"{cd}.linear2.weight", f"{cam}.linear2.weight")
+            m.maybe(f"{cd}.linear2.bias", f"{cam}.linear2.bias")
+        m.batchnorm(f"transit{bi}_bn",
+                    f"xvector.transit{bi + 1}.nonlinear.batchnorm")
+        m.put(f"transit{bi}_conv.weight",
+              f"xvector.transit{bi + 1}.linear.weight")
+    m.batchnorm("out_bn", "xvector.out_nonlinear.batchnorm")
+    m.put("dense.weight", "xvector.dense.linear.weight", "conv1")
+    m.maybe("dense.bias", "xvector.dense.linear.bias")
+    m.batchnorm("dense_bn", "xvector.dense.nonlinear.batchnorm")
+
+
+_MAPS = {"flow": _map_flow, "hift": _map_hift, "tokenizer": _map_tokenizer,
+         "campplus": _map_campplus}
+
+
+def _plan(kind: str, cfg, keys=None) -> _Plan:
+    if kind not in _MAPS:
+        raise ValueError(f"unknown converter {kind!r}; one of "
+                         f"{sorted(_MAPS)}")
+    m = _Plan(keys)
+    if kind == "campplus":
+        _map_campplus(m, cfg if cfg is not None else (12, 24, 16))
+    else:
+        _MAPS[kind](m, cfg)
+    return m
+
+
+def conversion_plan(kind: str, cfg) -> List[Row]:
+    """The ``(port_key, reference_key, reshape)`` rows of a converter
+    (``kind`` one of flow, hift, tokenizer, campplus; ``cfg`` the model's
+    config, for CAM++ its ``block_layers``), every optional row included
+    and weight norm under torch's parametrization names.  ``reshape`` is
+    None or a key of ``RESHAPES``."""
+    return _plan(kind, cfg).rows
+
+
+def _convert(kind: str, sd: Mapping, cfg
+             ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    m = _plan(kind, cfg, sd.keys())
+    out: Dict[str, torch.Tensor] = {}
+    used = m.ignored & set(sd)
+    for dst, src, reshape in m.rows:
+        if src not in sd:
+            raise KeyError(f"missing reference key: {src}")
+        w = np.asarray(sd[src])
+        if reshape is not None:
+            w = RESHAPES[reshape](w)
+        out[dst] = torch.from_numpy(np.array(w, dtype=np.float32))
+        used.add(src)
+    return out, sorted(set(sd) - used)
+
+
+def convert_flow_state_dict(sd: Mapping, cfg: FlowConfig):
+    """``flow.pt`` state dict -> (state dict of the port's
+    ``CausalMaskedDiffWithXvec(cfg)``, unused reference keys)."""
+    return _convert("flow", sd, cfg)
+
+
+def convert_hift_state_dict(sd: Mapping, cfg: HiFTConfig):
+    """``hift.pt`` state dict (``generator.`` stripped) -> (state dict of
+    the port's ``HiFTGenerator(cfg)``, unused reference keys)."""
+    return _convert("hift", sd, cfg)
+
+
+def convert_tokenizer_state_dict(sd: Mapping, cfg):
+    """HF WhisperVQEncoder weights (strip ``generator.encoder.`` or
+    ``encoder.`` first, whisper_encoder_decoder.py:90-100) -> (state dict
+    of the port's ``tokenizer.WhisperVQEncoder(cfg)``, unused keys: the
+    post-VQ layers among them)."""
+    return _convert("tokenizer", sd, cfg)
+
+
+def convert_campplus_state_dict(sd: Mapping, block_layers=(12, 24, 16)):
+    """CAM++ torch state dict or ONNX initializers -> (state dict of the
+    port's ``CAMPPlus``, unused keys but ``num_batches_tracked``)."""
+    out, unused = _convert("campplus", sd, tuple(block_layers))
+    return out, [k for k in unused if not k.endswith("num_batches_tracked")]
+
+
+def strip_prefix(sd: Mapping, *prefixes: str) -> Dict[str, np.ndarray]:
+    """Drops the first matching prefix from every key."""
+    out = {}
+    for k, v in sd.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+                break
+        out[k] = v
+    return out
+
+
+# numpy dtypes of the safetensors header's names
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+              "I64": np.int64, "I32": np.int32, "I16": np.int16,
+              "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
+
+
+def load_safetensors(path) -> Dict[str, np.ndarray]:
+    """A ``.safetensors`` file -> {name: array}, without the safetensors
+    package: an 8-byte little-endian header length, a JSON header of
+    ``{name: {dtype, shape, data_offsets}}`` (and ``__metadata__``), then
+    the raw little-endian tensors.  BF16 reads as float32."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    (n,) = struct.unpack("<Q", buf[:8])
+    header = json.loads(buf[8: 8 + n])
+    base = 8 + n
+    out: Dict[str, np.ndarray] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        lo, hi = info["data_offsets"]
+        raw = buf[base + lo: base + hi]
+        shape = tuple(info["shape"])
+        if info["dtype"] == "BF16":
+            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
+            arr = bits.view(np.float32)
+        elif info["dtype"] in _ST_DTYPES:
+            arr = np.frombuffer(raw, np.dtype(_ST_DTYPES[info["dtype"]])
+                                .newbyteorder("<")).copy()
+        else:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported "
+                             f"dtype {info['dtype']}")
+        out[name] = arr.reshape(shape)
+    return out
+
+
+def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
+    """A ``.pt`` (``torch.load(weights_only=True)``, on the CPU) or
+    ``.safetensors`` state dict -> {name: numpy array}; a checkpoint that
+    wraps it under ``state_dict`` is unwrapped; bf16 tensors read as
+    float32."""
+    path = str(path)
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v
+                ).detach().numpy() for k, v in sd.items()}

@@ -985,3 +985,108 @@ def test_tokenizer_step_on_card_matches_cpu(card):
     np.testing.assert_array_equal(bids.cpu().numpy(), out["cuda"][0])
     np.testing.assert_allclose(bpooled.cpu().numpy(), out["cuda"][1],
                                atol=1e-5, rtol=0)
+
+
+def _graph_ids(b):
+    return {k: id(g) for k, (g, _) in b._steps.graphs.items()}
+
+
+def test_boot_warmup_batcher_then_no_new_capture(card):
+    """``serving/boot.boot_warmup_batcher`` captures every graph the
+    batcher serves with: requests after it (with the warmed prompt
+    geometry, promptless, every tail length) replay the same graphs and
+    capture none (the card's counterpart of the JAX package's no-new-
+    compiles test)."""
+    from moss_speech_decoder_cosy_torch.serving.boot import (
+        boot_warmup_batcher)
+    dec = _tiny_batcher_decoder(card)
+    cfg = dec.flow_cfg
+    b = dec.kv_batcher(n_lanes=2, ring_tokens=6, token_cap=64)
+    prompt = dataclasses.make_dataclass("P", ["token", "feat", "embedding"])(
+        np.arange(3, dtype=np.int32)[None] % cfg.vocab_size,
+        np.zeros((1, 3 * cfg.token_mel_ratio, cfg.output_size), np.float32),
+        np.zeros((1, cfg.spk_embed_dim), np.float32))
+    boot_warmup_batcher(b, prompt=prompt, verbose=False)
+    before = _graph_ids(b)
+    assert {("tick",), ("enc",), ("voc",)} <= set(before)
+    assert len([k for k in before if k[0] == "fin"]) == b.hop
+    rng = np.random.RandomState(1)
+    for use_prompt, n in ((True, 12), (False, 9), (True, 10), (False, 14)):
+        if use_prompt:
+            lane = b.admit(prompt.token, prompt.feat, prompt.embedding)
+        else:
+            lane = b.admit(np.zeros((1, 0), np.int32),
+                           np.zeros((1, 0, cfg.output_size), np.float32),
+                           np.zeros((1, cfg.spk_embed_dim), np.float32))
+        b.push(lane, rng.randint(0, cfg.vocab_size, (1, n)).astype(np.int32))
+        b.finish(lane)
+        got = 0
+        while b._lanes[lane].active:
+            got += sum(v.shape[1] for v in b.pump(max_iters=8).values())
+        assert got > 0
+    assert _graph_ids(b) == before
+
+
+class _TeeEngine:
+    """An ``AudioBatchEngine`` whose streams also keep the float chunks they
+    hand to ``decode_stream`` (request i's in ``chunks[i]``)."""
+
+    def __init__(self, engine):
+        self.engine, self.decoder, self.chunks = engine, engine.decoder, []
+
+    async def open(self, **kw):
+        rec = []
+        self.chunks.append(rec)
+        stream = await self.engine.open(**kw)
+
+        class Tee:
+            push, finish = stream.push, stream.finish
+
+            async def __aiter__(self):
+                async for c in stream:
+                    rec.append(c)
+                    yield c
+        return Tee()
+
+
+def test_decode_stream_core_two_clients_on_card(card):
+    """Two concurrent ``decode_stream`` requests (pcm16) through one
+    ``AudioBatchEngine`` on the card after its boot warm-up: each body is
+    the clip-and-scale of the engine's float chunks for that request,
+    sample for sample, and the warm-up's graphs are the ones replayed."""
+    import asyncio
+    from moss_speech_decoder_cosy_torch.serving.audio_batcher import (
+        AudioBatchEngine, decode_stream)
+    from moss_speech_decoder_cosy_torch.serving.boot import (
+        boot_warmup_batcher)
+    dec = _tiny_batcher_decoder(card)
+    cfg = dec.flow_cfg
+    rng = np.random.RandomState(14)
+    reqs = [{"tokens": rng.randint(0, cfg.vocab_size, (1, n)).tolist(),
+             "embedding": rng.randn(1, cfg.spk_embed_dim).tolist()}
+            for n in (21, 13)]
+
+    async def body(engine, req):
+        status, headers, chunks = await decode_stream(engine, req)
+        assert status == 200 and headers["Content-Type"] == "audio/L16"
+        return np.frombuffer(b"".join([c async for c in chunks]), "<i2")
+
+    async def run():
+        engine = AudioBatchEngine(dec, n_lanes=2, ring_tokens=6,
+                                  token_cap=64)
+        boot_warmup_batcher(engine.batcher, pump_iters=engine.pump_iters,
+                            verbose=False)
+        before = _graph_ids(engine.batcher)
+        tee = _TeeEngine(engine)
+        bodies = await asyncio.gather(*[body(tee, r) for r in reqs])
+        return bodies, tee.chunks, before == _graph_ids(engine.batcher)
+
+    bodies, chunks, same_graphs = asyncio.run(run())
+    assert same_graphs
+    for got, rec, r in zip(bodies, chunks, reqs):
+        want = (np.clip(np.concatenate(rec, axis=1)[0], -1, 1)
+                * 32767.0).astype("<i2")
+        assert len(got) == (len(r["tokens"][0]) * cfg.token_mel_ratio
+                            * dec.hift_cfg.total_upsample)
+        assert np.abs(want).max() > 0
+        np.testing.assert_array_equal(got, want)

@@ -44,5 +44,12 @@ def test_scan_covers_the_package():
                 "serving/session_manager.py", "utils/flops.py",
                 "tokenizer/model.py", "tokenizer/features.py",
                 "tokenizer/config.py", "ops/melspec.py",
-                "models/campplus.py", "codec.py"):
+                "models/campplus.py", "codec.py", "eval/audio_io.py",
+                "native/__init__.py", "serving/protocol.py",
+                "serving/opus.py", "serving/ogg.py",
+                "serving/audio_process.py", "serving/ws_server.py",
+                "serving/web_demo.py", "serving/boot.py",
+                "utils/checkpoint.py", "utils/onnx_io.py",
+                "utils/ref_config.py", "model_dir.py", "bin/inference.py",
+                "bin/serve.py", "bin/decode_server.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod
