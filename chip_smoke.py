@@ -116,6 +116,25 @@ Phases (any failure raises and the script exits non-zero):
    format; the voice-conversion websocket core (``ChatSession`` over
    ``make_vc_handler``) fed 10 s of audio in 80 ms frames; and which host
    libraries the machine has.
+   The speech LM (``lm``, after ``serve``) at CosyVoice2-0.5B width, bf16,
+   weights from seed 10: ``generate`` of 250 tokens (10 s of speech at 25
+   Hz, ``min_len = max_len = 250``) from 60 seeded text ids, graphed (one
+   CUDA graph of 16 single-token steps, captured once, 1 warm-up + median
+   of 3) and eager, the tokens equal; ms a token, tokens a second, the
+   LM's RTF, the prefill alone and the per-token bound of the weights and
+   K/V a step reads; one profiled graphed run (kernels and device time a
+   token); the continuous batcher (4 slots, four 250-token requests
+   submitted one step apart, graphed twice after a warm-up and once
+   eager), each request's tokens equal to ``generate``'s with its seed;
+   ``SpeechSynthesizer.tts`` end to end (the batcher's first 125-id text
+   and seed -> 250 tokens, the text ratio's minimum -> ``token2wav`` at
+   ``cosyvoice2_flow_config()`` with flash attention -> 24 kHz), exactly
+   560 ``flash_chunk_attention`` launches, the LM's seconds beside the
+   decoder's; ``tts_stream`` of a 50-id text (100 tokens); and
+   ``ChatAudioConsumer`` over an interleaved 13-text / 26-audio id stream
+   of the 250 tokens (blocks 25, 50, 100, 75).  ``cross_lm``: f32 logits of
+   the full-width LM cut to 4 layers through prefill and 32 teacher-forced
+   decode steps, card against CPU, within 1e-3 of the logits' peak.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2289,6 +2308,297 @@ def serve_phase(torch, fb, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- speech LM
+LM_TOKENS = 250          # 10 s of speech at 25 Hz
+LM_TEXT = 60
+LM_SLOTS = 4
+LM_RATE = 25.0           # CosyVoice2's speech tokens per second
+LM_CROSS_TOL = 1e-3      # card vs CPU f32 logits, share of the peak
+LM_CROSS_LAYERS = 4
+LM_CROSS_STEPS = 32
+
+
+def seeded_lm(torch, cfg, seed: int, device: str, dtype):
+    """``Qwen2SpeechLM(cfg)`` with weights drawn from ``seed`` (the released
+    ``llm.pt`` is not in the repo) on ``device`` in ``dtype``."""
+    from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
+        Qwen2SpeechLM, load_lm)
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+
+    with torch.device("meta"):
+        lm = Qwen2SpeechLM(cfg)
+    return load_lm(Qwen2SpeechLM, cfg, seeded_state(lm, seed), device,
+                   dtype)
+
+
+def lm_step_bound_ms(lm, positions: int, elem: int = 2):
+    """Least time of one decode step: the bytes it must move (every weight
+    of the 24 layers, the final norm and the speech head read once, one
+    speech-embedding row, the K/V of the ``positions`` it attends read and
+    one K/V row written) over the HBM rate, against 2 flops a weight plus
+    the attention's 4 x positions x heads x head_dim a layer over the bf16
+    peak."""
+    from moss_speech_decoder_cosy_torch.utils.flops import (
+        PEAK_BYTES, PEAK_FLOPS)
+    c = lm.cfg.backbone
+    weights = sum(p.numel() for n, p in lm.named_parameters()
+                  if n.startswith(("llm.layers_", "llm.norm",
+                                   "llm_decoder")))
+    kv_row = c.num_layers * 2 * c.num_kv_heads * c.head_dim
+    nbytes = (weights + c.hidden_size + kv_row * (positions + 1)) * elem
+    flops = 2 * weights + 4 * positions * c.num_heads * c.head_dim \
+        * c.num_layers
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations"), weights
+
+
+def lm_phase(torch, fa) -> dict:
+    """The speech LM at CosyVoice2-0.5B width, bf16, seeded weights:
+    ``generate`` graphed and eager, the continuous batcher, the
+    synthesizer end to end (flash launches on its ``token2wav``),
+    ``tts_stream`` and the chat audio consumer."""
+    from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
+        SpeechLMConfig)
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.serving.lm_server import (
+        ContinuousBatcher)
+    from moss_speech_decoder_cosy_torch.serving.token_server import (
+        ChatAudioConsumer)
+    from moss_speech_decoder_cosy_torch.synthesizer import SpeechSynthesizer
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    n = LM_TOKENS
+    audio_s = n / LM_RATE
+    cfg = SpeechLMConfig()
+    t0 = time.perf_counter()
+    lm = seeded_lm(torch, cfg, 10, "cuda", torch.bfloat16)
+    load_s = time.perf_counter() - t0
+    rng = np.random.RandomState(2)
+    none = np.zeros((1, 0), np.int64)
+    text = rng.randint(0, cfg.backbone.vocab_size, (1, LM_TEXT))
+    emb = lm.prompt_embeds(text, none)
+
+    def gen(graphs, seed=3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks, count = lm.generate(emb, seed, n, n, graphs=graphs)
+        wall = time.perf_counter() - t
+        if count != n:
+            raise AssertionError(f"generate gave {count} tokens, not {n}")
+        return toks.cpu().numpy(), wall
+
+    first, capture_s = gen(True)
+    runner = lm.graphs()
+    graph = dict(runner.graphs)
+    graphed = [gen(True) for _ in range(3)]
+    eager = gen(False)
+    if set(graph) != {("gen", 16)} or any(
+            runner.graphs[k] is not graph[k] for k in graph):
+        raise AssertionError(f"generate's graphs {sorted(runner.graphs)}")
+    for toks, _ in graphed + [eager]:
+        if not np.array_equal(toks, first):
+            raise AssertionError("graphed and eager generate disagree")
+    if not ((first >= 0) & (first < cfg.speech_token_size)).all():
+        raise AssertionError("generate emitted a special token")
+    wall = statistics.median(w for _, w in graphed)
+    prof = host_launches(torch, lambda: lm.generate(emb, 3, n, n))
+    st = lm.decode_state(1)
+    prefill = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            lm.admit(st, 0, emb, 3, n, n)
+        torch.cuda.synchronize()
+        prefill.append(time.perf_counter() - t)
+    prefill_s = statistics.median(prefill)
+    bounds = [lm_step_bound_ms(lm, emb.shape[1] + i) for i in range(n - 1)]
+    bound_ms = float(np.mean([b[0] for b in bounds]))
+    static_ms = lm_step_bound_ms(lm, cfg.backbone.max_seq_len)[0]
+    step_ms = (wall - prefill_s) / (n - 1) * 1e3
+    gen_rec = dict(
+        tokens=n, text=LM_TEXT, params=sum(p.numel() for p in lm.parameters()),
+        weights_a_step=bounds[0][2], load_s=load_s, capture_s=capture_s,
+        graphed_s=[w for _, w in graphed], median_s=wall, eager_s=eager[1],
+        prefill_s=prefill_s, ms_per_token=wall / n * 1e3,
+        decode_ms_per_token=step_ms,
+        eager_ms_per_token=eager[1] / n * 1e3, tokens_per_s=n / wall,
+        eager_tokens_per_s=n / eager[1], rtf=wall / audio_s,
+        eager_rtf=eager[1] / audio_s, bound_ms_per_token=bound_ms,
+        bound_by=bounds[0][1], bound_static_cache_ms=static_ms,
+        graph_keys=[list(k) for k in graph], graphed_equals_eager=True,
+        kernels_per_token=prof["kernels_run"] / n,
+        device_ms_per_token=prof["device_s"] / n * 1e3,
+        profiled=prof)
+    print("lm generate", json.dumps(gen_rec), flush=True)
+
+    # the continuous batcher: texts of 125 ids (min_len 250 at ratio 2)
+    texts = [rng.randint(0, cfg.backbone.vocab_size, n // 2)
+             for _ in range(LM_SLOTS)]
+    seeds = [11, 12, 13, 14]
+    want = []
+    for s, tx in zip(seeds, texts):
+        toks, count = lm.generate(lm.prompt_embeds(tx[None], none), s, n, n)
+        want.append(toks[:count].cpu().numpy().tolist())
+
+    def serve(b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids = []
+        for s, tx in zip(seeds, texts):          # one step apart
+            ids.append(b.submit(tx, seed=s, max_len=n))
+            b.step()
+        b.run_all()
+        wall = time.perf_counter() - t
+        got = [b.result(q) for q in ids]
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"batcher streams {bad} differ from "
+                                 f"generate with their seeds")
+        return wall
+
+    bat = ContinuousBatcher(lm, slots=LM_SLOTS, step_chunk=16,
+                            text_buckets=(n // 2,))
+    bat_warm = serve(bat)
+    bat_walls = [serve(bat) for _ in range(2)]
+    bat_eager = serve(ContinuousBatcher(lm, slots=LM_SLOTS, step_chunk=16,
+                                        text_buckets=(n // 2,),
+                                        graphs=False))
+    bwall = statistics.median(bat_walls)
+    bat_rec = dict(slots=LM_SLOTS, tokens_each=n, warm_s=bat_warm,
+                   graphed_s=bat_walls, eager_s=bat_eager,
+                   tokens_per_s=LM_SLOTS * n / bwall,
+                   eager_tokens_per_s=LM_SLOTS * n / bat_eager,
+                   graph_keys=[list(k) for k in bat.steps.graphs],
+                   equal_to_generate=True)
+    print("lm batcher", json.dumps(bat_rec), flush=True)
+
+    # text -> tokens -> waveform at CosyVoice2 width, flash on
+    flow_cfg = C.cosyvoice2_flow_config()
+    flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
+        flow_cfg.estimator, use_flash_attention=True))
+    hift_cfg = C.HiFTConfig()
+    dec = AudioDecoder(flow_cfg, hift_cfg,
+                       *seeded_states(flow_cfg, hift_cfg, 0),
+                       compute_dtype=torch.bfloat16)
+    # the batcher's first text and seed: 125 ids give min_len 250
+    synth = SpeechSynthesizer(lm, dec, max_tokens=n)
+    counter = fa.launch_flash_chunk_attention
+    samples = n * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    tts_text = texts[0][None]
+    synth.tts(tts_text, seed=seeds[0])              # warm-up
+    torch.cuda.synchronize()
+    counter.launches = 0
+    t = time.perf_counter()
+    wav = synth.tts(tts_text, seed=seeds[0])
+    tts_s = time.perf_counter() - t
+    flash = counter.launches
+    t = time.perf_counter()
+    tokens = synth.generate_tokens(tts_text, seed=seeds[0])
+    lm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    wav2 = dec.token2wav(tokens)
+    dec_s = time.perf_counter() - t
+    if flash != launches_per_decode(flow_cfg) or \
+            tokens[0].tolist() != want[0]:
+        raise AssertionError(f"tts launched flash {flash} times, expected "
+                             f"{launches_per_decode(flow_cfg)}, or its "
+                             f"tokens are not generate's")
+    for w in (wav, wav2):
+        if w.shape != (1, samples) or not np.isfinite(w).all():
+            raise AssertionError(f"bad tts output {w.shape}")
+    short = SpeechSynthesizer(lm, dec, max_tokens=100)
+    counter.launches = 0
+    t = time.perf_counter()                         # 50 ids: min_len 100
+    chunks = list(short.tts_stream(texts[1][None, :50], seed=seeds[1]))
+    stream_s = time.perf_counter() - t
+    stream_wav = np.concatenate(chunks, axis=-1)
+    stream_samples = 100 * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    if stream_wav.shape != (1, stream_samples) or \
+            not np.isfinite(stream_wav).all() or counter.launches == 0:
+        raise AssertionError(f"bad tts_stream {stream_wav.shape}, "
+                             f"{counter.launches} flash launches")
+    tts_rec = dict(
+        tokens=n, audio_s=audio_s, samples=samples, tts_s=tts_s,
+        rtf=tts_s / audio_s, lm_s=lm_s, decoder_s=dec_s,
+        lm_share=lm_s / (lm_s + dec_s), flash_launches=flash,
+        stream_tokens=100, stream_chunks=len(chunks), stream_s=stream_s,
+        stream_rtf=stream_s / (100 / LM_RATE),
+        stream_flash_launches=counter.launches,
+        wav_max_abs=float(np.abs(wav).max()))
+    print("lm tts", json.dumps(tts_rec), flush=True)
+
+    # the chat consumer over an interleaved stream (13 text : 26 audio)
+    offset = cfg.backbone.vocab_size
+    ids, audio = [], list(tokens[0])
+    while audio:
+        ids += list(rng.randint(0, offset, 13))
+        ids += [offset + int(a) for a in audio[:26]]
+        audio = audio[26:]
+    consumer = ChatAudioConsumer(dec, audio_offset=offset)
+    t = time.perf_counter()
+    for i in ids:
+        consumer.push(int(i))
+    chat = consumer.finish()
+    chat_s = time.perf_counter() - t
+    blocks = [c.shape[1] // (flow_cfg.token_mel_ratio
+                             * hift_cfg.total_upsample)
+              for c in consumer.wav_chunks]
+    if chat.shape != (1, samples) or not np.isfinite(chat).all() or \
+            blocks != [25, 50, 100, 75]:
+        raise AssertionError(f"bad chat audio {chat.shape}, blocks {blocks}")
+    chat_rec = dict(ids=len(ids), audio_ids=n, blocks=blocks,
+                    samples=chat.shape[1],
+                    seconds=chat.shape[1] / hift_cfg.sampling_rate,
+                    wall_s=chat_s)
+    print("lm chat", json.dumps(chat_rec), flush=True)
+    return dict(generate=gen_rec, batcher=bat_rec, tts=tts_rec,
+                chat=chat_rec)
+
+
+def cross_lm_phase(torch) -> dict:
+    """f32 teacher-forced logits of the full-width LM cut to 4 layers,
+    through the slot path ``generate`` and the batcher run (prefill, then
+    32 decode steps on seeded speech tokens), card against CPU."""
+    from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
+        SpeechLMConfig)
+    from moss_speech_decoder_cosy_torch.models.llm.qwen2 import Qwen2Config
+
+    cfg = SpeechLMConfig(backbone=dataclasses.replace(
+        Qwen2Config(), num_layers=LM_CROSS_LAYERS))
+    rng = np.random.RandomState(4)
+    text = rng.randint(0, cfg.backbone.vocab_size, (1, LM_TEXT))
+    teacher = rng.randint(0, cfg.speech_token_size, LM_CROSS_STEPS)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        lm = seeded_lm(torch, cfg, 11, dev, torch.float32)
+        with torch.inference_mode():
+            emb = lm.prompt_embeds(text, np.zeros((1, 0), np.int64))
+            cache = lm.llm.init_slot_cache(1)
+            h, _ = lm.llm.prefill_slot(cache, 0, emb, emb.shape[1])
+            rows = [lm.head(h)]
+            for tok in teacher:
+                e = lm.speech_embedding(torch.tensor([[int(tok)]],
+                                                     device=lm.device))
+                h, _ = lm.llm.decode_step_slots(e, cache)
+                rows.append(lm.head(h))
+            logits[dev] = torch.cat(rows).float().cpu().numpy()
+        del lm
+    got, want = logits["cuda"], logits["cpu"]
+    peak = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    rec = dict(layers=LM_CROSS_LAYERS, steps=LM_CROSS_STEPS,
+               shape=list(want.shape), peak=peak, max_abs_diff=err,
+               rel=err / peak, tol=LM_CROSS_TOL,
+               argmax_equal=float((got.argmax(-1) == want.argmax(-1)).mean()))
+    print("cross_lm", json.dumps(rec), flush=True)
+    if not np.isfinite(got).all() or not err <= LM_CROSS_TOL * peak:
+        raise AssertionError(f"card and CPU LM logits disagree: {rec}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -2353,6 +2663,7 @@ def main(argv=None) -> int:
                  fc.launch_fused_conformer_group))
     tok = phase("tokenizer", tokenizer_phase, torch)
     srv = phase("serve", serve_phase, torch, fb)
+    lmr = phase("lm", lm_phase, torch, fa)
 
     # 6. cross-device
     cross = phase("cross", cross_phase, torch)
@@ -2366,6 +2677,7 @@ def main(argv=None) -> int:
                                      torch)
     cross["kv_batch"] = phase("cross_kv_batch", cross_kv_batch_phase, fb)
     cross["codec"] = phase("cross_codec", cross_codec_phase, torch, fa)
+    cross["lm"] = phase("cross_lm", cross_lm_phase, torch)
 
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
@@ -2390,7 +2702,8 @@ def main(argv=None) -> int:
         name="flash_chunk_attention", route="cuda",
         source=f"{PACKAGE}/csrc/flash_chunk_attention.cu",
         replaces="moss_speech_decoder_cosy_tpu/ops/pallas_attention.py:30",
-        launches=sl["launches"], max_abs_err=main_rec["max_abs_err"],
+        launches=sl["launches"], synth_launches=lmr["tts"]["flash_launches"],
+        max_abs_err=main_rec["max_abs_err"],
         ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
         bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
         library_ms=main_rec["library_ms"]), dict(
@@ -2432,7 +2745,7 @@ def main(argv=None) -> int:
                             fused_conformer_group=conf_records),
                  slice=sl, kv_slice=kv_sl, kv_api=api, kv_batch=kvb,
                  kv_quant=kvq, batcher=bat, windowed_device=win,
-                 tokenizer=tok, serve=srv, cross=cross),
+                 tokenizer=tok, serve=srv, lm=lmr, cross=cross),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,8 +12,9 @@ Layout
 ------
 - ``ops``       masks, activations, norms, convs, embeddings, STFT/iSTFT,
                 attention, and the flash chunk-attention kernel wrapper.
-- ``models``    ``flow`` (tokens -> mel, conditional flow matching) and
-                ``hift`` (mel -> waveform vocoder).
+- ``models``    ``flow`` (tokens -> mel, conditional flow matching),
+                ``hift`` (mel -> waveform vocoder) and ``llm`` (the Qwen2
+                speech LM and the v1 TransformerLM: text -> tokens).
 - ``pipeline``  ``AudioDecoder``: offline ``token2wav``, the windowed
                 ``StreamSession`` and its device-resident twin
                 ``device_stream_decoder``, the KV session and the
@@ -24,6 +25,8 @@ Layout
 - ``model_dir`` a reference-layout checkpoint directory -> decoder, codec,
                 speaker prompts (``utils/checkpoint.py``: the reference's
                 torch key names -> this package's).
+- ``synthesizer`` text ids -> speech tokens -> waveform; ``frontend``
+                text normalization and splitting.
 - ``weights``   JAX param trees -> this package's state dicts.
 - ``bin``       CLIs: ``inference``, ``serve``, ``decode_server`` and the
                 card's measurement tools.

@@ -28,16 +28,22 @@ from ...utils.config import EncoderConfig
 
 
 class LinearEmbed(nn.Module):
-    """LinearNoSubsampling: Linear + LayerNorm(1e-5), then x * sqrt(d)."""
+    """LinearNoSubsampling: Linear + LayerNorm(1e-5), then x * sqrt(d).
+    ``relu=True``: LegacyLinearNoSubsampling (a ReLU after the norm, the v1
+    TransformerLM's ``linear_legacy`` input layer)."""
 
-    def __init__(self, in_features: int, output_size: int):
+    def __init__(self, in_features: int, output_size: int,
+                 relu: bool = False):
         super().__init__()
         self.output_size = output_size
+        self.relu = relu
         self.linear = nn.Linear(in_features, output_size)
         self.norm = LayerNorm(output_size, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm(self.linear(x))
+        if self.relu:
+            x = F.relu(x)
         # a device fill, not an upload, so a captured step can run it
         return x * torch.full((), self.output_size, dtype=x.dtype,
                               device=x.device).sqrt()

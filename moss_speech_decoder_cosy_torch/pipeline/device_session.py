@@ -21,7 +21,7 @@ and keeps the reference's windowed semantics:
   quantizes on the device first).
 
 On CUDA (``graphs=True``, the default) every step is a CUDA graph
-(``kv_session.StepGraphs``, all in one memory pool), keyed as the JAX
+(``utils/graphs.StepGraphs``, all in one memory pool), keyed as the JAX
 package keys its jits by their static arguments: ``("flow", emit,
 finalize)``, ``("voc", first, finalize, emit)``, ``("fused", emit, first,
 finalize)``, ``("fbatch", bucket, emit)``, ``("fscan", bucket, emit)`` and
@@ -53,7 +53,8 @@ import numpy as np
 import torch
 
 from ..utils.flops import DispatchMeter
-from .kv_session import KVVocState, StepGraphs, _pcm16, vocode_hop
+from ..utils.graphs import StepGraphs
+from .kv_session import KVVocState, _pcm16, vocode_hop
 
 # bucket sizes of a run of steady hops, largest first
 BUCKETS = (64, 16, 4, 2)

@@ -40,7 +40,7 @@ which no lane advances changes nothing, and the JAX package's burst of
 ``max_iters`` ticks gives the same state and audio.
 
 On CUDA (``graphs=True``, the default) four steps replay as CUDA graphs
-(``kv_session.StepGraphs``), each reading its per-call values from device
+(``utils/graphs.StepGraphs``), each reading its per-call values from device
 tensors: one wavefront tick (``avail`` and ``k_total`` uploaded once per
 pump, the tick index counted on the device, each tick's exit mel and
 valid flag written into persistent ``(max_iters, lanes, cf, n_mel)`` and
@@ -72,8 +72,8 @@ from ..models.flow.kv_stream import (
     shrink_rings_from_fused, spk_embedding, tensor_leaves, ungroup_est_flat,
     wave_lanes_step, wave_lanes_step_kernel)
 from ..utils.flops import DispatchMeter
-from .kv_session import (KVVocState, StepGraphs, estimator_kernel_limit,
-                         vocode_hop)
+from ..utils.graphs import StepGraphs
+from .kv_session import KVVocState, estimator_kernel_limit, vocode_hop
 
 
 def _pairs(a: Dict, b: Dict):

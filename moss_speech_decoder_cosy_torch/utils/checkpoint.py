@@ -1,7 +1,8 @@
 """The reference's torch checkpoints in the port: ``flow.pt`` and ``hift.pt``
 (flow_inference.py:53-64), the HF WhisperVQ tokenizer
-(speech_tokenizer/utils.py:18-38) and CAM++ (``campplus.onnx``
-initializers or a ``campplus.pt`` state dict), after the JAX package's
+(speech_tokenizer/utils.py:18-38), CAM++ (``campplus.onnx``
+initializers or a ``campplus.pt`` state dict) and the LMs (an HF Qwen2,
+CosyVoice2's and CosyVoice v1's ``llm.pt``), after the JAX package's
 ``utils/checkpoint.py``.
 
 The port's modules carry the JAX package's parameter names (``weights.py``),
@@ -30,7 +31,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import FlowConfig, HiFTConfig
+from .config import EncoderConfig, FlowConfig, HiFTConfig
 
 Row = Tuple[str, str, Optional[str]]
 RESHAPES = {
@@ -161,14 +162,14 @@ def _map_estimator(m: _Plan, dst: str, src: str, cfg: FlowConfig):
 
 
 # ----------------------------------------------------------------- encoder
-def _map_conformer_layer(m: _Plan, dst: str, src: str, cfg: FlowConfig):
+def _map_conformer_layer(m: _Plan, dst: str, src: str, enc: EncoderConfig):
     """wenet rel-pos conformer layer without macaron FF or conv module (the
     port's encoder raises for those, ROADMAP A12)."""
     m.norm(f"{dst}.norm_mha", f"{src}.norm_mha")
     m.norm(f"{dst}.norm_ff", f"{src}.norm_ff")
     a, d = f"{src}.self_attn", f"{dst}.self_attn"
     m.linear(f"{d}.linear_q", f"{a}.linear_q")
-    m.linear(f"{d}.linear_k", f"{a}.linear_k", bias=cfg.encoder.key_bias)
+    m.linear(f"{d}.linear_k", f"{a}.linear_k", bias=enc.key_bias)
     m.linear(f"{d}.linear_v", f"{a}.linear_v")
     m.linear(f"{d}.linear_out", f"{a}.linear_out")
     m.linear(f"{d}.linear_pos", f"{a}.linear_pos", bias=False)
@@ -191,13 +192,13 @@ def _map_flow(m: _Plan, cfg: FlowConfig):
     m.conv(f"{e}.pre_lookahead_layer.conv2", f"{e}.pre_lookahead_layer.conv2")
     for i in range(cfg.encoder.num_blocks):
         _map_conformer_layer(m, f"{e}.encoders_{i}", f"{e}.encoders.{i}",
-                             cfg)
+                             cfg.encoder)
     m.conv(f"{e}.up_layer.conv", f"{e}.up_layer.conv")
     m.linear(f"{e}.up_embed.linear", f"{e}.up_embed.out.0")
     m.norm(f"{e}.up_embed.norm", f"{e}.up_embed.out.1")
     for i in range(cfg.encoder.num_up_blocks):
         _map_conformer_layer(m, f"{e}.up_encoders_{i}",
-                             f"{e}.up_encoders.{i}", cfg)
+                             f"{e}.up_encoders.{i}", cfg.encoder)
     m.norm(f"{e}.after_norm", f"{e}.after_norm")
     _map_estimator(m, "decoder.estimator", "decoder.estimator", cfg)
 
@@ -303,8 +304,84 @@ def _map_campplus(m: _Plan, block_layers=(12, 24, 16)):
     m.batchnorm("dense_bn", "xvector.dense.nonlinear.batchnorm")
 
 
+# ---------------------------------------------------------------- speech LM
+def _map_qwen2_layers(m: _Plan, dst: str, src: str, cfg):
+    """HF Qwen2 decoder layers, embeddings and final norm (``src`` the
+    prefix of ``model.``) -> ``models/llm/qwen2.Qwen2Model``."""
+    m.put(f"{dst}embed_tokens.weight", f"{src}model.embed_tokens.weight")
+    for i in range(cfg.num_layers):
+        s, d = f"{src}model.layers.{i}", f"{dst}layers_{i}"
+        m.put(f"{d}.input_layernorm.weight", f"{s}.input_layernorm.weight")
+        m.put(f"{d}.post_attention_layernorm.weight",
+              f"{s}.post_attention_layernorm.weight")
+        m.linear(f"{d}.q_proj", f"{s}.self_attn.q_proj")
+        m.linear(f"{d}.k_proj", f"{s}.self_attn.k_proj")
+        m.linear(f"{d}.v_proj", f"{s}.self_attn.v_proj")
+        m.linear(f"{d}.o_proj", f"{s}.self_attn.o_proj", bias=False)
+        m.linear(f"{d}.gate_proj", f"{s}.mlp.gate_proj", bias=False)
+        m.linear(f"{d}.up_proj", f"{s}.mlp.up_proj", bias=False)
+        m.linear(f"{d}.down_proj", f"{s}.mlp.down_proj", bias=False)
+    m.put(f"{dst}norm.weight", f"{src}model.norm.weight")
+
+
+def _map_qwen2(m: _Plan, cfg):
+    """HF Qwen2ForCausalLM (``model.*``; its lm_head stays unused, the
+    speech LM has its own head)."""
+    _map_qwen2_layers(m, "", "", cfg)
+
+
+def _map_speech_lm(m: _Plan, cfg):
+    """CosyVoice2 ``llm.pt``: the speech heads (llm.py:286-295) and the
+    Qwen2 backbone under ``llm.model.`` (llm.py:231-260)."""
+    m.put("llm_embedding.weight", "llm_embedding.weight")
+    m.put("speech_embedding.weight", "speech_embedding.weight")
+    m.linear("llm_decoder", "llm_decoder")
+    _map_qwen2_layers(m, "llm.", "llm.model.", cfg.backbone)
+
+
+def _map_transformer_layer(m: _Plan, dst: str, src: str):
+    """wenet TransformerEncoderLayer with rel-pos attention (norm1 ->
+    norm_mha, norm2 -> norm_ff)."""
+    m.norm(f"{dst}.norm_mha", f"{src}.norm1")
+    m.norm(f"{dst}.norm_ff", f"{src}.norm2")
+    a, d = f"{src}.self_attn", f"{dst}.self_attn"
+    m.linear(f"{d}.linear_q", f"{a}.linear_q")
+    m.linear(f"{d}.linear_k", f"{a}.linear_k")
+    m.linear(f"{d}.linear_v", f"{a}.linear_v")
+    m.linear(f"{d}.linear_out", f"{a}.linear_out")
+    m.linear(f"{d}.linear_pos", f"{a}.linear_pos", bias=False)
+    m.put(f"{d}.pos_bias_u", f"{a}.pos_bias_u")
+    m.put(f"{d}.pos_bias_v", f"{a}.pos_bias_v")
+    m.linear(f"{dst}.feed_forward.w_1", f"{src}.feed_forward.w_1")
+    m.linear(f"{dst}.feed_forward.w_2", f"{src}.feed_forward.w_2")
+
+
+def _map_transformer_lm(m: _Plan, cfg):
+    """CosyVoice v1 ``llm.pt`` (llm.py:32-229): text embedding, conformer
+    text encoder, affines, the TransformerEncoder decoder stack, heads."""
+    m.put("text_embedding.weight", "text_embedding.weight")
+    te = "text_encoder"
+    m.linear("text_embed_in.linear", f"{te}.embed.out.0")
+    m.norm("text_embed_in.norm", f"{te}.embed.out.1")
+    for i in range(cfg.text_encoder.num_blocks):
+        _map_conformer_layer(m, f"text_enc_{i}", f"{te}.encoders.{i}",
+                             cfg.text_encoder)
+    m.norm("text_after_norm", f"{te}.after_norm")
+    m.linear("text_encoder_affine_layer", "text_encoder_affine_layer")
+    m.linear("spk_embed_affine_layer", "spk_embed_affine_layer")
+    m.put("llm_embedding.weight", "llm_embedding.weight")
+    m.put("speech_embedding.weight", "speech_embedding.weight")
+    m.linear("llm_decoder", "llm_decoder")
+    m.linear("llm.embed.linear", "llm.embed.out.0")
+    m.norm("llm.embed.norm", "llm.embed.out.1")
+    for i in range(cfg.llm_blocks):
+        _map_transformer_layer(m, f"llm.layers_{i}", f"llm.encoders.{i}")
+    m.norm("llm.after_norm", "llm.after_norm")
+
+
 _MAPS = {"flow": _map_flow, "hift": _map_hift, "tokenizer": _map_tokenizer,
-         "campplus": _map_campplus}
+         "campplus": _map_campplus, "qwen2": _map_qwen2,
+         "speech_lm": _map_speech_lm, "transformer_lm": _map_transformer_lm}
 
 
 def _plan(kind: str, cfg, keys=None) -> _Plan:
@@ -321,8 +398,9 @@ def _plan(kind: str, cfg, keys=None) -> _Plan:
 
 def conversion_plan(kind: str, cfg) -> List[Row]:
     """The ``(port_key, reference_key, reshape)`` rows of a converter
-    (``kind`` one of flow, hift, tokenizer, campplus; ``cfg`` the model's
-    config, for CAM++ its ``block_layers``), every optional row included
+    (``kind`` one of flow, hift, tokenizer, campplus, qwen2, speech_lm,
+    transformer_lm; ``cfg`` the model's config, for CAM++ its
+    ``block_layers``), every optional row included
     and weight norm under torch's parametrization names.  ``reshape`` is
     None or a key of ``RESHAPES``."""
     return _plan(kind, cfg).rows
@@ -362,6 +440,24 @@ def convert_tokenizer_state_dict(sd: Mapping, cfg):
     of the port's ``tokenizer.WhisperVQEncoder(cfg)``, unused keys: the
     post-VQ layers among them)."""
     return _convert("tokenizer", sd, cfg)
+
+
+def convert_qwen2_state_dict(sd: Mapping, cfg):
+    """HF Qwen2ForCausalLM state dict -> (state dict of the port's
+    ``Qwen2Model(cfg)``, unused keys: ``lm_head.weight`` among them)."""
+    return _convert("qwen2", sd, cfg)
+
+
+def convert_speech_lm_state_dict(sd: Mapping, cfg):
+    """CosyVoice2 ``llm.pt`` -> (state dict of the port's
+    ``Qwen2SpeechLM(cfg)``, unused keys)."""
+    return _convert("speech_lm", sd, cfg)
+
+
+def convert_transformer_lm_state_dict(sd: Mapping, cfg):
+    """CosyVoice v1 ``llm.pt`` -> (state dict of the port's
+    ``TransformerLM(cfg)``, unused keys)."""
+    return _convert("transformer_lm", sd, cfg)
 
 
 def convert_campplus_state_dict(sd: Mapping, block_layers=(12, 24, 16)):

@@ -10,6 +10,8 @@ dataclass so configs are hashable, serializable, and diffable.  Presets:
 - ``moss_flow_config`` / ``moss_hift_config``: the MOSS-Speech 24 kHz decoder
   (12.5 Hz tokens, vocab 16384, token→mel ratio 4 via upsample_stride 4;
   SURVEY.md §0 and gradio_voice_converter_unstreaming_streaming.py:324).
+- ``cosyvoice2_flow_config``: CosyVoice2-0.5B's flow (25 Hz tokens, vocab
+  6561, ratio 2); its vocoder is ``HiFTConfig()`` as MOSS's.
 - ``tiny_*``: small shapes for unit tests.
 """
 
@@ -167,6 +169,16 @@ def moss_flow_config() -> FlowConfig:
 
 def moss_hift_config() -> HiFTConfig:
     return HiFTConfig()
+
+
+def cosyvoice2_flow_config() -> FlowConfig:
+    """CosyVoice2-0.5B's flow: 25 Hz tokens, vocab 6561, token -> mel
+    ratio 2 through upsample_stride 2 (the JAX package's preset)."""
+    return FlowConfig(
+        vocab_size=6561, input_frame_rate=25, token_mel_ratio=2,
+        encoder=EncoderConfig(upsample_stride=2, static_chunk_size=25),
+        estimator=EstimatorConfig(static_chunk_size=50),
+    )
 
 
 def tiny_flow_config() -> FlowConfig:

@@ -119,6 +119,14 @@ def campplus_state_from_jax(params: Mapping[str, Any]
                                                 "var": "running_var"})
 
 
+# JAX ``Qwen2Model``, ``Qwen2SpeechLM`` and ``TransformerLM`` params (numpy
+# leaves) -> state dicts of this package's ``models.llm`` modules: their
+# names carry over one to one (RMSNorm ``scale`` -> ``weight``)
+qwen2_state_from_jax = state_from_jax_tree
+speech_lm_state_from_jax = state_from_jax_tree
+transformer_lm_state_from_jax = state_from_jax_tree
+
+
 # modules the JAX HiFT initialises with normal(0.01) (its ``_INIT_001``)
 _SMALL_INIT = re.compile(r"(?:^|\.)(?:ups_\d+|conv_post|conv[12]_\d+)$")
 

@@ -4,7 +4,8 @@ f32 on the CPU, tiny configs:
 
 - converters: a synthetic reference state dict comes from the JAX
   package's ``conversion_plan`` and flax params drawn from a seed (plus
-  keys neither package maps); for flow, HiFT, the tokenizer and CAM++ the
+  keys neither package maps); for flow, HiFT, the tokenizer, CAM++ and the
+  three LM plans (qwen2, speech_lm, transformer_lm) the
   port's ``convert_*_state_dict`` is exactly ``*_state_from_jax`` of the
   JAX ``convert_*_state_dict``, with the same unused keys, also under
   torch's legacy ``weight_g`` / ``weight_v`` names; the port's plan,
@@ -35,6 +36,8 @@ from moss_speech_decoder_cosy_tpu.models import campplus as JCam
 from moss_speech_decoder_cosy_tpu.models.flow import (
     CausalMaskedDiffWithXvec as JFlow, UpsampleConformerEncoder as JEncoder)
 from moss_speech_decoder_cosy_tpu.models.hift import HiFTGenerator as JHiFT
+from moss_speech_decoder_cosy_tpu.models.llm import speech_lm as JSL
+from moss_speech_decoder_cosy_tpu.models.llm import transformer_lm as JTL
 from moss_speech_decoder_cosy_tpu.tokenizer import model as JT
 from moss_speech_decoder_cosy_tpu.tokenizer import tiny_tokenizer_config
 from moss_speech_decoder_cosy_tpu.utils import checkpoint as JK
@@ -46,6 +49,8 @@ from moss_speech_decoder_cosy_torch.models import campplus as TCam
 from moss_speech_decoder_cosy_torch.models.flow import (
     CausalMaskedDiffWithXvec as TFlow)
 from moss_speech_decoder_cosy_torch.models.hift import HiFTGenerator as THiFT
+from moss_speech_decoder_cosy_torch.models.llm import speech_lm as TSL
+from moss_speech_decoder_cosy_torch.models.llm import transformer_lm as TTL
 from moss_speech_decoder_cosy_torch.tokenizer import config as TTC
 from moss_speech_decoder_cosy_torch.utils import checkpoint as TK
 from moss_speech_decoder_cosy_torch.utils import config as TC
@@ -53,7 +58,8 @@ from moss_speech_decoder_cosy_torch.utils import onnx_io as TO
 from moss_speech_decoder_cosy_torch.utils import ref_config as TR
 from moss_speech_decoder_cosy_torch.weights import (
     campplus_state_from_jax, flow_state_from_jax, hift_state_from_jax,
-    tokenizer_state_from_jax)
+    qwen2_state_from_jax, speech_lm_state_from_jax, tokenizer_state_from_jax,
+    transformer_lm_state_from_jax)
 
 FORWARD_ATOL = 1e-5
 CAM_KW = dict(embedding_size=12, growth_rate=4, bn_size=2, init_channels=8,
@@ -140,8 +146,27 @@ def models():
         jnp.ones((1, 16), bool))
     cp = _seeded_bn(_np(jax.jit(JCam.CAMPPlus(**CAM_KW).init)(
         jax.random.PRNGKey(3), jnp.zeros((1, 50, 80)))), 4)
+    scfg = JSL.tiny_speech_lm_config()
+    sp = jax.jit(JSL.Qwen2SpeechLM(scfg).init, static_argnames="max_len")(
+        jax.random.PRNGKey(5), jnp.zeros((1, 4), jnp.int32),
+        jnp.zeros((1, 0), jnp.int32), jax.random.PRNGKey(6), max_len=4)
+    vcfg, vcfg_t = JTL.tiny_transformer_lm_config(), \
+        TTL.tiny_transformer_lm_config()
+    vp = jax.jit(JTL.TransformerLM(vcfg).init)(
+        jax.random.PRNGKey(7), jnp.zeros((1, 5), jnp.int32),
+        jnp.ones((1, 5), bool), jnp.zeros((1, 7), jnp.int32),
+        jnp.ones((1, 7), bool), jnp.zeros((1, vcfg_t.spk_embed_dim)))
     extra = np.zeros(3, np.float32)
     return {
+        "qwen2": (scfg.backbone, TSL.tiny_speech_lm_config().backbone,
+                  {"params": _np(sp)["params"]["llm"]}, qwen2_state_from_jax,
+                  {"lm_head.weight": extra}),
+        "speech_lm": (scfg, TSL.tiny_speech_lm_config(), _np(sp),
+                      speech_lm_state_from_jax,
+                      {"criterion_ce.weight": extra}),
+        "transformer_lm": (vcfg, vcfg_t, _np(vp),
+                           transformer_lm_state_from_jax,
+                           {"text_encoder.global_cmvn": extra}),
         "flow": (fcfg, TC.tiny_flow_config(), _np(fp), flow_state_from_jax,
                  {"decoder.estimator.spare.weight": extra}),
         "hift": (hcfg, TC.tiny_hift_config(), _np(hp), hift_state_from_jax,
@@ -156,14 +181,10 @@ def models():
                       "xvector.spare": extra})}
 
 
-PORT_CONVERT = {"flow": TK.convert_flow_state_dict,
-                "hift": TK.convert_hift_state_dict,
-                "tokenizer": TK.convert_tokenizer_state_dict,
-                "campplus": TK.convert_campplus_state_dict}
-JAX_CONVERT = {"flow": JK.convert_flow_state_dict,
-               "hift": JK.convert_hift_state_dict,
-               "tokenizer": JK.convert_tokenizer_state_dict,
-               "campplus": JK.convert_campplus_state_dict}
+KINDS = ("flow", "hift", "tokenizer", "campplus", "qwen2", "speech_lm",
+         "transformer_lm")
+PORT_CONVERT = {k: getattr(TK, f"convert_{k}_state_dict") for k in KINDS}
+JAX_CONVERT = {k: getattr(JK, f"convert_{k}_state_dict") for k in KINDS}
 
 
 def _legacy_weight_norm(sd):
@@ -184,7 +205,8 @@ def _assert_states_equal(got, want):
 
 @pytest.mark.parametrize("kind,legacy", [
     ("flow", False), ("hift", False), ("hift", True), ("tokenizer", False),
-    ("campplus", False)])
+    ("campplus", False), ("qwen2", False), ("speech_lm", False),
+    ("transformer_lm", False)])
 def test_converter_equals_jax_path(models, kind, legacy):
     """``legacy``: HiFT's weight-norm pairs under ``weight_g`` /
     ``weight_v`` (the other models hold no weight norm)."""
@@ -200,7 +222,7 @@ def test_converter_equals_jax_path(models, kind, legacy):
     _assert_states_equal(got, from_jax(_np(jtree)))
 
 
-@pytest.mark.parametrize("kind", ["flow", "hift", "tokenizer", "campplus"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_port_plan_inverts(models, kind):
     """The port's plan is a rename plus a reshape: inverted it writes a
     reference state dict (as ``chip_smoke.py`` does) that converts back

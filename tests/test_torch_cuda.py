@@ -1090,3 +1090,83 @@ def test_decode_stream_core_two_clients_on_card(card):
                             * dec.hift_cfg.total_upsample)
         assert np.abs(want).max() > 0
         np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------- speech LM
+def _card_lm(card, dtype=torch.bfloat16, layers=2):
+    """The CosyVoice2 LM at full width and ``layers`` layers, weights drawn
+    from seed 12."""
+    from moss_speech_decoder_cosy_torch.models.llm import speech_lm as TS
+    from moss_speech_decoder_cosy_torch.models.llm.qwen2 import Qwen2Config
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+    cfg = TS.SpeechLMConfig(backbone=dataclasses.replace(
+        Qwen2Config(), num_layers=layers, max_seq_len=512))
+    with torch.device("meta"):
+        lm = TS.Qwen2SpeechLM(cfg)
+    return TS.load_lm(TS.Qwen2SpeechLM, cfg, seeded_state(lm, 12),
+                      dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_lm_graphed_generate_equals_eager_and_captures_once(card, dtype):
+    """``generate`` replayed as CUDA graphs gives the eager tokens for the
+    same seed; its one graph is captured at the first call and replayed by
+    every later call (the same graph object, no second capture), whatever
+    its ``max_len``: a shorter cap replays it and gives the first tokens."""
+    lm = _card_lm(card, dtype)
+    emb = lm.prompt_embeds(np.arange(3, 40)[None], np.zeros((1, 0)))
+    runner = lm.graphs()
+    state = lm._generator()[0]
+    captures = []
+    capture = runner._capture
+    runner._capture = lambda fn: captures.append(1) or capture(fn)
+    first, n = lm.generate(emb, 5, 60, 60)
+    graph = runner.graphs[("gen", 16)][0]
+    for seed in (5, 6, 5):
+        got, m = lm.generate(emb, seed, 60, 60)
+        want, k = lm.generate(emb, seed, 60, 60, graphs=False)
+        assert m == k == 60
+        assert torch.equal(got, want)
+    assert torch.equal(got, first) and n == 60
+    short, m = lm.generate(emb, 5, 40, 40)
+    assert m == 40 and torch.equal(short, first[:40])
+    assert len(captures) == 1 and runner.graphs[("gen", 16)][0] is graph
+    assert sorted(runner.graphs) == [("gen", 16)]
+    assert lm.graphs() is runner and lm._generator()[0] is state
+
+
+@pytest.mark.parametrize("recent,dtype", [(0, torch.bfloat16),
+                                          (40, torch.float32)],
+                         ids=["bf16", "two_tier_f32"])
+def test_lm_batcher_tokens_do_not_depend_on_slot_or_neighbours(
+        card, recent, dtype):
+    """At full width: a request's tokens through the graphed batcher equal
+    ``generate``'s for its seed, whichever slot it lands in and whoever
+    decodes beside it.  The two-tier cache scores [main ++ recent], split
+    where the batcher's flushes fall, so it runs the same attention only up
+    to rounding: it is held in f32 (in bf16 a rounding can flip a pick)."""
+    from moss_speech_decoder_cosy_torch.serving.lm_server import (
+        ContinuousBatcher)
+    lm = _card_lm(card, dtype)
+    rng = np.random.RandomState(15)
+    reqs = [(rng.randint(0, 151936, n), s) for n, s in
+            ((20, 1), (31, 2), (12, 3), (25, 4), (17, 5))]
+    want = []
+    for text, seed in reqs:
+        toks, n = lm(text[None], np.zeros((1, 0)), seed=seed, max_len=48)
+        want.append(toks[:n].tolist())
+    for order in ([0, 1, 2, 3, 4], [4, 2, 0, 3, 1]):
+        b = ContinuousBatcher(lm, slots=3, step_chunk=8, recent=recent)
+        pending, ids = list(order), {}
+        for _ in range(100):
+            if pending:
+                text, seed = reqs[pending[0]]
+                q = b.submit(text, seed=seed, max_len=48)
+                if q is not None:
+                    ids[pending.pop(0)] = q
+            b.step()
+            if not pending and all(b.finished(q) for q in ids.values()):
+                break
+        for i, q in ids.items():
+            assert b.result(q) == want[i], (order, i)

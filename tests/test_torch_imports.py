@@ -42,6 +42,7 @@ def test_scan_covers_the_package():
                 "pipeline/bulk_voc.py", "pipeline/kv_batcher.py",
                 "pipeline/device_session.py", "serving/audio_batcher.py",
                 "serving/session_manager.py", "utils/flops.py",
+                "utils/graphs.py",
                 "tokenizer/model.py", "tokenizer/features.py",
                 "tokenizer/config.py", "ops/melspec.py",
                 "models/campplus.py", "codec.py", "eval/audio_io.py",
@@ -51,5 +52,8 @@ def test_scan_covers_the_package():
                 "serving/web_demo.py", "serving/boot.py",
                 "utils/checkpoint.py", "utils/onnx_io.py",
                 "utils/ref_config.py", "model_dir.py", "bin/inference.py",
-                "bin/serve.py", "bin/decode_server.py"):
+                "bin/serve.py", "bin/decode_server.py",
+                "models/llm/qwen2.py", "models/llm/speech_lm.py",
+                "models/llm/transformer_lm.py", "serving/lm_server.py",
+                "serving/token_server.py", "synthesizer.py", "frontend.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod
