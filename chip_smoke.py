@@ -28,9 +28,9 @@ Phases (any failure raises and the script exits non-zero):
 4. Offline and windowed slice at full width: ``moss_flow_config()`` with
    flash attention and ``moss_hift_config()``, weights drawn from seed 0,
    bf16 compute.  ``token2wav`` of 250 tokens and ``stream_inference`` of
-   100 tokens, each 1 warm-up + median of 3 with the launch counts read
-   around every timed call, and the first chunk's latency of a new
-   streaming session.
+   100 tokens, 1 warm-up + median of 3 and 1 warm-up + 1 timed call, with
+   the launch counts read around every timed call, and the first chunk's
+   latency of a new streaming session.
 5. KV slice at full width, the configuration ``bench.py`` runs at batch 1:
    ``moss_flow_config()`` (ring attention, no flash), 10 steps with a
    4096-frame noise buffer, block 5, mel cache 8, max_token_len 40,
@@ -60,7 +60,7 @@ Phases (any failure raises and the script exits non-zero):
    aggregate x-realtime, each stream's completion RTF, the first chunk of
    the stream admitted into a busy pool, exactly 14 ``fused_tf_group``
    launches a tick, host and graph launches; the same eager (one run)
-   and through one lane; each stream's wav against ``kv_stream_decoder()`` (reported).
+   and through one lane (1 warm-up + 1 run); each stream's wav against ``kv_stream_decoder()`` (reported).
    Then the windowed device session (``device_stream_decoder()``, the
    reference's windowed re-decode kept on the card) at ``bench.py``'s
    windowed protocol and configuration: bf16, 250 tokens, block 5, mel
@@ -135,6 +135,29 @@ Phases (any failure raises and the script exits non-zero):
    of the 250 tokens (blocks 25, 50, 100, 75).  ``cross_lm``: f32 logits of
    the full-width LM cut to 4 layers through prefill and 32 teacher-forced
    decode steps, card against CPU, within 1e-3 of the logits' peak.
+   The ``lm`` phase also serves the batcher's four requests through its
+   two-tier cache (``recent=64``), graphed, in turns with the single-tier
+   batcher: tokens a second of each, and whether each bf16 stream equals
+   ``generate``'s.
+   The CosyVoice-v1 / stock GLM-4-Voice decoder (``v1``, after ``lm``):
+   ``cosyvoice1_flow_config()`` with the flash kernel and
+   ``cosyvoice1_hift_config()`` at full width, f32, weights from seeds 20
+   and 21; ``V1Decoder.token2wav`` of 500 tokens (10 s at 50 Hz) behind a
+   3 s prompt (150 tokens, a 258-frame mel, a 192-d x-vector), 1 warm-up +
+   median of 3, exactly 640 flash launches a call and a wav of 256 x 861
+   samples, the same in bf16 beside it and one profiled f32 call;
+   ``stream_inference`` of the same tokens (5 flow calls, 3,200 launches)
+   and the wall from the 120th pushed token to the first chunk; a model
+   directory under the reference's v1 key names through
+   ``load_model_dir(flow_version="v1")`` bit-equal to the seeded states;
+   ``bin/inference.py --flow_version v1 --mode decode`` once.
+   ``cross_v1``: f32 card against CPU, the flow mel over 60 tokens behind
+   a 20-token prompt and every chunk mel of a ``StreamSessionV1`` over 150
+   tokens (``CROSS_TOL``), the 22.05 kHz source over 1 s with the same
+   draws (``V1_SOURCE_TOL``), one ``DiTConditionalCFM`` solve at
+   ``DiTConfig()`` over 200 frames.  The kernel phase holds the flash
+   kernel at the v1 U-Net's two shapes, (2, 8, 1119, 64) and (2, 8, 560,
+   64), chunk 0, f32 and bf16, timed with the L2 cache flushed and warm.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -182,6 +205,19 @@ CONFORMER_NOTE = ("no single PyTorch call computes a group of rel-pos "
 # the encoder's two conformer groups in the KV session: (L, C, Rt) at
 # block 5, ring 35 tokens and the x4 upsample
 CONFORMER_GROUPS = {"blocks": (6, 5, 35), "up": (4, 20, 140)}
+
+
+# the CosyVoice-v1 slice: 10 s of target speech (500 tokens at 50 Hz) behind
+# a 3 s prompt (150 tokens, 258 mel frames at 22050 / 256 Hz)
+V1_TOKENS, V1_PROMPT_TOKENS, V1_PROMPT_FRAMES = 500, 150, 258
+V1_RATE = 50.0
+# the flash launches' T at the U-Net's full and half rate: 258 + 861 frames
+V1_FLASH_T = (1119, 560)
+# the 22.05 kHz NSF source, card vs CPU over 1 s with the same draws: the
+# phase is an f32 cumsum over 22,050 samples, a parallel scan on the card
+# and a sequential one on the CPU (``cross_v1`` reports each one's drift
+# from a float64 sum: 4.8e-4 and 6.1e-5 cycles on an H100 and its host)
+V1_SOURCE_TOL = 1e-3
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -257,6 +293,9 @@ def kernel_phase(torch, fa) -> list:
     import torch.nn.functional as F
     cases = [(1000, 0, 1000, 0.3), (160, 50, 160, 0.3), (1000, 0, 777, 0.3),
              (160, 50, 131, 0.3), (1000, 0, 1000, 2.0), (160, 50, 131, 2.0)]
+    # the v1 U-Net's two levels behind a 3 s prompt (``v1_phase``), also
+    # timed with the L2 cache flushed
+    cases += [(t, 0, t, 0.3) for t in V1_FLASH_T]
     b, h, dk = 2, 8, 64
     records = []
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -305,6 +344,8 @@ def kernel_phase(torch, fa) -> list:
                            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound,
                            bound_by=bound_by)
+                if t in V1_FLASH_T:
+                    rec.update(v1=True, ms_cold_l2=time_cuda_cold(call))
                 print("kernel", json.dumps(rec), flush=True)
                 if not err <= tol:
                     raise AssertionError(f"kernel disagrees with its plain "
@@ -592,14 +633,14 @@ def launches_per_decode(flow_cfg) -> int:
     return blocks * flow_cfg.cfm.n_timesteps
 
 
-def timed_runs(call, what: str, want: dict):
-    """One warm-up call, then 3 timed calls with each kernel's launch count
-    (``counter.launches`` for each counter of ``want``) set to 0 just before
-    each call and checked against ``want[counter]`` just after.  Returns
-    (last output, walls)."""
+def timed_runs(call, what: str, want: dict, runs: int = 3):
+    """One warm-up call, then ``runs`` timed calls with each kernel's launch
+    count (``counter.launches`` for each counter of ``want``) set to 0 just
+    before each call and checked against ``want[counter]`` just after.
+    Returns (last output, walls)."""
     call()
     walls = []
-    for _ in range(3):
+    for _ in range(runs):
         for counter in want:
             counter.launches = 0
         t0 = time.perf_counter()
@@ -643,9 +684,10 @@ def slice_phase(torch, fa) -> dict:
     hop, ahead = dec.pipe_cfg.block_size, flow_cfg.pre_lookahead_len
     windows = max(0, (n_stream - ahead) // hop) + 1
     stream_launches = per_decode * windows
+    # one timed call: the smoke's time goes to the v1 phases
     swav, stream_walls = timed_runs(
         lambda: dec.stream_inference(stream_tokens), "stream_inference",
-        {counter: stream_launches})
+        {counter: stream_launches}, runs=1)
     want_len = n_stream * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
     if swav.shape != (1, want_len) or not np.isfinite(swav).all():
         raise AssertionError(f"bad stream output {swav.shape}")
@@ -1126,7 +1168,8 @@ def batcher_phase(torch, fb) -> dict:
     profiled graphed run (host launch calls, graph launches, device time);
     the same traffic eager (``graphs=False``, one run: it captures nothing,
     so its first run is no slower) and through one lane
-    (``n_lanes=1``: the streams one after another, 20-row ticks); and each
+    (``n_lanes=1``: the streams one after another, 20-row ticks; 1 warm-up
+    + 1 timed run); and each
     stream's wav against the same stream through ``kv_stream_decoder()``
     (reported: the two number the ring slots differently)."""
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
@@ -1160,8 +1203,8 @@ def batcher_phase(torch, fb) -> dict:
                 raise AssertionError(f"bad batcher output {wav.shape}")
         return got
 
-    def timed(b, what, n_runs=3):
-        if n_runs > 1:
+    def timed(b, what, n_runs=3, warm=True):
+        if warm:
             run(b)                                        # warm-up
         runs = [run(b) for _ in range(n_runs)]
         mid = sorted(runs, key=lambda r: r["wall_s"])[n_runs // 2]
@@ -1199,10 +1242,11 @@ def batcher_phase(torch, fb) -> dict:
     print("batcher_vs_session", json.dumps(diffs), flush=True)
     del b
     eager = batcher(dec, 4, KV_TOKENS, graphs=False)
-    out["eager"], _ = timed(eager, "eager", n_runs=1)
+    out["eager"], _ = timed(eager, "eager", n_runs=1, warm=False)
     del eager
     one = batcher(dec, 1, KV_TOKENS)
-    out["one_lane"], _ = timed(one, "one_lane")
+    # 1 warm-up + 1 timed run: the smoke's time goes to the v1 phases
+    out["one_lane"], _ = timed(one, "one_lane", n_runs=1)
     return out
 
 
@@ -2316,6 +2360,9 @@ LM_RATE = 25.0           # CosyVoice2's speech tokens per second
 LM_CROSS_TOL = 1e-3      # card vs CPU f32 logits, share of the peak
 LM_CROSS_LAYERS = 4
 LM_CROSS_STEPS = 32
+# the batcher's two-tier cache: a 64-slot recent ring, flushed every chunk
+# of 16 steps that would fill it
+LM_RECENT = 64
 
 
 def seeded_lm(torch, cfg, seed: int, device: str, dtype):
@@ -2443,7 +2490,9 @@ def lm_phase(torch, fa) -> dict:
         toks, count = lm.generate(lm.prompt_embeds(tx[None], none), s, n, n)
         want.append(toks[:count].cpu().numpy().tolist())
 
-    def serve(b):
+    def serve(b, check=True):
+        """Wall of the four requests; with ``check`` each stream must equal
+        ``generate``'s, else returns (wall, [stream i equal])."""
         torch.cuda.synchronize()
         t = time.perf_counter()
         ids = []
@@ -2453,6 +2502,8 @@ def lm_phase(torch, fa) -> dict:
         b.run_all()
         wall = time.perf_counter() - t
         got = [b.result(q) for q in ids]
+        if not check:
+            return wall, [g == w for g, w in zip(got, want)]
         if got != want:
             bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
             raise AssertionError(f"batcher streams {bad} differ from "
@@ -2467,12 +2518,28 @@ def lm_phase(torch, fa) -> dict:
                                         text_buckets=(n // 2,),
                                         graphs=False))
     bwall = statistics.median(bat_walls)
+    # the two-tier ``recent`` cache, the same requests and seeds, graphed:
+    # a warm-up, then two runs in turns with the single-tier batcher
+    two = ContinuousBatcher(lm, slots=LM_SLOTS, step_chunk=16,
+                            text_buckets=(n // 2,), recent=LM_RECENT)
+    serve(two, check=False)
+    turns = {0: [], LM_RECENT: []}
+    for _ in range(2):
+        turns[0].append(serve(bat))
+        wall2, equal2 = serve(two, check=False)
+        turns[LM_RECENT].append(wall2)
+    recent_rec = {
+        str(r): dict(graphed_s=w, tokens_per_s=LM_SLOTS * n
+                     / statistics.median(w),
+                     equal_to_generate=([True] * LM_SLOTS if r == 0
+                                        else equal2))
+        for r, w in turns.items()}
     bat_rec = dict(slots=LM_SLOTS, tokens_each=n, warm_s=bat_warm,
                    graphed_s=bat_walls, eager_s=bat_eager,
                    tokens_per_s=LM_SLOTS * n / bwall,
                    eager_tokens_per_s=LM_SLOTS * n / bat_eager,
                    graph_keys=[list(k) for k in bat.steps.graphs],
-                   equal_to_generate=True)
+                   equal_to_generate=True, recent=recent_rec)
     print("lm batcher", json.dumps(bat_rec), flush=True)
 
     # text -> tokens -> waveform at CosyVoice2 width, flash on
@@ -2599,6 +2666,287 @@ def cross_lm_phase(torch) -> dict:
     return rec
 
 
+def seeded_v1(flash: bool = True):
+    """(flow_cfg, hift_cfg, flow_state, hift_state): the CosyVoice-v1
+    presets (``cosyvoice1_flow_config()``, with the flash kernel, and
+    ``cosyvoice1_hift_config()``), weights from seeds 20 and 21."""
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    flow_cfg = C.cosyvoice1_flow_config()
+    flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
+        flow_cfg.estimator, use_flash_attention=flash))
+    hift_cfg = C.cosyvoice1_hift_config()
+    return (flow_cfg, hift_cfg) + seeded_states(flow_cfg, hift_cfg, seed=20,
+                                                v1=True)
+
+
+def v1_inputs(flow_cfg, n_tokens: int, n_prompt: int, n_frames: int,
+              seed: int):
+    """Seeded target tokens (1, n_tokens) and a prompt: tokens, a mel of
+    ``n_frames`` frames and an x-vector."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, flow_cfg.vocab_size, (1, n_tokens)),
+            (rng.randint(0, flow_cfg.vocab_size, (1, n_prompt)),
+             (rng.randn(1, n_frames, flow_cfg.output_size) * 0.5
+              ).astype(np.float32),
+             rng.randn(1, flow_cfg.spk_embed_dim).astype(np.float32)))
+
+
+def v1_phase(torch, fa) -> dict:
+    """The CosyVoice-v1 / stock GLM-4-Voice 22.05 kHz decoder at full width
+    through the port's entry points, f32 (the JAX v1 stack's only dtype),
+    seeded weights, 500 tokens (10 s) behind a 3 s prompt:
+
+    1. ``V1Decoder.token2wav``: 1 warm-up + median of 3, exactly 640 flash
+       launches a call (64 attention blocks x 10 Euler steps), a wav of 256
+       x 861 samples; the same in bf16 (the flow cast, HiFT f32) beside it;
+       one profiled f32 call (device time, busy share, top kernels);
+    2. ``stream_inference``: 1 warm-up + median of 3, exactly 5 flow calls
+       (windows of 120 tokens at the 100-token hop, the last 100) and 3,200
+       launches; a new session fed one token at a time: the wall from the
+       120th token to the first chunk;
+    3. a model directory (``flow.pt``, ``hift.pt`` under the reference's v1
+       key names) through ``load_model_dir(flow_version="v1")``, bit-equal
+       to the seeded states, no reference key unused;
+    4. ``bin/inference.py --flow_version v1 --mode decode`` on it, once."""
+    import tempfile
+    from moss_speech_decoder_cosy_torch.bin import inference as cli
+    from moss_speech_decoder_cosy_torch.eval.audio_io import read_wav
+    from moss_speech_decoder_cosy_torch.model_dir import (V1Decoder,
+                                                          load_model_dir)
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_v1()
+    tokens, prompt = v1_inputs(flow_cfg, V1_TOKENS, V1_PROMPT_TOKENS,
+                               V1_PROMPT_FRAMES, 23)
+    audio_s = V1_TOKENS / V1_RATE
+    counter = fa.launch_flash_chunk_attention
+    per_call = launches_per_decode(flow_cfg)
+    if per_call != 640:
+        raise AssertionError(f"the v1 U-Net has {per_call} attention calls "
+                             f"a flow call, not 640")
+    out = dict(tokens=V1_TOKENS, prompt_tokens=V1_PROMPT_TOKENS,
+               prompt_frames=V1_PROMPT_FRAMES, audio_s=audio_s,
+               launches_per_flow_call=per_call)
+    for name, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        dec = V1Decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                        compute_dtype=dt)
+        n_mel = dec.mel_len(V1_TOKENS)           # 861 for 500 tokens
+        wav, walls = timed_runs(lambda: dec.token2wav(tokens, *prompt),
+                                f"v1 token2wav {name}", {counter: per_call})
+        if n_mel != int(V1_TOKENS / flow_cfg.input_frame_rate * 22050
+                        / 256) or \
+                wav.shape != (1, 256 * n_mel) or \
+                not np.isfinite(wav).all() or \
+                np.abs(wav).max() > hift_cfg.audio_limit:
+            raise AssertionError(f"bad v1 token2wav {name}: {wav.shape}, "
+                                 f"{n_mel} frames")
+        out[name] = dict(wall_s=walls, median_s=statistics.median(walls),
+                         rtf=statistics.median(walls) / audio_s,
+                         launches=per_call, samples=wav.shape[1],
+                         mel_frames=n_mel,
+                         wav_max_abs=float(np.abs(wav).max()))
+        if name == "f32":
+            prof = host_launches(
+                torch, lambda: dec.token2wav(tokens, *prompt))
+            out["profiled"] = {k: v for k, v in prof.items()
+                               if k != "fused_tf_group_device_s"}
+            f32_dec = dec
+        else:
+            del dec
+    dec = f32_dec
+
+    # streaming: windows of a 100-token hop + 20 of overlap, then the rest
+    # (500 tokens: 120, 120, 120, 120, 100)
+    want_windows, left = [], V1_TOKENS
+    while left >= 120:
+        want_windows.append(120)
+        left -= 100
+    want_windows.append(left)
+    stream_launches = per_call * len(want_windows)
+    # each window's mel less the 34-frame overlap it hands to the next one
+    # (860 frames for 500 tokens, one fewer than the offline decode's 861)
+    stream_frames = sum(dec.mel_len(w) for w in want_windows) - \
+        int(20 / flow_cfg.input_frame_rate * 22050 / 256) * (
+            len(want_windows) - 1)
+    swav, swalls = timed_runs(
+        lambda: dec.stream_inference(tokens, *prompt), "v1 stream_inference",
+        {counter: stream_launches})
+    sess = dec.new_session(*prompt)
+    first_s, first_at, chunks = None, None, []
+    for i, tok in enumerate(tokens[0]):
+        t0 = time.perf_counter()
+        got = sess.push_tokens([tok])
+        if got and first_s is None:
+            first_s = time.perf_counter() - t0
+            first_at = i + 1
+        chunks += got
+    chunks.append(sess.finalize())
+    # the same windows and steps: bit for bit
+    fed_equal = np.array_equal(np.concatenate(chunks)[None], swav)
+    if sess.windows != want_windows or first_at != 120 or \
+            swav.shape != (1, 256 * stream_frames) or \
+            not np.isfinite(swav).all() or not fed_equal:
+        raise AssertionError(f"bad v1 stream: windows {sess.windows}, first "
+                             f"chunk at token {first_at}, {swav.shape}, the "
+                             f"token-at-a-time feed equal: {fed_equal}")
+    out["stream"] = dict(
+        windows=sess.windows, flow_calls=len(sess.windows),
+        launches=stream_launches, wall_s=swalls,
+        median_s=statistics.median(swalls),
+        rtf=statistics.median(swalls) / audio_s,
+        first_chunk_token=first_at, first_chunk_s=first_s,
+        fed_one_token_at_a_time_equal=True,
+        samples=int(swav.shape[1]), mel_frames=stream_frames,
+        first_chunk_samples=int(chunks[0].shape[0]))
+    if not out["stream"]["rtf"] < 1:
+        raise AssertionError(f"v1 streaming slower than real time: "
+                             f"{out['stream']}")
+
+    # the model directory and the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(reference_state("flow_v1", flow_cfg, flow_state),
+                   f"{tmp}/flow.pt")
+        torch.save(reference_state("hift", hift_cfg, hift_state,
+                                   "generator."), f"{tmp}/hift.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        md = load_model_dir(tmp, flow_version="v1", verbose=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        equal = (states_equal(torch, md.decoder.flow, flow_state,
+                              torch.float32)
+                 and states_equal(torch, md.decoder.hift, hift_state,
+                                  torch.float32))
+        if not equal or md.report != {"flow_unused": 0, "hift_unused": 0} \
+                or md.flow_version != "v1" or \
+                not isinstance(md.decoder, V1Decoder):
+            raise AssertionError(f"v1 model directory: bit_equal={equal}, "
+                                 f"report {md.report}")
+        del md
+        np.save(f"{tmp}/tokens.npy", tokens[0, :100])
+        t0 = time.perf_counter()
+        cli.main(["--mode", "decode", "--flow_version", "v1", "--model_dir",
+                  tmp, "--input", f"{tmp}/tokens.npy", "--output",
+                  f"{tmp}/out.wav"])
+        cli_s = time.perf_counter() - t0
+        cwav, sr = read_wav(f"{tmp}/out.wav")
+        if sr != 22050 or cwav.shape[-1] != 256 * dec.mel_len(100):
+            raise AssertionError(f"bad v1 CLI wav: {cwav.shape} at {sr}")
+    out["model_dir"] = dict(load_s=load_s, bit_equal=True, report={
+        "flow_unused": 0, "hift_unused": 0})
+    out["cli"] = dict(tokens=100, wall_s=cli_s, samples=int(cwav.shape[-1]),
+                      sample_rate=sr)
+    print("v1", json.dumps(out), flush=True)
+    return out
+
+
+def cross_v1_phase(torch, card: str = "cuda") -> dict:
+    """The v1 stack in f32, card (flash kernel) against CPU (its plain
+    version), the same seeded weights:
+
+    - the flow mel over 60 tokens behind a 20-token prompt (within
+      ``CROSS_TOL``, max abs);
+    - every chunk mel of one ``StreamSessionV1`` over 150 tokens behind
+      the same prompt (windows of 120 and 50 tokens; ``CROSS_TOL``);
+    - the 22.05 kHz NSF source over 1 s of a seeded f0 track, the same
+      draws (``V1_SOURCE_TOL``), and its phase scan's drift from a float64
+      sum (reported): f32 ``cumsum`` over the strided time axis and over a
+      contiguous one on the card, and on the CPU;
+    - one ``DiTConditionalCFM`` solve at ``DiTConfig()`` over 200 frames,
+      weights from seed 24 (``CROSS_TOL`` x max(1, peak))."""
+    from moss_speech_decoder_cosy_torch.model_dir import V1Decoder
+    from moss_speech_decoder_cosy_torch.models.flow.dit import (
+        DiTConditionalCFM, DiTConfig)
+    from moss_speech_decoder_cosy_torch.models.hift.generator import (
+        seeded_phase_draws)
+    from moss_speech_decoder_cosy_torch.utils.config import CFMConfig
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_v1()
+    tokens, prompt = v1_inputs(flow_cfg, 150, 20, 34, 25)
+    rng = np.random.RandomState(26)
+    f0 = np.repeat(rng.choice([0.0, 0.0, 90.0, 150.0, 220.0, 310.0, 420.0],
+                              87), 256)[:22050]
+    f0 = f0[None, :, None].astype(np.float32)
+    draws = seeded_phase_draws(hift_cfg.nb_harmonics + 1, 22050, "cpu")
+    dit_cfg = DiTConfig()
+    with torch.device("meta"):
+        dit = DiTConditionalCFM(CFMConfig(), dit_cfg)
+    dit_state = seeded_state(dit, 24)
+    mu = (rng.randn(1, 200, dit_cfg.io_channels) * 0.5).astype(np.float32)
+    spks = rng.randn(1, dit_cfg.spk_embed_dim).astype(np.float32)
+    res = {}
+    for key, dev in (("cuda", card), ("cpu", "cpu")):
+        dec = V1Decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                        device=dev)
+        offline = dec.flow_mel(tokens[:, :60], *prompt).cpu().numpy()
+        sess = dec.new_session(*prompt)
+        mels, flow = [], sess._flow
+        sess._flow = lambda t: mels.append(flow(t)) or mels[-1]
+        sess.push_tokens(tokens[0])
+        sess.finalize()
+        with torch.inference_mode():
+            src = dec.hift.m_source(
+                torch.from_numpy(f0).to(dev),
+                *(d.to(dev) for d in draws)).cpu().numpy()
+            cfm = DiTConditionalCFM(CFMConfig(), dit_cfg)
+            cfm.load_state_dict(dit_state, strict=True)
+            cfm = cfm.to(dev).eval()
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            dmel = cfm(t(mu), torch.ones(1, 200, dtype=torch.bool,
+                                         device=dev), t(spks),
+                       torch.zeros_like(t(mu))).cpu().numpy()
+        res[key] = dict(offline=offline, stream=mels, source=src, dit=dmel,
+                        windows=sess.windows)
+        del dec, cfm
+    c, p = res["cuda"], res["cpu"]
+    if c["windows"] != p["windows"] or c["windows"] != [120, 50]:
+        raise AssertionError(f"v1 session windows {c['windows']}, "
+                             f"{p['windows']}")
+
+    def diff(a, b):
+        return float(np.abs(a - b).max())
+
+    # the phase scan alone, in cycles against a float64 sum: f32 cumsum
+    # over the strided time axis (stride 9) and over a contiguous one on
+    # the card (the source uses the contiguous one), and on the CPU
+    h = torch.arange(1, hift_cfg.nb_harmonics + 2, dtype=torch.float32)
+    rad = torch.remainder(torch.from_numpy(f0) * h / 22050, 1.0)
+    exact = torch.cumsum(rad.double(), dim=1)
+    rad_card = rad.to(card)
+    scans = dict(
+        card_strided=torch.cumsum(rad_card, dim=1),
+        card_contiguous=torch.cumsum(rad_card.transpose(1, 2).contiguous(),
+                                     dim=-1).transpose(1, 2),
+        cpu=torch.cumsum(rad, dim=1))
+    scan_drift = {k: float((v.cpu().double() - exact).abs().max())
+                  for k, v in scans.items()}
+    dit_peak = float(np.abs(p["dit"]).max())
+    out = dict(
+        offline=dict(tokens=60, prompt_tokens=20, mel_shape=list(
+            p["offline"].shape), mel_max_abs=float(np.abs(p["offline"]).max()),
+            max_abs_diff=diff(c["offline"], p["offline"]), tol=CROSS_TOL),
+        stream=dict(tokens=150, windows=c["windows"],
+                    max_abs_diff=max(diff(a, b) for a, b in
+                                     zip(c["stream"], p["stream"])),
+                    tol=CROSS_TOL),
+        source=dict(samples=22050, max_abs=float(np.abs(p["source"]).max()),
+                    max_abs_diff=diff(c["source"], p["source"]),
+                    tol=V1_SOURCE_TOL, scan_drift_cycles=scan_drift),
+        dit=dict(frames=200, mel_max_abs=dit_peak,
+                 max_abs_diff=diff(c["dit"], p["dit"]),
+                 tol=CROSS_TOL * max(1.0, dit_peak)))
+    print("cross_v1", json.dumps(out), flush=True)
+    for name, rec in out.items():
+        if not rec["max_abs_diff"] <= rec["tol"]:
+            raise AssertionError(f"card and CPU v1 {name} disagree: {rec}")
+    for got in (c["offline"], c["source"], c["dit"], *c["stream"]):
+        if not np.isfinite(got).all():
+            raise AssertionError("non-finite v1 output on the card")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -2664,6 +3012,7 @@ def main(argv=None) -> int:
     tok = phase("tokenizer", tokenizer_phase, torch)
     srv = phase("serve", serve_phase, torch, fb)
     lmr = phase("lm", lm_phase, torch, fa)
+    v1 = phase("v1", v1_phase, torch, fa)
 
     # 6. cross-device
     cross = phase("cross", cross_phase, torch)
@@ -2678,6 +3027,7 @@ def main(argv=None) -> int:
     cross["kv_batch"] = phase("cross_kv_batch", cross_kv_batch_phase, fb)
     cross["codec"] = phase("cross_codec", cross_codec_phase, torch, fa)
     cross["lm"] = phase("cross_lm", cross_lm_phase, torch)
+    cross["v1"] = phase("cross_v1", cross_v1_phase, torch)
 
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
@@ -2703,6 +3053,14 @@ def main(argv=None) -> int:
         source=f"{PACKAGE}/csrc/flash_chunk_attention.cu",
         replaces="moss_speech_decoder_cosy_tpu/ops/pallas_attention.py:30",
         launches=sl["launches"], synth_launches=lmr["tts"]["flash_launches"],
+        v1_launches=v1["f32"]["launches"],
+        v1_stream_launches=v1["stream"]["launches"], v1_shapes=[
+            dict(shape=r["shape"], dtype=r["dtype"], layout=r["layout"],
+                 ms=r["ms"], ms_cold_l2=r["ms_cold_l2"],
+                 plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                 max_abs_err=r["max_abs_err"], tol=r["tol"])
+            for r in records if r.get("v1")],
         max_abs_err=main_rec["max_abs_err"],
         ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
         bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
@@ -2745,7 +3103,7 @@ def main(argv=None) -> int:
                             fused_conformer_group=conf_records),
                  slice=sl, kv_slice=kv_sl, kv_api=api, kv_batch=kvb,
                  kv_quant=kvq, batcher=bat, windowed_device=win,
-                 tokenizer=tok, serve=srv, lm=lmr, cross=cross),
+                 tokenizer=tok, serve=srv, lm=lmr, v1=v1, cross=cross),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

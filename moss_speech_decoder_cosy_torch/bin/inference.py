@@ -8,6 +8,9 @@ cosyvoice/bin/inference.py use cases).
     python -m moss_speech_decoder_cosy_torch.bin.inference \
         --mode reconstruct --model_dir DIR --input in.wav --output out.wav \
         [--prompt_wav speaker.wav]
+    python -m moss_speech_decoder_cosy_torch.bin.inference --mode decode \
+        --flow_version v1 [--model_dir DIR] --input tokens.npy \
+        --output out.wav [--streaming]
 
 Modes:
   reconstruct  wav -> tokens -> wav (voice conversion with --prompt_wav)
@@ -16,8 +19,12 @@ Modes:
 Weights come from a reference-layout model directory (``--model_dir``,
 ``model_dir.load_model_dir``) or from ``--flow_ckpt`` / ``--hift_ckpt`` /
 ``--tokenizer_ckpt`` (reference torch files, at the MOSS and GLM-4-Voice
-configs); what neither gives is drawn from a seed, with a warning.  Runs on
-the CUDA card unless ``--device cpu``.
+configs, or with ``--flow_version v1`` the CosyVoice-v1 / stock
+GLM-4-Voice 22.05 kHz ones); what neither gives is drawn from a seed, with a
+warning.  ``--flow_version v1`` decodes tokens only (``--mode decode``, no
+prompt), offline or through the v1 streaming session (``--streaming``), as
+the JAX CLI's ``decode_v1``.  Runs on the CUDA card unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -29,38 +36,40 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..model_dir import V1_NOTE
-
 
 def _warn(what: str) -> None:
     print(f"WARNING: seeded random {what} weights (no checkpoint given)")
 
 
 def build_decoder(args) -> Tuple[object, Optional[object]]:
-    """(AudioDecoder, SpeechCodec or None): from ``--model_dir`` (its codec
-    when it holds a tokenizer), else from the reference checkpoints given,
-    seeded weights for the rest."""
-    from ..model_dir import load_model_dir
+    """(AudioDecoder or V1Decoder, SpeechCodec or None): from
+    ``--model_dir`` (its codec when it holds a tokenizer), else from the
+    reference checkpoints given, seeded weights for the rest."""
+    from ..model_dir import V1Decoder, load_model_dir
     from ..pipeline import AudioDecoder
     from ..utils import checkpoint as ckpt
-    from ..utils.config import (PipelineConfig, moss_flow_config,
+    from ..utils.config import (PipelineConfig, cosyvoice1_flow_config,
+                                cosyvoice1_hift_config, moss_flow_config,
                                 moss_hift_config)
     from ..weights import seeded_states
 
-    if args.flow_version == "v1":
-        raise NotImplementedError(V1_NOTE)
+    v1 = args.flow_version == "v1"
     dt = torch.bfloat16 if args.bf16 else None
     pipe = PipelineConfig(block_size=args.block_size,
                           max_token_len=args.max_token_len)
     if args.model_dir:
         md = load_model_dir(args.model_dir, tokenizer=args.tokenizer_ckpt,
                             pipeline=pipe, compute_dtype=dt,
+                            flow_version=args.flow_version,
                             device=args.device)
         return md.decoder, md.codec
-    flow_cfg, hift_cfg = moss_flow_config(), moss_hift_config()
-    flow_state, hift_state = seeded_states(flow_cfg, hift_cfg)
+    flow_cfg, hift_cfg = ((cosyvoice1_flow_config(), cosyvoice1_hift_config())
+                          if v1 else (moss_flow_config(), moss_hift_config()))
+    flow_state, hift_state = seeded_states(flow_cfg, hift_cfg, v1=v1)
     if args.flow_ckpt:
-        flow_state, unused = ckpt.convert_flow_state_dict(
+        convert = (ckpt.convert_flow_v1_state_dict if v1
+                   else ckpt.convert_flow_state_dict)
+        flow_state, unused = convert(
             ckpt.load_torch_state_dict(args.flow_ckpt), flow_cfg)
         print(f"flow: {len(unused)} unused reference keys")
     else:
@@ -71,6 +80,9 @@ def build_decoder(args) -> Tuple[object, Optional[object]]:
                               "generator."), hift_cfg)
     else:
         _warn("hift")
+    if v1:
+        return V1Decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                         compute_dtype=dt, device=args.device), None
     dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state, pipe,
                        compute_dtype=dt, device=args.device)
     return dec, None
@@ -109,8 +121,11 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--flow_ckpt", default=None)
     p.add_argument("--hift_ckpt", default=None)
     p.add_argument("--tokenizer_ckpt", default=None)
-    p.add_argument("--flow_version", choices=["v2", "v1"], default="v2",
-                   help="v1 (CosyVoice-v1, 22.05 kHz) is not ported yet")
+    p.add_argument("--flow_version", choices=["v2", "v1"], default=None,
+                   help="v1: the CosyVoice-v1 / stock GLM-4-Voice "
+                        "MaskedDiffWithXvec stack at 22.05 kHz (decode "
+                        "mode, no prompt); default: what --model_dir's "
+                        "config.yaml says, else v2")
     p.add_argument("--block_size", type=int, default=5)
     p.add_argument("--max_token_len", type=int, default=40)
     p.add_argument("--bf16", action="store_true")
@@ -144,6 +159,14 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from ..eval.audio_io import read_wav, resample, write_wav
+
+    if args.flow_version == "v1":
+        if args.mode != "decode" or args.prompt_wav:
+            p.error("--flow_version v1 decodes tokens only (--mode decode, "
+                    "no --prompt_wav)")
+        if args.streaming and args.engine == "kv":
+            p.error("--flow_version v1 streams through its own session; "
+                    "--engine kv is the v2 KV wavefront")
 
     codec = None
     if args.mode == "reconstruct" or args.prompt_wav:

@@ -17,10 +17,13 @@ serve, on one device (CUDA unless ``device="cpu"``):
 
 Files (all optional but flow.pt and hift.pt):
 
-    config.yaml       hyperpyyaml model config -> FlowConfig / HiFTConfig
-                      (without it: ``moss_flow_config()`` and
-                      ``moss_hift_config()``)
-    flow.pt           flow decoder weights (CausalMaskedDiffWithXvec)
+    config.yaml       hyperpyyaml model config -> FlowConfig / HiFTConfig;
+                      v1 or v2 from the flow's class name (without it:
+                      ``moss_flow_config()`` and ``moss_hift_config()``,
+                      or the ``cosyvoice1_*`` presets with
+                      ``flow_version="v1"``)
+    flow.pt           flow decoder weights (CausalMaskedDiffWithXvec, or
+                      the v1 MaskedDiffWithXvec)
     hift.pt           vocoder weights (``generator.`` prefix stripped)
     campplus.onnx     speaker x-vector -> the port's CAMPPlus
                       (``SpeakerEncoder.from_onnx``)
@@ -29,8 +32,9 @@ Files (all optional but flow.pt and hift.pt):
                       model.safetensors) through ``tokenizer=`` or a
                       ``speech_tokenizer/`` subdirectory
 
-A CosyVoice-v1 directory (a ``MaskedDiffWithXvec`` flow at 22.05 kHz)
-raises ``NotImplementedError``: its flow variant is ROADMAP item A12.
+A CosyVoice-v1 directory (a ``MaskedDiffWithXvec`` flow at 22.05 kHz, the
+stock GLM-4-Voice decoder) gives a ``V1Decoder`` with the same decode
+surface (``token2wav``, ``new_session``, ``stream_inference``).
 """
 
 from __future__ import annotations
@@ -43,9 +47,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-
-V1_NOTE = ("CosyVoice-v1 model directories (the MaskedDiffWithXvec flow) "
-           "are not ported yet (ROADMAP A12)")
 
 
 def tokenizer_config_from_json(path):
@@ -68,6 +69,102 @@ def tokenizer_config_from_json(path):
     )
 
 
+class V1Decoder:
+    """Token -> wav of the v1 stack (the CosyVoiceModel decode role,
+    cosyvoice/cli/model.py:29-238) on one device (CUDA unless
+    ``device="cpu"``): offline ``token2wav`` and the growing-hop
+    ``new_session`` (``pipeline/stream_v1.py``), the surface of
+    ``pipeline.AudioDecoder`` that ``load_model_dir`` and ``SpeechCodec``
+    use.  ``compute_dtype`` casts the flow (the ODE carry stays f32); the
+    vocoder runs in f32.  ``ratio`` is mel frames a token, fractional
+    (22050 / 256 / 50 ~= 1.72)."""
+
+    def __init__(self, flow_cfg, hift_cfg, flow_state, hift_state,
+                 mel_hop: int = 256, compute_dtype=None, device=None):
+        from .models.flow.flow_v1 import MaskedDiffWithXvec
+        from .models.hift import HiFTGenerator
+        from .utils.device import resolve_device
+        self.device = resolve_device(device)
+        self.flow_cfg, self.hift_cfg = flow_cfg, hift_cfg
+        self.compute_dtype = compute_dtype
+        with torch.device("meta"):
+            flow = MaskedDiffWithXvec(flow_cfg)
+            hift = HiFTGenerator(hift_cfg)
+        flow.load_state_dict(flow_state, strict=True, assign=True)
+        hift.load_state_dict(hift_state, strict=True, assign=True)
+        self.flow = flow.to(self.device).eval()
+        self.hift = hift.to(self.device).eval()
+        if compute_dtype is not None:
+            self.flow.to(compute_dtype)
+        self.mel_hop = mel_hop
+        self.ratio = (hift_cfg.sampling_rate / mel_hop
+                      / flow_cfg.input_frame_rate)
+
+    def _defaults(self, prompt_token, prompt_feat, embedding):
+        if prompt_token is None:
+            prompt_token = np.zeros((1, 0), np.int32)
+        if prompt_feat is None:
+            prompt_feat = np.zeros(
+                (1, int(round(prompt_token.shape[1] * self.ratio)),
+                 self.flow_cfg.output_size), np.float32)
+        if embedding is None:
+            embedding = np.zeros((1, self.flow_cfg.spk_embed_dim),
+                                 np.float32)
+        return prompt_token, prompt_feat, embedding
+
+    def mel_len(self, n_tokens: int) -> int:
+        """Mel frames of ``n_tokens`` (flow.py:128, truncated)."""
+        return int(n_tokens / self.flow_cfg.input_frame_rate
+                   * self.hift_cfg.sampling_rate / self.mel_hop)
+
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device,
+                                                           dtype)
+
+    @torch.inference_mode()
+    def flow_mel(self, token, prompt_token=None, prompt_feat=None,
+                 embedding=None) -> torch.Tensor:
+        """The offline flow's mel after the prompt, (1, mel_len, n_mel)
+        f32 on the device."""
+        pt, pf, emb = self._defaults(prompt_token, prompt_feat, embedding)
+        token = np.asarray(token).reshape(1, -1)
+        mel, _ = self.flow.inference(
+            self._tensor(token, torch.long), self._tensor(pt, torch.long),
+            self._tensor(pf, torch.float32), self._tensor(emb, torch.float32),
+            self.mel_len(token.shape[1]))
+        return mel
+
+    @torch.inference_mode()
+    def token2wav(self, token, prompt_token=None, prompt_feat=None,
+                  embedding=None) -> np.ndarray:
+        """Offline decode (the flow without caches, then HiFT),
+        cli/model.py:133-163; (1, mel_len * total_upsample) f32."""
+        mel = self.flow_mel(token, prompt_token, prompt_feat, embedding)
+        wav, _ = self.hift(mel)
+        return wav.float().cpu().numpy()
+
+    def new_session(self, prompt_token=None, prompt_feat=None,
+                    embedding=None, **kw):
+        """A ``StreamSessionV1``; ``kw`` its hop and cache options."""
+        from .pipeline.stream_v1 import StreamSessionV1
+        pt, pf, emb = self._defaults(prompt_token, prompt_feat, embedding)
+        return StreamSessionV1(self.flow, self.hift, pt, pf, emb,
+                               sample_rate=self.hift_cfg.sampling_rate,
+                               mel_hop=self.mel_hop, **kw)
+
+    def stream_inference(self, token, prompt_token=None, prompt_feat=None,
+                         embedding=None, block_size=None,
+                         max_token_len=None, **kw) -> np.ndarray:
+        """All tokens through one session.  v1 hops follow their own
+        schedule (2 x frame rate growing to 4 x), so ``block_size`` and
+        ``max_token_len`` (``AudioDecoder``'s, passed by ``SpeechCodec``)
+        are accepted and ignored."""
+        sess = self.new_session(prompt_token, prompt_feat, embedding, **kw)
+        chunks = sess.push_tokens(np.asarray(token).reshape(-1))
+        chunks.append(sess.finalize())
+        return np.concatenate([c.reshape(-1) for c in chunks])[None]
+
+
 @dataclasses.dataclass
 class ModelDir:
     """What ``load_model_dir`` built.  ``decoder`` is always there;
@@ -75,10 +172,10 @@ class ModelDir:
     with campplus.onnx.  ``report`` counts each file's unused reference
     keys."""
     path: str
-    flow_version: str                    # "v2"
+    flow_version: str                    # "v1" | "v2"
     flow_cfg: Any
     hift_cfg: Any
-    decoder: Any                         # pipeline.AudioDecoder
+    decoder: Any                         # pipeline.AudioDecoder | V1Decoder
     codec: Optional[Any] = None          # codec.SpeechCodec
     speaker_encoder: Optional[Any] = None
     spk2info: Dict[str, Dict[str, np.ndarray]] = dataclasses.field(
@@ -104,7 +201,8 @@ class ModelDir:
                      np.zeros((1, 0))), np.int32).reshape(1, -1)
         feat = info.get("prompt_speech_feat")
         if feat is None:
-            feat = np.zeros((1, token.shape[1] * self.decoder.ratio,
+            feat = np.zeros((1, int(round(token.shape[1]
+                                          * self.decoder.ratio)),
                              self.flow_cfg.output_size))
         feat = np.asarray(feat, np.float32)
         if feat.ndim == 2:
@@ -147,7 +245,8 @@ def load_model_dir(path: str, tokenizer: Optional[str] = None,
     ``AudioDecoder``."""
     from .pipeline import AudioDecoder
     from .utils import checkpoint as ckpt
-    from .utils.config import (PipelineConfig, moss_flow_config,
+    from .utils.config import (PipelineConfig, cosyvoice1_flow_config,
+                               cosyvoice1_hift_config, moss_flow_config,
                                moss_hift_config)
     from .utils.device import resolve_device
 
@@ -171,16 +270,17 @@ def load_model_dir(path: str, tokenizer: Optional[str] = None,
         flow = ref_cfg.get("flow")
         cls = flow.get("__class__", "") if isinstance(flow, dict) else ""
         flow_version = flow_version or ("v2" if "Causal" in cls else "v1")
-        if flow_version == "v1":
-            raise NotImplementedError(V1_NOTE)
         flow_cfg = flow_cfg or flow_config_from_reference(ref_cfg)
         hift_cfg = hift_cfg or hift_config_from_reference(ref_cfg)
     else:
         flow_version = flow_version or "v2"
-        if flow_version == "v1":
-            raise NotImplementedError(V1_NOTE)
-        flow_cfg = flow_cfg or moss_flow_config()
-        hift_cfg = hift_cfg or moss_hift_config()
+        v1 = flow_version == "v1"
+        flow_cfg = flow_cfg or (cosyvoice1_flow_config() if v1
+                                else moss_flow_config())
+        hift_cfg = hift_cfg or (cosyvoice1_hift_config() if v1
+                                else moss_hift_config())
+    if flow_version not in ("v1", "v2"):
+        raise ValueError(f"flow_version {flow_version!r}: v1 or v2")
 
     # ----------------------------------------------------------- weights
     flow_pt = p("flow.pt", "flow.cache.pt")
@@ -189,17 +289,23 @@ def load_model_dir(path: str, tokenizer: Optional[str] = None,
         raise FileNotFoundError(
             f"model dir {path!r} needs flow.pt and hift.pt "
             f"(found flow={flow_pt}, hift={hift_pt})")
-    flow_state, unused = ckpt.convert_flow_state_dict(
-        ckpt.load_torch_state_dict(flow_pt), flow_cfg)
+    convert = (ckpt.convert_flow_v1_state_dict if flow_version == "v1"
+               else ckpt.convert_flow_state_dict)
+    flow_state, unused = convert(ckpt.load_torch_state_dict(flow_pt),
+                                 flow_cfg)
     report["flow_unused"] = len(unused)
     sd = ckpt.strip_prefix(ckpt.load_torch_state_dict(hift_pt), "generator.")
     hift_state, unused = ckpt.convert_hift_state_dict(sd, hift_cfg)
     report["hift_unused"] = len([u for u in unused if u != "stft_window"])
-    decoder = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
-                           pipeline or PipelineConfig(
-                               sample_rate=hift_cfg.sampling_rate),
-                           compute_dtype=compute_dtype,
-                           estimator_dtype=estimator_dtype, device=device)
+    if flow_version == "v1":
+        decoder = V1Decoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                            compute_dtype=compute_dtype, device=device)
+    else:
+        decoder = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                               pipeline or PipelineConfig(
+                                   sample_rate=hift_cfg.sampling_rate),
+                               compute_dtype=compute_dtype,
+                               estimator_dtype=estimator_dtype, device=device)
 
     # ------------------------------------------------------------ extras
     speaker_encoder = None

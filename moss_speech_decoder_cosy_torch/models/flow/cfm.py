@@ -14,6 +14,7 @@ flow/flow_matching.py:199-230).
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,10 +37,15 @@ def t_span_cosine(n_timesteps: int) -> np.ndarray:
 
 
 class CausalConditionalCFM(nn.Module):
-    def __init__(self, cfg: CFMConfig, estimator_cfg: EstimatorConfig):
+    """``estimator``: the velocity network, by default the U-Net of
+    ``estimator_cfg`` (the DiT variant passes its own, ``dit.py``)."""
+
+    def __init__(self, cfg: CFMConfig, estimator_cfg: EstimatorConfig,
+                 estimator: Optional[nn.Module] = None):
         super().__init__()
         self.cfg = cfg
-        self.estimator = CausalConditionalDecoder(estimator_cfg)
+        self.estimator = (estimator if estimator is not None
+                          else CausalConditionalDecoder(estimator_cfg))
         self._noise = {}
         self._consts = {}    # the KV steps' solver constants, per device
 

@@ -6,8 +6,9 @@ cosyvoice/transformer/upsample_encoder.py:105-321):
     nearest x`stride` upsample + causal conv -> re-embed -> M conformer
     blocks -> LayerNorm
 
-Only the configuration the presets use is ported: no macaron feed-forward,
-no conv module.
+The conformer layer also has the macaron feed-forward (0.5 scale) and the
+conv module (GLU, depthwise conv, layer or batch norm) of the wenet layer,
+which the CosyVoice-v1 encoders (``flow_v1.py``) may enable.
 """
 
 from __future__ import annotations
@@ -71,6 +72,66 @@ class PreLookaheadLayer(nn.Module):
         return h + x
 
 
+class ConvolutionModule(nn.Module):
+    """Conformer conv module (reference transformer/convolution.py:24-145):
+    pointwise conv to 2C -> GLU -> depthwise conv k (same padding, or
+    ``causal`` left padding) -> layer norm or batch norm -> activation ->
+    pointwise conv, the input and output zeroed where ``pad_mask`` is False.
+
+    ``norm="batch_norm"`` is torch ``BatchNorm1d`` in eval mode: ``weight``
+    and ``bias`` parameters and the ``running_mean`` / ``running_var``
+    buffers (parameters in the JAX package)."""
+
+    def __init__(self, channels: int, kernel_size: int = 15,
+                 activation: str = "swish", causal: bool = False,
+                 norm: str = "layer_norm"):
+        super().__init__()
+        self.causal = causal
+        self.kernel_size = kernel_size
+        self.batch_norm = norm == "batch_norm"
+        self.act = get_activation(activation)
+        self.pointwise_conv1 = Conv1d(channels, 2 * channels, 1)
+        self.depthwise_conv = Conv1d(
+            channels, channels, kernel_size,
+            padding=0 if causal else (kernel_size - 1) // 2, groups=channels)
+        if self.batch_norm:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+            self.register_buffer("running_mean", torch.zeros(channels))
+            self.register_buffer("running_var", torch.ones(channels))
+        else:
+            self.norm = LayerNorm(channels, eps=1e-5)
+        self.pointwise_conv2 = Conv1d(channels, channels, 1)
+
+    def seed_init(self, name: str, shape, g: torch.Generator):
+        """``weights.seeded_state``: batch-norm statistics drawn (means
+        normal(0.1), variances in [0.5, 1.5)), its scale ones."""
+        if name == "running_mean":
+            return torch.randn(shape, generator=g) * 0.1
+        if name == "running_var":
+            return 0.5 + torch.rand(shape, generator=g)
+        if name == "weight":
+            return torch.ones(shape)
+        return None
+
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor
+                ) -> torch.Tensor:
+        m = pad_mask[..., None].to(x.dtype)
+        h = self.pointwise_conv1(x * m)
+        a, b = h.chunk(2, dim=-1)
+        h = a * torch.sigmoid(b)                          # GLU
+        if self.causal:
+            h = F.pad(h, (0, 0, self.kernel_size - 1, 0))
+        h = self.depthwise_conv(h)
+        if self.batch_norm:
+            inv = torch.rsqrt(self.running_var + 1e-5).to(h.dtype)
+            h = ((h - self.running_mean.to(h.dtype)) * inv
+                 * self.weight.to(h.dtype) + self.bias.to(h.dtype))
+        else:
+            h = self.norm(h)
+        return self.pointwise_conv2(self.act(h)) * m
+
+
 class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden: int, activation: str = "swish"):
         super().__init__()
@@ -84,24 +145,42 @@ class FeedForward(nn.Module):
 
 class ConformerEncoderLayer(nn.Module):
     """Pre-LN conformer layer (reference transformer/encoder_layer.py:
-    110-236) without macaron FF or conv module."""
+    110-236): [macaron FF x 0.5] -> rel-pos self-attention -> [conv module]
+    -> FF (x 0.5 with macaron) -> [final LayerNorm with the conv module]."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.macaron_style or cfg.use_cnn_module:
-            raise NotImplementedError(
-                "macaron_style / use_cnn_module are not ported")
         d = cfg.output_size
+        self.macaron = cfg.macaron_style
+        self.conv = cfg.use_cnn_module
+        if self.macaron:
+            self.norm_ff_macaron = LayerNorm(d, eps=1e-12)
+            self.ff_macaron = FeedForward(d, cfg.linear_units,
+                                          cfg.activation)
         self.norm_mha = LayerNorm(d, eps=1e-12)
         self.self_attn = RelPositionMultiHeadedAttention(
             cfg.attention_heads, d, cfg.key_bias)
+        if self.conv:
+            self.norm_conv = LayerNorm(d, eps=1e-12)
+            self.conv_module = ConvolutionModule(
+                d, cfg.cnn_module_kernel, cfg.activation, cfg.cnn_causal,
+                cfg.cnn_module_norm)
+            self.norm_final = LayerNorm(d, eps=1e-12)
         self.norm_ff = LayerNorm(d, eps=1e-12)
         self.feed_forward = FeedForward(d, cfg.linear_units, cfg.activation)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
-                pos_emb: torch.Tensor) -> torch.Tensor:
+                pos_emb: torch.Tensor,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``pad_mask`` bool (B, T), needed only by the conv module."""
+        if self.macaron:
+            x = x + 0.5 * self.ff_macaron(self.norm_ff_macaron(x))
         x = x + self.self_attn(self.norm_mha(x), pos_emb, attn_mask)
-        return x + self.feed_forward(self.norm_ff(x))
+        if self.conv:
+            x = x + self.conv_module(self.norm_conv(x), pad_mask)
+        x = x + (0.5 if self.macaron else 1.0) * self.feed_forward(
+            self.norm_ff(x))
+        return self.norm_final(x) if self.conv else x
 
 
 class Upsample1D(nn.Module):
@@ -160,7 +239,7 @@ class UpsampleConformerEncoder(nn.Module):
 
         x = self.pre_lookahead_layer(x, context)
         for layer in self.encoders:
-            x = layer(x, attn_mask, pos)
+            x = layer(x, attn_mask, pos, valid)
 
         x = self.up_layer(x)
         valid_up = torch.repeat_interleave(valid, c.upsample_stride, dim=1)
@@ -169,5 +248,5 @@ class UpsampleConformerEncoder(nn.Module):
         attn_mask_up = chunk_attention_mask(
             valid_up, chunk * c.upsample_stride if streaming else 0)
         for layer in self.up_encoders:
-            x = layer(x, attn_mask_up, pos_up)
+            x = layer(x, attn_mask_up, pos_up, valid_up)
         return self.after_norm(x), valid_up

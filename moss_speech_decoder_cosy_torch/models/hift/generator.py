@@ -11,8 +11,10 @@ The NSF source draws a random initial phase per harmonic and Gaussian noise.
 They are injectable as ``(rand_ini, noise)``; by default they come from a
 ``torch.Generator`` on the model's device seeded 0 on every call, the
 counterpart of the JAX package's fixed ``PRNGKey(0)`` per call (torch and JAX
-draw different numbers from the same seed).  Only the 24 kHz source
-(``SourceModuleHnNSF2``) is ported; the 22.05 kHz one is not.
+draw different numbers from the same seed).  At 22.05 kHz the source is
+``SourceModuleHnNSF`` (phase integrated at the audio rate, ``rand_ini`` a
+phase uniform in [-pi, pi)); at any other rate ``SourceModuleHnNSF2``
+(phase integrated at the frame rate, ``rand_ini`` uniform in [0, 1)).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ...ops.activations import Snake
 from ...ops.convs import Conv1d, ConvTranspose1d
 from ...utils.config import HiFTConfig
 
-# (harmonics, samples, device) -> (rand_ini (1, H) uniform, noise (1, L, H))
+# (harmonics, samples, device) -> (rand_ini (1, H), noise (1, L, H))
 DrawFn = Callable[[int, int, torch.device],
                   Tuple[torch.Tensor, torch.Tensor]]
 
@@ -60,6 +62,14 @@ def seeded_draws(harmonics: int, length: int, device) -> Tuple[
     rand_ini = torch.rand((1, harmonics), generator=g, device=device)
     noise = torch.randn((1, length, harmonics), generator=g, device=device)
     return rand_ini, noise
+
+
+def seeded_phase_draws(harmonics: int, length: int, device) -> Tuple[
+        torch.Tensor, torch.Tensor]:
+    """The 22.05 kHz source's default draws: a generator on ``device``
+    seeded 0; the initial phases uniform in [-pi, pi)."""
+    rand_ini, noise = seeded_draws(harmonics, length, device)
+    return (rand_ini * 2.0 - 1.0) * np.pi, noise
 
 
 class ConvRNNF0Predictor(nn.Module):
@@ -119,6 +129,50 @@ class SourceModuleHnNSF2(nn.Module):
                                    self.l_linear.bias.float()))
 
 
+class SourceModuleHnNSF(nn.Module):
+    """The 22.05 kHz harmonic-plus-noise source (reference generator.py:
+    109-232, SineGen + SourceModuleHnNSF): each harmonic's phase integrated
+    at the audio rate, theta = 2 pi cumsum(f0 h / sr mod 1), plus a fixed
+    initial phase; uv gating and noise as the 24 kHz source; f32
+    throughout, in the JAX package's order of operations (mod, cumsum,
+    then + phase).  Returns the merged excitation (B, L, 1).
+
+    Over long audio theta grows to 1e5-1e6 rad, where one f32 ulp is
+    0.01-0.06 rad: a parallel scan (the card) and a sequential one (the
+    CPU) then give visibly different sines.  The cumsum runs along a
+    contiguous time axis, where the card's scan is accurate."""
+
+    def __init__(self, cfg: HiFTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
+
+    def forward(self, f0: torch.Tensor, rand_ini: torch.Tensor,
+                noise: torch.Tensor) -> torch.Tensor:
+        """f0 (B, L, 1); rand_ini (1, H) initial phases (the fundamental's
+        entry is zeroed here); noise (1, L, H) standard normal."""
+        cfg = self.cfg
+        h = cfg.nb_harmonics + 1
+        f0 = f0.float()
+        fn = f0 * torch.arange(1, h + 1, dtype=torch.float32,
+                               device=f0.device)[None, None, :]
+        rad = torch.remainder(fn / cfg.sampling_rate, 1.0)
+        # the scan runs along the innermost axis: PyTorch's CUDA cumsum over
+        # a strided axis drifted 0.107 cycles from a float64 sum over 22,050
+        # samples on an H100, over a contiguous one 4.8e-4, the CPU's 6.1e-5
+        # (chip_smoke.py's cross_v1)
+        cycles = torch.cumsum(rad.transpose(1, 2).contiguous(), dim=-1)
+        theta = 2.0 * np.pi * cycles.transpose(1, 2)
+        phase = rand_ini.float().reshape(1, 1, h).clone()
+        phase[..., 0] = 0.0
+        sines = cfg.nsf_alpha * torch.sin(theta + phase)
+        uv = (f0 > cfg.nsf_voiced_threshold).float()
+        noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0
+        sine_waves = sines * uv + noise_amp * noise.float()
+        return torch.tanh(F.linear(sine_waves, self.l_linear.weight.float(),
+                                   self.l_linear.bias.float()))
+
+
 class ResBlock(nn.Module):
     """Dilated residual block with Snake activations."""
 
@@ -147,14 +201,14 @@ class ResBlock(nn.Module):
 class HiFTGenerator(nn.Module):
     def __init__(self, cfg: HiFTConfig):
         super().__init__()
-        if cfg.sampling_rate == 22050:
-            raise NotImplementedError(
-                "the 22.05 kHz source module is not ported")
         self.cfg = cfg
         base = cfg.base_channels
         self.f0_predictor = ConvRNNF0Predictor(cfg.in_channels,
                                                cfg.f0_cond_channels)
-        self.m_source = SourceModuleHnNSF2(cfg)
+        # CosyVoice keeps the original source at 22.05 kHz (generator.py:429)
+        v1 = cfg.sampling_rate == 22050
+        self.m_source = SourceModuleHnNSF(cfg) if v1 else \
+            SourceModuleHnNSF2(cfg)
         self.conv_pre = Conv1d(cfg.in_channels, base, 7, padding=3,
                                weight_norm=True)
         self.ups: List[nn.Module] = []
@@ -192,7 +246,7 @@ class HiFTGenerator(nn.Module):
         self.conv_post = Conv1d(last, cfg.istft_n_fft + 2, 7, padding=3,
                                 weight_norm=True)
         self._window = stft_ops.hann_window(cfg.istft_n_fft)
-        self.draws: DrawFn = seeded_draws
+        self.draws: DrawFn = seeded_phase_draws if v1 else seeded_draws
 
     def _add(self, name: str, module: nn.Module) -> nn.Module:
         # children carry the JAX package's parameter names (weights.py)

@@ -1,5 +1,7 @@
-"""The reference's torch checkpoints in the port: ``flow.pt`` and ``hift.pt``
-(flow_inference.py:53-64), the HF WhisperVQ tokenizer
+"""The reference's torch checkpoints in the port: ``flow.pt`` (v2, and the
+CosyVoice-v1 ``MaskedDiffWithXvec``) and ``hift.pt`` (flow_inference.py:
+53-64), the cosyvoice1 block conformer and DiT estimator, the HF WhisperVQ
+tokenizer
 (speech_tokenizer/utils.py:18-38), CAM++ (``campplus.onnx``
 initializers or a ``campplus.pt`` state dict) and the LMs (an HF Qwen2,
 CosyVoice2's and CosyVoice v1's ``llm.pt``), after the JAX package's
@@ -116,55 +118,67 @@ def _map_basic_tf_block(m: _Plan, dst: str, src: str):
     m.linear(f"{dst}.ff_out", f"{src}.ff.net.2")
 
 
-def _map_resnet(m: _Plan, dst: str, src: str):
-    """CausalResnetBlock1D (flow/decoder.py:83-88): the causal conv at
-    ``block.0``, the LayerNorm at ``block.2``."""
-    m.conv(f"{dst}.block1.conv.conv", f"{src}.block1.block.0")
-    m.norm(f"{dst}.block1.norm", f"{src}.block1.block.2")
-    m.conv(f"{dst}.block2.conv.conv", f"{src}.block2.block.0")
-    m.norm(f"{dst}.block2.norm", f"{src}.block2.block.2")
+def _map_resnet(m: _Plan, dst: str, src: str, causal: bool = True):
+    """(Causal)ResnetBlock1D (flow/decoder.py:83-88 / matcha): a causal
+    block wraps its conv (``conv.conv``) with the LayerNorm at
+    ``block.2``; the non-causal matcha block is Conv1d + GroupNorm
+    (``block.0`` / ``block.1``)."""
+    conv, nidx = ("conv.conv", 2) if causal else ("conv", 1)
+    m.conv(f"{dst}.block1.{conv}", f"{src}.block1.block.0")
+    m.norm(f"{dst}.block1.norm", f"{src}.block1.block.{nidx}")
+    m.conv(f"{dst}.block2.{conv}", f"{src}.block2.block.0")
+    m.norm(f"{dst}.block2.norm", f"{src}.block2.block.{nidx}")
     m.linear(f"{dst}.mlp", f"{src}.mlp.1")
     m.conv(f"{dst}.res_conv", f"{src}.res_conv")
 
 
-def _map_estimator(m: _Plan, dst: str, src: str, cfg: FlowConfig):
+def _map_estimator(m: _Plan, dst: str, src: str, cfg: FlowConfig,
+                   causal: bool = True):
     est = cfg.estimator
     m.linear(f"{dst}.time_mlp.linear_1", f"{src}.time_mlp.linear_1")
     m.linear(f"{dst}.time_mlp.linear_2", f"{src}.time_mlp.linear_2")
+    # a level's last conv: CausalConv1d wraps a Conv1d, the non-causal
+    # one is the Conv1d itself
+    last = ".conv" if causal else ""
     n_ch = len(est.channels)
     for i in range(n_ch):
-        _map_resnet(m, f"{dst}.down_res_{i}", f"{src}.down_blocks.{i}.0")
+        _map_resnet(m, f"{dst}.down_res_{i}", f"{src}.down_blocks.{i}.0",
+                    causal)
         for j in range(est.n_blocks):
             _map_basic_tf_block(m, f"{dst}.down_tf_{i}_{j}",
                                 f"{src}.down_blocks.{i}.1.{j}")
         if i == n_ch - 1:
-            m.conv(f"{dst}.down_conv_{i}.conv", f"{src}.down_blocks.{i}.2")
+            m.conv(f"{dst}.down_conv_{i}{last}", f"{src}.down_blocks.{i}.2")
         else:
             m.conv(f"{dst}.down_conv_{i}.conv",
                    f"{src}.down_blocks.{i}.2.conv")
     for i in range(est.num_mid_blocks):
-        _map_resnet(m, f"{dst}.mid_res_{i}", f"{src}.mid_blocks.{i}.0")
+        _map_resnet(m, f"{dst}.mid_res_{i}", f"{src}.mid_blocks.{i}.0",
+                    causal)
         for j in range(est.n_blocks):
             _map_basic_tf_block(m, f"{dst}.mid_tf_{i}_{j}",
                                 f"{src}.mid_blocks.{i}.1.{j}")
     for i in range(n_ch):
-        _map_resnet(m, f"{dst}.up_res_{i}", f"{src}.up_blocks.{i}.0")
+        _map_resnet(m, f"{dst}.up_res_{i}", f"{src}.up_blocks.{i}.0",
+                    causal)
         for j in range(est.n_blocks):
             _map_basic_tf_block(m, f"{dst}.up_tf_{i}_{j}",
                                 f"{src}.up_blocks.{i}.1.{j}")
         if i == n_ch - 1:
-            m.conv(f"{dst}.up_conv_{i}.conv", f"{src}.up_blocks.{i}.2")
+            m.conv(f"{dst}.up_conv_{i}{last}", f"{src}.up_blocks.{i}.2")
         else:       # a ConvTranspose1d: torch's layout is the port's
             m.conv(f"{dst}.up_conv_{i}.conv", f"{src}.up_blocks.{i}.2.conv")
-    m.conv(f"{dst}.final_block.conv.conv", f"{src}.final_block.block.0")
-    m.norm(f"{dst}.final_block.norm", f"{src}.final_block.block.2")
+    nidx = 2 if causal else 1
+    m.conv(f"{dst}.final_block.conv{last}", f"{src}.final_block.block.0")
+    m.norm(f"{dst}.final_block.norm", f"{src}.final_block.block.{nidx}")
     m.conv(f"{dst}.final_proj", f"{src}.final_proj")
 
 
 # ----------------------------------------------------------------- encoder
 def _map_conformer_layer(m: _Plan, dst: str, src: str, enc: EncoderConfig):
-    """wenet rel-pos conformer layer without macaron FF or conv module (the
-    port's encoder raises for those, ROADMAP A12)."""
+    """wenet rel-pos conformer layer, with the macaron FF and the conv
+    module where the config has them (batch norm: torch ``BatchNorm1d``'s
+    eval statistics, convolution.py:84-90)."""
     m.norm(f"{dst}.norm_mha", f"{src}.norm_mha")
     m.norm(f"{dst}.norm_ff", f"{src}.norm_ff")
     a, d = f"{src}.self_attn", f"{dst}.self_attn"
@@ -177,6 +191,24 @@ def _map_conformer_layer(m: _Plan, dst: str, src: str, enc: EncoderConfig):
     m.put(f"{d}.pos_bias_v", f"{a}.pos_bias_v")
     m.linear(f"{dst}.feed_forward.w_1", f"{src}.feed_forward.w_1")
     m.linear(f"{dst}.feed_forward.w_2", f"{src}.feed_forward.w_2")
+    if enc.macaron_style:
+        m.norm(f"{dst}.norm_ff_macaron", f"{src}.norm_ff_macaron")
+        m.linear(f"{dst}.ff_macaron.w_1", f"{src}.feed_forward_macaron.w_1")
+        m.linear(f"{dst}.ff_macaron.w_2", f"{src}.feed_forward_macaron.w_2")
+    if enc.use_cnn_module:
+        m.norm(f"{dst}.norm_conv", f"{src}.norm_conv")
+        m.norm(f"{dst}.norm_final", f"{src}.norm_final")
+        cm, cd = f"{src}.conv_module", f"{dst}.conv_module"
+        m.conv(f"{cd}.pointwise_conv1", f"{cm}.pointwise_conv1")
+        m.conv(f"{cd}.depthwise_conv", f"{cm}.depthwise_conv")
+        m.conv(f"{cd}.pointwise_conv2", f"{cm}.pointwise_conv2")
+        if enc.cnn_module_norm == "batch_norm":
+            m.norm(cd, f"{cm}.norm")
+            m.put(f"{cd}.running_mean", f"{cm}.norm.running_mean")
+            m.put(f"{cd}.running_var", f"{cm}.norm.running_var")
+            m.ignore(f"{cm}.norm.num_batches_tracked")
+        else:
+            m.norm(f"{cd}.norm", f"{cm}.norm")
 
 
 def _map_flow(m: _Plan, cfg: FlowConfig):
@@ -236,6 +268,69 @@ def _map_hift(m: _Plan, cfg: HiFTConfig):
                       f"resblocks.{r}.activations1.{k}.alpha")
                 m.put(f"resblock_{i}_{j}.act2_{k}.alpha",
                       f"resblocks.{r}.activations2.{k}.alpha")
+
+
+def _map_flow_v1(m: _Plan, cfg: FlowConfig, regulator_layers: int = 4):
+    """v1 MaskedDiffWithXvec (flow.py:24-148): plain ConformerEncoder,
+    InterpolateRegulator (length_regulator.py:21-43: conv, GroupNorm, Mish
+    at ``model.3i``, ``3i+1``, ``3i+2``), non-causal matcha U-Net."""
+    m.put("input_embedding.weight", "input_embedding.weight")
+    m.linear("spk_embed_affine_layer", "spk_embed_affine_layer")
+    m.linear("encoder_proj", "encoder_proj")
+    e = "encoder"
+    m.linear(f"{e}.embed.linear", f"{e}.embed.out.0")
+    m.norm(f"{e}.embed.norm", f"{e}.embed.out.1")
+    for i in range(cfg.encoder.num_blocks):
+        _map_conformer_layer(m, f"{e}.encoders_{i}", f"{e}.encoders.{i}",
+                             cfg.encoder)
+    m.norm(f"{e}.after_norm", f"{e}.after_norm")
+    lr = "length_regulator"
+    for i in range(regulator_layers):
+        m.conv(f"{lr}.conv_{i}", f"{lr}.model.{3 * i}")
+        m.norm(f"{lr}.norm_{i}", f"{lr}.model.{3 * i + 1}")
+    m.conv(f"{lr}.out_conv", f"{lr}.model.{3 * regulator_layers}")
+    _map_estimator(m, "decoder.estimator", "decoder.estimator", cfg,
+                   causal=False)
+
+
+def _map_block_conformer(m: _Plan, enc: EncoderConfig):
+    """cosyvoice1 BlockConformerEncoder (cosyvoice1/transformer/
+    encoder.py:477), a standalone state dict -> ``flow_v1.ConformerEncoder``
+    (its grid mask is a mask setting, not a parameter)."""
+    m.linear("embed.linear", "embed.out.0")
+    m.norm("embed.norm", "embed.out.1")
+    for i in range(enc.num_blocks):
+        _map_conformer_layer(m, f"encoders_{i}", f"encoders.{i}", enc)
+    m.norm("after_norm", "after_norm")
+
+
+def _map_dit(m: _Plan, cfg):
+    """cosyvoice1 stable-audio DiffusionTransformer (cosyvoice1/flow/
+    stable/dit.py:15-258, stable/transformer.py; continuous transformer,
+    prepended global token) -> ``models/flow/dit.DiTEstimator``.  The 1x1
+    pre / post convs become Linear weights; the scale-only LayerNorms drop
+    their fixed beta."""
+    m.put("timestep_features.weight", "timestep_features.weight")
+    m.linear("ts_embed_1", "to_timestep_embed.0")
+    m.linear("ts_embed_2", "to_timestep_embed.2")
+    m.linear("global_embed_1", "to_global_embed.0", bias=False)
+    m.linear("global_embed_2", "to_global_embed.2", bias=False)
+    m.put("preprocess.weight", "preprocess_conv.weight", "conv1")
+    m.put("postprocess.weight", "postprocess_conv.weight", "conv1")
+    m.linear("project_in", "transformer.project_in", bias=False)
+    m.linear("project_out", "transformer.project_out", bias=False)
+    m.ignore("transformer.inv_freq")
+    m.ignore("transformer.rotary_pos_emb.inv_freq")
+    for i in range(cfg.depth):
+        s, d = f"transformer.layers.{i}", f"block_{i}"
+        m.put(f"{d}.pre_norm.weight", f"{s}.pre_norm.gamma")
+        m.ignore(f"{s}.pre_norm.beta")
+        m.linear(f"{d}.to_qkv", f"{s}.self_attn.to_qkv", bias=False)
+        m.linear(f"{d}.attn_out", f"{s}.self_attn.to_out", bias=False)
+        m.put(f"{d}.ff_norm.weight", f"{s}.ff_norm.gamma")
+        m.ignore(f"{s}.ff_norm.beta")
+        m.linear(f"{d}.ff_in", f"{s}.ff.ff.0.proj")
+        m.linear(f"{d}.ff_out", f"{s}.ff.ff.2")
 
 
 def _map_tokenizer(m: _Plan, cfg):
@@ -381,7 +476,9 @@ def _map_transformer_lm(m: _Plan, cfg):
 
 _MAPS = {"flow": _map_flow, "hift": _map_hift, "tokenizer": _map_tokenizer,
          "campplus": _map_campplus, "qwen2": _map_qwen2,
-         "speech_lm": _map_speech_lm, "transformer_lm": _map_transformer_lm}
+         "speech_lm": _map_speech_lm, "transformer_lm": _map_transformer_lm,
+         "flow_v1": _map_flow_v1, "block_conformer": _map_block_conformer,
+         "dit": _map_dit}
 
 
 def _plan(kind: str, cfg, keys=None) -> _Plan:
@@ -399,8 +496,10 @@ def _plan(kind: str, cfg, keys=None) -> _Plan:
 def conversion_plan(kind: str, cfg) -> List[Row]:
     """The ``(port_key, reference_key, reshape)`` rows of a converter
     (``kind`` one of flow, hift, tokenizer, campplus, qwen2, speech_lm,
-    transformer_lm; ``cfg`` the model's config, for CAM++ its
-    ``block_layers``), every optional row included
+    transformer_lm, flow_v1, block_conformer, dit; ``cfg`` the model's
+    config, for CAM++ its ``block_layers``, for the block conformer its
+    ``EncoderConfig``, for the DiT its ``DiTConfig``), every optional row
+    included
     and weight norm under torch's parametrization names.  ``reshape`` is
     None or a key of ``RESHAPES``."""
     return _plan(kind, cfg).rows
@@ -426,6 +525,24 @@ def convert_flow_state_dict(sd: Mapping, cfg: FlowConfig):
     """``flow.pt`` state dict -> (state dict of the port's
     ``CausalMaskedDiffWithXvec(cfg)``, unused reference keys)."""
     return _convert("flow", sd, cfg)
+
+
+def convert_flow_v1_state_dict(sd: Mapping, cfg: FlowConfig):
+    """v1 ``flow.pt`` (MaskedDiffWithXvec) -> (state dict of the port's
+    ``flow_v1.MaskedDiffWithXvec(cfg)``, unused reference keys)."""
+    return _convert("flow_v1", sd, cfg)
+
+
+def convert_block_conformer_state_dict(sd: Mapping, enc_cfg: EncoderConfig):
+    """cosyvoice1 BlockConformerEncoder state dict -> (state dict of the
+    port's ``flow_v1.ConformerEncoder(enc_cfg)``, unused keys)."""
+    return _convert("block_conformer", sd, enc_cfg)
+
+
+def convert_dit_state_dict(sd: Mapping, cfg):
+    """stable-audio DiffusionTransformer state dict -> (state dict of the
+    port's ``dit.DiTEstimator(cfg)``, unused keys)."""
+    return _convert("dit", sd, cfg)
 
 
 def convert_hift_state_dict(sd: Mapping, cfg: HiFTConfig):

@@ -12,6 +12,9 @@ dataclass so configs are hashable, serializable, and diffable.  Presets:
   SURVEY.md §0 and gradio_voice_converter_unstreaming_streaming.py:324).
 - ``cosyvoice2_flow_config``: CosyVoice2-0.5B's flow (25 Hz tokens, vocab
   6561, ratio 2); its vocoder is ``HiFTConfig()`` as MOSS's.
+- ``cosyvoice1_flow_config`` / ``cosyvoice1_hift_config``: CosyVoice-300M
+  and the stock GLM-4-Voice decoder at 22.05 kHz (50 Hz tokens, 256-sample
+  mel hop, the two-level non-causal U-Net).
 - ``tiny_*``: small shapes for unit tests.
 """
 
@@ -179,6 +182,40 @@ def cosyvoice2_flow_config() -> FlowConfig:
         encoder=EncoderConfig(upsample_stride=2, static_chunk_size=25),
         estimator=EstimatorConfig(static_chunk_size=50),
     )
+
+
+def cosyvoice1_flow_config() -> FlowConfig:
+    """CosyVoice v1 / stock GLM-4-Voice 22.05 kHz flow (MaskedDiffWithXvec,
+    flow.py:24-148): plain 512-d conformer text encoder (rel_pos_espnet),
+    InterpolateRegulator, non-causal matcha U-Net (256, 256) estimator."""
+    return FlowConfig(
+        vocab_size=4096, input_size=512, output_size=80, spk_embed_dim=192,
+        input_frame_rate=50, token_mel_ratio=2,  # ~50 Hz -> 86.13 Hz mels
+        encoder=EncoderConfig(
+            input_size=512, output_size=512, attention_heads=8,
+            linear_units=2048, num_blocks=6, macaron_style=False,
+            use_cnn_module=False, dropout_rate=0.0,
+            pos_enc_layer_type="rel_pos_espnet"),
+        estimator=EstimatorConfig(
+            in_channels=320, out_channels=80, channels=(256, 256),
+            attention_head_dim=64, n_blocks=4, num_mid_blocks=12,
+            num_heads=8, act_fn="gelu", causal=False),
+        cfm=CFMConfig(n_timesteps=10, max_noise_len=15000),
+    )
+
+
+def cosyvoice1_hift_config() -> HiFTConfig:
+    """22.05 kHz HiFT of CosyVoice-300M's published ``cosyvoice.yaml``
+    (FunAudioLLM/CosyVoice examples/libritts/cosyvoice/conf, ``hift:``):
+    upsample rates (8, 8), kernels (16, 16), source resblocks (7, 11) and
+    the 16-point iSTFT at hop 4, so 256 samples a mel frame, the v1 flow's
+    22050 / 256 Hz mel rate; the 22.05 kHz source (``SourceModuleHnNSF``).
+    The JAX package's preset keeps the 24 kHz rates (480 samples a frame)."""
+    return HiFTConfig(
+        sampling_rate=22050, upsample_rates=(8, 8),
+        upsample_kernel_sizes=(16, 16),
+        source_resblock_kernel_sizes=(7, 11),
+        source_resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)))
 
 
 def tiny_flow_config() -> FlowConfig:

@@ -7,12 +7,15 @@ that instantiates live torch objects (flow_inference.py:53-64).  Only the
 constructor arguments are needed: the loader maps every ``!new:`` /
 ``!name:`` / ``!apply:`` tag to a plain dict ``{"__class__": name,
 **kwargs}``, and the known model classes become ``FlowConfig`` /
-``HiFTConfig``.  PyYAML is imported when a file is read, so the module
-imports where it is missing.
+``HiFTConfig``.  A ``!ref <key>`` (the published configs write
+``sampling_rate: !ref <sample_rate>``) takes the value of the top-level
+``key``; the JAX package's loader fails on any ``!ref``.  PyYAML is
+imported when a file is read, so the module imports where it is missing.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Tuple
 
 from .config import (CFMConfig, EncoderConfig, EstimatorConfig, FlowConfig,
@@ -31,6 +34,23 @@ def _tag_constructor(loader, tag_suffix: str, node):
     return value
 
 
+class _Ref(str):
+    """The text of a ``!ref`` tag, resolved once the whole file is read."""
+
+
+def _resolve(value: Any, top: Dict[str, Any], depth: int = 0) -> Any:
+    if isinstance(value, _Ref):
+        m = re.fullmatch(r"\s*<([\w.]+)>\s*", value)
+        if m is None or m.group(1) not in top or depth > 16:
+            return str(value)            # an expression: left as its text
+        return _resolve(top[m.group(1)], top, depth + 1)
+    if isinstance(value, dict):
+        return {k: _resolve(v, top, depth) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_resolve(v, top, depth) for v in value]
+    return value
+
+
 def load_reference_yaml(path) -> Dict[str, Any]:
     import yaml
 
@@ -39,11 +59,13 @@ def load_reference_yaml(path) -> Dict[str, Any]:
 
     RefLoader.add_multi_constructor("!new:", _tag_constructor)
     RefLoader.add_multi_constructor("!name:", _tag_constructor)
-    RefLoader.add_multi_constructor("!ref",
-                                    lambda l, n: l.construct_scalar(n))
+    RefLoader.add_multi_constructor(
+        "!ref", lambda loader, suffix, node: _Ref(
+            loader.construct_scalar(node)))
     RefLoader.add_multi_constructor("!apply:", _tag_constructor)
     with open(path) as f:
-        return yaml.load(f, Loader=RefLoader)
+        raw = yaml.load(f, Loader=RefLoader)
+    return _resolve(raw, raw) if isinstance(raw, dict) else raw
 
 
 def _cls(d: Any) -> str:

@@ -15,6 +15,9 @@ and every leaf is used exactly once.  Layouts:
 - CAM++: Conv2d kernel (KH, KW, I, O) -> (O, I, KH, KW), BatchNorm ``scale``
   -> ``weight`` and its ``mean`` / ``var`` -> the ``running_mean`` /
   ``running_var`` buffers
+- the conformer conv module's batch norm: ``scale`` -> ``weight``,
+  ``running_mean`` / ``running_var`` (flax params) -> the buffers of the
+  same names; the DiT's Fourier ``weight`` as it is
 """
 
 from __future__ import annotations
@@ -80,10 +83,14 @@ def state_from_jax_tree(params: Mapping[str, Any],
     return out
 
 
+_BN_STATS = frozenset({"running_mean", "running_var"})
+
+
 def flow_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``CausalMaskedDiffWithXvec`` params (numpy leaves) -> state dict
-    of this package's ``CausalMaskedDiffWithXvec``.  An ``up_conv_i`` below
-    the last U-Net level is a transposed conv."""
+    """JAX ``CausalMaskedDiffWithXvec`` or v1 ``MaskedDiffWithXvec`` params
+    (numpy leaves) -> state dict of this package's module of the same
+    name.  An ``up_conv_i`` below the last U-Net level is a transposed
+    conv; a conv module's batch-norm statistics become buffers."""
     tree = params.get("params", params)
     est = tree["decoder"]["estimator"]
     levels = sum(1 for k in est if re.fullmatch(r"down_res_\d+", k))
@@ -92,7 +99,26 @@ def flow_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         m = re.search(r"(?:^|\.)up_conv_(\d+)\.conv$", mod)
         return bool(m) and int(m.group(1)) < levels - 1
 
-    return state_from_jax_tree(params, is_transpose)
+    return state_from_jax_tree(params, is_transpose, same=_BN_STATS)
+
+
+# the v1 flow's tree has the v2 flow's layout rules (``models/flow/
+# flow_v1.py``; the standalone block conformer is a subtree of it)
+flow_v1_state_from_jax = flow_state_from_jax
+
+
+def dit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DiTEstimator`` or ``DiTConditionalCFM`` params -> state dict of
+    this package's module of the same name (``models/flow/dit.py``)."""
+    return state_from_jax_tree(params, same={"weight"})
+
+
+def gradtts_state_from_jax(params: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX ``GradTTSDiffWithXvec`` params -> state dict of this package's
+    ``models/flow/vdiff.GradTTSDiffWithXvec`` (v1 encoder and regulator,
+    the DiT under ``decoder.estimator``)."""
+    return state_from_jax_tree(params, same=_BN_STATS | {"weight"})
 
 
 def hift_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -190,13 +216,16 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     return state
 
 
-def seeded_states(flow_cfg, hift_cfg, seed: int = 0
+def seeded_states(flow_cfg, hift_cfg, seed: int = 0, v1: bool = False
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(flow_state, hift_state) drawn from seeds ``seed`` and ``seed + 1``
-    for the given configs (the modules are built on the meta device)."""
+    for the given configs (the modules are built on the meta device);
+    ``v1``: the flow is the CosyVoice-v1 ``MaskedDiffWithXvec``."""
     from .models.flow import CausalMaskedDiffWithXvec
+    from .models.flow.flow_v1 import MaskedDiffWithXvec
     from .models.hift import HiFTGenerator
     with torch.device("meta"):
-        flow = CausalMaskedDiffWithXvec(flow_cfg)
+        flow = (MaskedDiffWithXvec if v1 else CausalMaskedDiffWithXvec)(
+            flow_cfg)
         hift = HiFTGenerator(hift_cfg)
     return seeded_state(flow, seed), seeded_state(hift, seed + 1)

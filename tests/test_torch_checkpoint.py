@@ -4,8 +4,10 @@ f32 on the CPU, tiny configs:
 
 - converters: a synthetic reference state dict comes from the JAX
   package's ``conversion_plan`` and flax params drawn from a seed (plus
-  keys neither package maps); for flow, HiFT, the tokenizer, CAM++ and the
-  three LM plans (qwen2, speech_lm, transformer_lm) the
+  keys neither package maps); for flow, HiFT, the tokenizer, CAM++, the
+  three LM plans (qwen2, speech_lm, transformer_lm) and the v1 plans
+  (flow_v1 with the macaron FF and a batch-norm conv module,
+  block_conformer, dit) the
   port's ``convert_*_state_dict`` is exactly ``*_state_from_jax`` of the
   JAX ``convert_*_state_dict``, with the same unused keys, also under
   torch's legacy ``weight_g`` / ``weight_v`` names; the port's plan,
@@ -33,6 +35,8 @@ import flax.traverse_util as tu
 import torch
 
 from moss_speech_decoder_cosy_tpu.models import campplus as JCam
+from moss_speech_decoder_cosy_tpu.models.flow import dit as JDiT
+from moss_speech_decoder_cosy_tpu.models.flow import flow_v1 as JV1
 from moss_speech_decoder_cosy_tpu.models.flow import (
     CausalMaskedDiffWithXvec as JFlow, UpsampleConformerEncoder as JEncoder)
 from moss_speech_decoder_cosy_tpu.models.hift import HiFTGenerator as JHiFT
@@ -43,9 +47,11 @@ from moss_speech_decoder_cosy_tpu.tokenizer import tiny_tokenizer_config
 from moss_speech_decoder_cosy_tpu.utils import checkpoint as JK
 from moss_speech_decoder_cosy_tpu.utils import onnx_io as JO
 from moss_speech_decoder_cosy_tpu.utils import ref_config as JR
+from moss_speech_decoder_cosy_tpu.utils import config as JC
 from moss_speech_decoder_cosy_tpu.utils.config import (
     tiny_flow_config, tiny_hift_config)
 from moss_speech_decoder_cosy_torch.models import campplus as TCam
+from moss_speech_decoder_cosy_torch.models.flow import dit as TDiT
 from moss_speech_decoder_cosy_torch.models.flow import (
     CausalMaskedDiffWithXvec as TFlow)
 from moss_speech_decoder_cosy_torch.models.hift import HiFTGenerator as THiFT
@@ -57,9 +63,12 @@ from moss_speech_decoder_cosy_torch.utils import config as TC
 from moss_speech_decoder_cosy_torch.utils import onnx_io as TO
 from moss_speech_decoder_cosy_torch.utils import ref_config as TR
 from moss_speech_decoder_cosy_torch.weights import (
-    campplus_state_from_jax, flow_state_from_jax, hift_state_from_jax,
-    qwen2_state_from_jax, speech_lm_state_from_jax, tokenizer_state_from_jax,
+    campplus_state_from_jax, dit_state_from_jax, flow_state_from_jax,
+    flow_v1_state_from_jax, hift_state_from_jax, qwen2_state_from_jax,
+    speech_lm_state_from_jax, state_from_jax_tree, tokenizer_state_from_jax,
     transformer_lm_state_from_jax)
+
+from test_torch_flow_v1 import init_v1, tiny_v1_config
 
 FORWARD_ATOL = 1e-5
 CAM_KW = dict(embedding_size=12, growth_rate=4, bn_size=2, init_channels=8,
@@ -89,6 +98,17 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _jax_plan(kind, cfg):
+    """The JAX package's plan rows; the block conformer's (which the JAX
+    ``conversion_plan`` does not list) are the v1 flow's encoder rows."""
+    if kind != "block_conformer":
+        return JK.conversion_plan(kind, cfg)
+    flow = dataclasses.replace(tiny_v1_config(JC), encoder=cfg)
+    return [(d[len("encoder/"):], s[len("encoder."):], fn)
+            for d, s, fn in JK.conversion_plan("flow_v1", flow)
+            if s.startswith("encoder.")]
+
+
 def reference_sd_from_jax(kind, cfg, params):
     """A reference (torch-named) state dict of numpy arrays from flax
     params, through the JAX package's plan."""
@@ -96,7 +116,7 @@ def reference_sd_from_jax(kind, cfg, params):
             tu.flatten_dict(params["params"]).items()}
     return {src: np.ascontiguousarray(
         JAX_INVERSE[fn](flat[dst]) if fn else flat[dst])
-        for dst, src, fn in JK.conversion_plan(kind, cfg)}
+        for dst, src, fn in _jax_plan(kind, cfg)}
 
 
 def reference_sd(kind, cfg, state):
@@ -157,7 +177,31 @@ def models():
         jnp.ones((1, 5), bool), jnp.zeros((1, 7), jnp.int32),
         jnp.ones((1, 7), bool), jnp.zeros((1, vcfg_t.spk_embed_dim)))
     extra = np.zeros(3, np.float32)
+    v1kw = dict(macaron_style=True, use_cnn_module=True,
+                cnn_module_norm="batch_norm")
+    v1j, v1t = tiny_v1_config(JC, **v1kw), tiny_v1_config(TC, **v1kw)
+    _, v1p = init_v1(v1j, seed=11)
+    bc = {"params": v1p["params"]["encoder"]}
+    dcfg = JDiT.tiny_dit_config()
+    dp = jax.jit(JDiT.DiTEstimator(dcfg).init)(
+        jax.random.PRNGKey(12), jnp.zeros((1, 5, dcfg.io_channels)),
+        jnp.ones((1, 5), bool), jnp.zeros((1, 5, dcfg.io_channels)),
+        jnp.zeros((1,)), jnp.zeros((1, dcfg.spk_embed_dim)),
+        jnp.zeros((1, 5, dcfg.io_channels)))
+    bn_tracked = {"encoder.encoders.0.conv_module.norm.num_batches_tracked":
+                  np.zeros((), np.int64)}
     return {
+        "flow_v1": (v1j, v1t, v1p, flow_v1_state_from_jax,
+                    dict(bn_tracked,
+                         **{"decoder.estimator.spare.weight": extra})),
+        "block_conformer": (v1j.encoder, v1t.encoder, bc,
+                            lambda p: state_from_jax_tree(
+                                p, same={"running_mean", "running_var"}),
+                            {"encoders.1.conv_module.norm."
+                             "num_batches_tracked": np.zeros((), np.int64),
+                             "global_cmvn.mean": extra}),
+        "dit": (dcfg, TDiT.tiny_dit_config(), _np(dp), dit_state_from_jax,
+                {"spare.weight": extra}),
         "qwen2": (scfg.backbone, TSL.tiny_speech_lm_config().backbone,
                   {"params": _np(sp)["params"]["llm"]}, qwen2_state_from_jax,
                   {"lm_head.weight": extra}),
@@ -182,7 +226,7 @@ def models():
 
 
 KINDS = ("flow", "hift", "tokenizer", "campplus", "qwen2", "speech_lm",
-         "transformer_lm")
+         "transformer_lm", "flow_v1", "block_conformer", "dit")
 PORT_CONVERT = {k: getattr(TK, f"convert_{k}_state_dict") for k in KINDS}
 JAX_CONVERT = {k: getattr(JK, f"convert_{k}_state_dict") for k in KINDS}
 
@@ -206,7 +250,8 @@ def _assert_states_equal(got, want):
 @pytest.mark.parametrize("kind,legacy", [
     ("flow", False), ("hift", False), ("hift", True), ("tokenizer", False),
     ("campplus", False), ("qwen2", False), ("speech_lm", False),
-    ("transformer_lm", False)])
+    ("transformer_lm", False), ("flow_v1", False),
+    ("block_conformer", False), ("dit", False)])
 def test_converter_equals_jax_path(models, kind, legacy):
     """``legacy``: HiFT's weight-norm pairs under ``weight_g`` /
     ``weight_v`` (the other models hold no weight norm)."""
@@ -232,11 +277,26 @@ def test_port_plan_inverts(models, kind):
     state = from_jax(params)
     rows = TK.conversion_plan(kind, tcfg)
     assert [s for _, s, _ in rows] == [
-        s for _, s, _ in JK.conversion_plan(kind, jcfg)]
+        s for _, s, _ in _jax_plan(kind, jcfg)]
     assert len({d for d, _, _ in rows}) == len(rows) == len(state)
     got, unused = PORT_CONVERT[kind](reference_sd(kind, tcfg, state), tcfg)
     assert unused == []
     _assert_states_equal(got, state)
+
+
+def test_dit_plan_consumes_the_reference_buffers(models):
+    """The rotary tables and the scale-only norms' fixed betas map to no
+    port tensor and are not reported unused, as in the JAX package."""
+    jcfg, tcfg, params, _, _ = models["dit"]
+    buffers = {"transformer.inv_freq": np.zeros(4, np.float32),
+               "transformer.rotary_pos_emb.inv_freq": np.zeros(4, np.float32),
+               "transformer.layers.1.ff_norm.beta": np.zeros(
+                   jcfg.embed_dim, np.float32)}
+    sd = dict(reference_sd_from_jax("dit", jcfg, params), **buffers)
+    _, junused = JK.convert_dit_state_dict(sd, jcfg)
+    got, unused = TK.convert_dit_state_dict(sd, tcfg)
+    assert unused == junused == []
+    assert len(got) == len(TK.conversion_plan("dit", tcfg))
 
 
 def test_converter_names_a_missing_key(models):

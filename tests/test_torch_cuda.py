@@ -1170,3 +1170,38 @@ def test_lm_batcher_tokens_do_not_depend_on_slot_or_neighbours(
                 break
         for i, q in ids.items():
             assert b.result(q) == want[i], (order, i)
+
+
+def test_v1_token2wav_on_card_matches_cpu(card):
+    """The CosyVoice-v1 decoder at full width (``cosyvoice1_flow_config()``
+    with flash, ``cosyvoice1_hift_config()``), f32, seeded weights, behind
+    a prompt: exactly 64 flash launches an Euler step (640 a flow call),
+    the mel within 1e-4 of the CPU path's, the wav 256 samples a frame."""
+    from moss_speech_decoder_cosy_torch.model_dir import V1Decoder
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    flow_cfg = C.cosyvoice1_flow_config()
+    flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
+        flow_cfg.estimator, use_flash_attention=True))
+    hift_cfg = C.cosyvoice1_hift_config()
+    states = seeded_states(flow_cfg, hift_cfg, seed=20, v1=True)
+    rng = np.random.RandomState(3)
+    tokens = rng.randint(0, flow_cfg.vocab_size, (1, 40))
+    prompt = (rng.randint(0, flow_cfg.vocab_size, (1, 10)),
+              rng.randn(1, 17, 80).astype(np.float32),
+              rng.randn(1, 192).astype(np.float32))
+    mels = {}
+    for dev in ("cuda", "cpu"):
+        dec = V1Decoder(flow_cfg, hift_cfg, *states, device=dev)
+        mels[dev] = dec.flow_mel(tokens, *prompt).cpu()
+    dec_card = V1Decoder(flow_cfg, hift_cfg, *states, device="cuda")
+    fa.launch_flash_chunk_attention.launches = 0
+    wav = dec_card.token2wav(tokens, *prompt)
+    torch.cuda.synchronize()
+    assert fa.launch_flash_chunk_attention.launches == 640
+    n = dec_card.mel_len(40)
+    assert mels["cuda"].shape == (1, n, 80)
+    assert wav.shape == (1, 256 * n) and np.isfinite(wav).all()
+    err = float((mels["cuda"] - mels["cpu"]).abs().max())
+    assert err <= 1e-4, err

@@ -55,5 +55,7 @@ def test_scan_covers_the_package():
                 "bin/serve.py", "bin/decode_server.py",
                 "models/llm/qwen2.py", "models/llm/speech_lm.py",
                 "models/llm/transformer_lm.py", "serving/lm_server.py",
-                "serving/token_server.py", "synthesizer.py", "frontend.py"):
+                "serving/token_server.py", "synthesizer.py", "frontend.py",
+                "models/flow/flow_v1.py", "models/flow/dit.py",
+                "models/flow/vdiff.py", "pipeline/stream_v1.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod
