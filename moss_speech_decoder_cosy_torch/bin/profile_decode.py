@@ -49,12 +49,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from ..pipeline import AudioDecoder
 from ..utils import config as C
 from ..utils.device import card_line
+from ..utils.graphs import prepare_profiler, profiled, trace_tables
 from ..weights import seeded_states
 
 
@@ -69,28 +68,21 @@ def _wall(fn):
 def _trace(fn, top: int = 12) -> dict:
     """Device time by kernel over one call of ``fn``: kernels are the
     profiler's device-side events (the host-side ops that launch them are
-    not counted again)."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    host_launches = {e.key: int(e.count) for e in prof.key_averages()
-                     if e.key.startswith("cuda") and "Launch" in e.key}
+    not counted again), traced by ``utils.graphs.profiled`` (raises unless
+    the trace holds every kernel of the call)."""
+    prof, wall, edges = profiled(fn)
+    if not all(edges):
+        raise RuntimeError("a kernel of the profiled call may lie outside "
+                           "the trace")
+    kernels, host_launches = trace_tables(prof)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    device_s = sum(t for _, t in kernels.values())
     return dict(
         wall_s=wall, device_s=device_s, busy_share=device_s / wall,
-        kernel_launches=int(sum(e.count for e in kernels)),
+        kernel_launches=sum(c for c, _ in kernels.values()),
         host_launch_calls=host_launches,
-        top=[dict(name=e.key[:80], calls=e.count,
-                  device_ms=e.self_device_time_total / 1e3)
-             for e in kernels[:top]])
+        top=[dict(name=k[:80], calls=c, device_ms=1e3 * t)
+             for k, (c, t) in ranked[:top]])
 
 
 def _kv_profile(tokens: np.ndarray, results: dict, enc_kernel: bool,
@@ -260,6 +252,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile_decode needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    prepare_profiler()
     results = dict(card=card_line(), torch=torch.__version__,
                    cuda=torch.version.cuda, tokens=args.tokens)
     tokens = np.random.RandomState(0).randint(

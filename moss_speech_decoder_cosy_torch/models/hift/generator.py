@@ -92,9 +92,10 @@ class ConvRNNF0Predictor(nn.Module):
 
 class SourceModuleHnNSF2(nn.Module):
     """Harmonic-plus-noise source for non-22.05 kHz rates (reference
-    generator.py:246-389): per-harmonic phases integrated at frame rate and
-    linearly re-upsampled, uv gating, noise; f32 throughout.  Returns the
-    merged single-channel excitation (B, L, 1)."""
+    generator.py:246-389): per-harmonic phases integrated at frame rate
+    (along a contiguous axis) and linearly re-upsampled, uv gating, noise;
+    f32 throughout.  Returns the merged single-channel excitation (B, L,
+    1)."""
 
     def __init__(self, cfg: HiFTConfig):
         super().__init__()
@@ -118,7 +119,13 @@ class SourceModuleHnNSF2(nn.Module):
         rad = torch.cat([rad[:, :1] + rand_ini[:, None, :], rad[:, 1:]],
                         dim=1)
         rad_low = linear_interpolate(rad, length // up)
-        phase_low = torch.cumsum(rad_low, dim=1) * 2.0 * np.pi
+        # the scan runs along the innermost axis, as ``SourceModuleHnNSF``'s:
+        # over the strided frame axis the card's f32 cumsum drifted 5.8e-5
+        # cycles from a float64 sum over 30 s (x480 below: 0.028 cycles of
+        # phase; the source 0.018 off the CPU's), over a contiguous one
+        # 6.9e-6, the CPU's 3.8e-6 (chip_smoke.py's cross_hift, an H100)
+        cycles = torch.cumsum(rad_low.transpose(1, 2).contiguous(), dim=-1)
+        phase_low = cycles.transpose(1, 2) * 2.0 * np.pi
         phase = linear_interpolate(phase_low * up, length)
         sines = torch.sin(phase) * cfg.nsf_alpha
 

@@ -9,9 +9,13 @@ modeling_whisper.py):
   and static KV caches of ``max_source_positions`` slots; the position is a
   device scalar, so a step reads nothing back to the host.
 
+- ``encode_train(mel, valid, codebook)``: the training forward through
+  the VQ against a codebook passed in, with the straight-through
+  estimator.
+
 Attention is a plain product and softmax, as the JAX package computes it
-(no Pallas kernel), so PyTorch ops serve.  Only the pre-VQ stack is ported:
-the training forward and the post-VQ ASR head are ROADMAP item A14.
+(no Pallas kernel), so PyTorch ops serve.  The post-VQ layers and the ASR
+decoder are ``tokenizer/asr_decoder.py``.
 """
 
 from __future__ import annotations
@@ -143,9 +147,11 @@ class WhisperVQEncoder(nn.Module):
         new_c2 = x2[:, -2:]
         return _gelu(self.conv2(x2)), new_c1, new_c2
 
-    def _pool_and_quantize(self, x: torch.Tensor, valid: torch.Tensor):
+    def _pool_and_quantize(self, x: torch.Tensor, valid: torch.Tensor,
+                           codebook: Optional[torch.Tensor] = None):
         """Average pooling by ``pooling_kernel_size``, then the nearest
-        codebook entry by L2: (ids, token_valid, pooled)."""
+        entry of ``codebook`` (the module's own by default) by L2: (ids,
+        token_valid, pooled)."""
         k = self.cfg.pooling_kernel_size
         b, t, d = x.shape
         pad = (-t) % k
@@ -153,15 +159,14 @@ class WhisperVQEncoder(nn.Module):
             x = F.pad(x, (0, 0, 0, pad))
             valid = F.pad(valid, (0, pad))
         x = x.reshape(b, -1, k, d).mean(dim=2)
-        cb = self.codebook
+        cb = self.codebook if codebook is None else codebook
         dist = ((x * x).sum(-1, keepdim=True) + (cb * cb).sum(-1)[None, None]
                 - 2.0 * torch.einsum("btd,vd->btv", x, cb))
         return torch.argmin(dist, dim=-1), valid[:, ::k], x
 
     # -------------------------------------------------------------- batch
-    def encode(self, mel: torch.Tensor, valid: torch.Tensor):
-        """mel (B, T, n_mels), valid (B, T) -> (ids (B, ceil(T / 8)),
-        token_valid, pooled pre-VQ features (B, ceil(T / 8), d))."""
+    def _trunk(self, mel: torch.Tensor, valid: torch.Tensor):
+        """The layers before the VQ: (states (B, T // 2, d), valid2)."""
         c = self.cfg
         x, _, _ = self._convs(mel)
         t2 = x.shape[1]
@@ -176,7 +181,26 @@ class WhisperVQEncoder(nn.Module):
         bias = mask_to_bias(allow[None] & valid2[:, None, :], x.dtype)[:, None]
         for layer in self.layers:
             x = layer(x, bias)
-        return self._pool_and_quantize(x, valid2)
+        return x, valid2
+
+    def encode(self, mel: torch.Tensor, valid: torch.Tensor):
+        """mel (B, T, n_mels), valid (B, T) -> (ids (B, ceil(T / 8)),
+        token_valid, pooled pre-VQ features (B, ceil(T / 8), d))."""
+        return self._pool_and_quantize(*self._trunk(mel, valid))
+
+    def encode_train(self, mel: torch.Tensor, valid: torch.Tensor,
+                     codebook: torch.Tensor):
+        """The training forward through the VQ (modeling_whisper.py:
+        1391-1464) against ``codebook``, the training codebook (its EMA
+        updates take effect at once; the module's own is for inference):
+        (hidden pre-VQ (B, Tt, d), quantized_st (B, Tt, d), ids,
+        token_valid).  The straight-through estimator passes the gradient
+        of ``quantized_st`` to ``hidden`` and none to ``codebook``."""
+        ids, token_valid, hidden = self._pool_and_quantize(
+            *self._trunk(mel, valid), codebook=codebook)
+        quantized = codebook[ids]
+        return (hidden, hidden + (quantized - hidden).detach(), ids,
+                token_valid)
 
     def forward(self, mel: torch.Tensor, valid: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

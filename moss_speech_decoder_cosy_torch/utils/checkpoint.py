@@ -1,8 +1,8 @@
 """The reference's torch checkpoints in the port: ``flow.pt`` (v2, and the
 CosyVoice-v1 ``MaskedDiffWithXvec``) and ``hift.pt`` (flow_inference.py:
 53-64), the cosyvoice1 block conformer and DiT estimator, the HF WhisperVQ
-tokenizer
-(speech_tokenizer/utils.py:18-38), CAM++ (``campplus.onnx``
+tokenizer (speech_tokenizer/utils.py:18-38) with its ASR head (the post-VQ
+layers and the Whisper decoder), CAM++ (``campplus.onnx``
 initializers or a ``campplus.pt`` state dict) and the LMs (an HF Qwen2,
 CosyVoice2's and CosyVoice v1's ``llm.pt``), after the JAX package's
 ``utils/checkpoint.py``.
@@ -333,6 +333,21 @@ def _map_dit(m: _Plan, cfg):
         m.linear(f"{d}.ff_out", f"{s}.ff.ff.2")
 
 
+def _map_whisper_attn(m: _Plan, dst: str, src: str):
+    m.linear(f"{dst}.q_proj", f"{src}.q_proj")
+    m.linear(f"{dst}.k_proj", f"{src}.k_proj", bias=False)
+    m.linear(f"{dst}.v_proj", f"{src}.v_proj")
+    m.linear(f"{dst}.out_proj", f"{src}.out_proj")
+
+
+def _map_whisper_enc_layer(m: _Plan, dst: str, src: str):
+    m.norm(f"{dst}.self_attn_layer_norm", f"{src}.self_attn_layer_norm")
+    m.norm(f"{dst}.final_layer_norm", f"{src}.final_layer_norm")
+    _map_whisper_attn(m, f"{dst}.self_attn", f"{src}.self_attn")
+    m.linear(f"{dst}.fc1", f"{src}.fc1")
+    m.linear(f"{dst}.fc2", f"{src}.fc2")
+
+
 def _map_tokenizer(m: _Plan, cfg):
     """HF WhisperVQEncoder, the pre-VQ stack (``generator.encoder.`` or
     ``encoder.`` stripped)."""
@@ -341,16 +356,36 @@ def _map_tokenizer(m: _Plan, cfg):
     m.put("embed_positions", "embed_positions.weight")
     m.put("codebook", "codebook.weight")
     for i in range(cfg.quantize_position):
+        _map_whisper_enc_layer(m, f"layers_{i}", f"layers.{i}")
+
+
+def _map_post_vq(m: _Plan, cfg):
+    """The same encoder's layers after ``quantize_position`` and its second
+    position table (modeling_whisper.py:1265-1269,1466-1486) -> the port's
+    ``PostVQEncoder``; the pre-VQ keys stay unused."""
+    m.put("embed_positions2", "embed_positions2.weight")
+    for i in range(cfg.encoder_layers - cfg.quantize_position):
+        _map_whisper_enc_layer(m, f"layers_{i}",
+                               f"layers.{cfg.quantize_position + i}")
+    m.norm("layer_norm", "layer_norm")
+
+
+def _map_whisper_decoder(m: _Plan, cfg):
+    """WhisperVQDecoder (modeling_whisper.py:1614-1974) -> the port's
+    ``WhisperVQDecoder`` (tied output projection)."""
+    m.put("embed_tokens.weight", "embed_tokens.weight")
+    m.put("embed_positions", "embed_positions.weight")
+    for i in range(cfg.decoder_layers):
         s, d = f"layers.{i}", f"layers_{i}"
         m.norm(f"{d}.self_attn_layer_norm", f"{s}.self_attn_layer_norm")
+        m.norm(f"{d}.encoder_attn_layer_norm",
+               f"{s}.encoder_attn_layer_norm")
         m.norm(f"{d}.final_layer_norm", f"{s}.final_layer_norm")
-        m.linear(f"{d}.self_attn.q_proj", f"{s}.self_attn.q_proj")
-        m.linear(f"{d}.self_attn.k_proj", f"{s}.self_attn.k_proj",
-                 bias=False)
-        m.linear(f"{d}.self_attn.v_proj", f"{s}.self_attn.v_proj")
-        m.linear(f"{d}.self_attn.out_proj", f"{s}.self_attn.out_proj")
+        for att in ("self_attn", "encoder_attn"):
+            _map_whisper_attn(m, f"{d}.{att}", f"{s}.{att}")
         m.linear(f"{d}.fc1", f"{s}.fc1")
         m.linear(f"{d}.fc2", f"{s}.fc2")
+    m.norm("layer_norm", "layer_norm")
 
 
 def _map_campplus(m: _Plan, block_layers=(12, 24, 16)):
@@ -478,7 +513,8 @@ _MAPS = {"flow": _map_flow, "hift": _map_hift, "tokenizer": _map_tokenizer,
          "campplus": _map_campplus, "qwen2": _map_qwen2,
          "speech_lm": _map_speech_lm, "transformer_lm": _map_transformer_lm,
          "flow_v1": _map_flow_v1, "block_conformer": _map_block_conformer,
-         "dit": _map_dit}
+         "dit": _map_dit, "post_vq": _map_post_vq,
+         "whisper_decoder": _map_whisper_decoder}
 
 
 def _plan(kind: str, cfg, keys=None) -> _Plan:
@@ -496,7 +532,8 @@ def _plan(kind: str, cfg, keys=None) -> _Plan:
 def conversion_plan(kind: str, cfg) -> List[Row]:
     """The ``(port_key, reference_key, reshape)`` rows of a converter
     (``kind`` one of flow, hift, tokenizer, campplus, qwen2, speech_lm,
-    transformer_lm, flow_v1, block_conformer, dit; ``cfg`` the model's
+    transformer_lm, flow_v1, block_conformer, dit, post_vq,
+    whisper_decoder; ``cfg`` the model's
     config, for CAM++ its ``block_layers``, for the block conformer its
     ``EncoderConfig``, for the DiT its ``DiTConfig``), every optional row
     included
@@ -557,6 +594,19 @@ def convert_tokenizer_state_dict(sd: Mapping, cfg):
     of the port's ``tokenizer.WhisperVQEncoder(cfg)``, unused keys: the
     post-VQ layers among them)."""
     return _convert("tokenizer", sd, cfg)
+
+
+def convert_post_vq_state_dict(sd: Mapping, cfg):
+    """The post-VQ slice of HF WhisperVQEncoder weights (the same dict as
+    ``convert_tokenizer_state_dict``'s) -> (state dict of the port's
+    ``asr_decoder.PostVQEncoder(cfg)``, unused keys: the pre-VQ ones)."""
+    return _convert("post_vq", sd, cfg)
+
+
+def convert_whisper_decoder_state_dict(sd: Mapping, cfg):
+    """HF WhisperVQDecoder weights (``decoder.`` stripped) -> (state dict of
+    the port's ``asr_decoder.WhisperVQDecoder(cfg)``, unused keys)."""
+    return _convert("whisper_decoder", sd, cfg)
 
 
 def convert_qwen2_state_dict(sd: Mapping, cfg):

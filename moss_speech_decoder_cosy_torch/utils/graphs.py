@@ -1,11 +1,15 @@
 """Steps on persistent state replayed as CUDA graphs (``StepGraphs``): the
 runner of the flow sessions (``pipeline/kv_session.py``,
 ``pipeline/device_session.py``, ``pipeline/kv_batcher.py``), the speech
-LM's ``generate`` and the LM batcher (``serving/lm_server.py``)."""
+LM's ``generate``, the LM batcher (``serving/lm_server.py``) and the ASR
+decodes (``tokenizer/asr_decoder.py``); and ``profiled``, a trace that
+shows it holds every kernel of the work it traced."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import os
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -15,6 +19,90 @@ from .flops import DispatchMeter
 
 # the wrappers whose launch counts a replayed graph adds to
 _COUNTERS = (launch_fused_tf_group, launch_fused_conformer_group)
+# the kernel ``torch.cuda._sleep`` launches: ``profiled``'s window markers
+MARKER = "spin_kernel"
+# how long ``profiled`` runs markers before and after the work: on an H100
+# recording started up to ~40 ms after the window opened (a process that
+# had just traced 648k events), and once lost the last kernel before it
+# closed
+EDGE_S = 0.25
+
+
+def prepare_profiler() -> None:
+    """Sets CUPTI up before the process captures its first CUDA graph, and
+    keeps it set up across profiling cycles (``TEARDOWN_CUPTI=0``): kernels
+    of graphs captured before CUPTI's first set-up, or across a teardown,
+    can go untraced (pytorch#75504).  Call it once, before any
+    capture, in a process that profiles graphed work."""
+    from torch.profiler._utils import _init_for_cuda_graphs
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    _init_for_cuda_graphs()
+
+
+def _raw_events(prof):
+    """The profile's raw events, read without building its event tree
+    (``prof.events()`` takes ~1 min over the batcher's 650k events)."""
+    return prof.profiler.kineto_results.events()
+
+
+def trace_tables(prof) -> Tuple[Dict[str, list], Dict[str, int]]:
+    """({name: [count, device seconds]} of the device-side events with a
+    duration (kernels, copies, fills; the markers left out), {name: count}
+    of the host's launch calls (``cudaLaunchKernel*``,
+    ``cudaGraphLaunch``)), from the raw events."""
+    from torch.autograd import DeviceType
+    kernels: Dict[str, list] = {}
+    launches: Dict[str, int] = {}
+    for e in _raw_events(prof):
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if MARKER not in name and e.duration_ns() > 0:
+                k = kernels.setdefault(name, [0, 0.0])
+                k[0] += 1
+                k[1] += e.duration_ns() * 1e-9
+        elif name.startswith("cuda") and "Launch" in name:
+            launches[name] = launches.get(name, 0) + 1
+    return kernels, launches
+
+
+def profiled(fn: Callable[[], None]) -> Tuple[object, float, Tuple[bool,
+                                                                   bool]]:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA), with its
+    device work between marker kernels (``MARKER``).  A trace misses the
+    kernels near the edges of its window (on an H100 the first 1-40 ms, and
+    once the last kernel), so markers, each behind a synchronize and a 2 ms
+    host wait, run for ``EDGE_S`` before ``fn`` and after it.  Returns (the
+    profile, the wall of ``fn`` to its last kernel, the window's edges
+    proved: whether a marker was traced before ``fn``'s first kernel, and
+    one after its last; with both, every kernel ``fn`` ran is in the
+    trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def markers():
+        t = time.perf_counter()
+        while time.perf_counter() - t < EDGE_S:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        markers()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        markers()
+    work, marks = [], []
+    for e in _raw_events(prof):
+        if e.device_type() == DeviceType.CUDA:
+            (marks if MARKER in e.name() else work).append(e.start_ns())
+    if not work:
+        return prof, wall, (bool(marks), bool(marks))
+    return prof, wall, (bool(marks) and min(marks) < min(work),
+                        bool(marks) and max(marks) > max(work))
 
 
 class StepGraphs:
@@ -36,6 +124,7 @@ class StepGraphs:
         self.enabled = bool(enabled) and device.type == "cuda"
         self.meter = meter
         self.graphs: Dict[tuple, tuple] = {}   # key -> (graph, launches)
+        self.replays = 0                       # graph replays so far
         self._stream = None
         self._pool = None
 
@@ -53,6 +142,7 @@ class StepGraphs:
             return
         graph, launched = got
         graph.replay()
+        self.replays += 1
         for counter, n in launched:
             counter.launches += n
 

@@ -11,7 +11,9 @@ and every leaf is used exactly once.  Layouts:
   ``ConvTranspose1d`` is torch's with ``W[i, o, k] = kernel[k, i, o]``)
 - LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
 - weight-norm ``g``, ``bias``, Snake ``alpha``, ``pos_bias_u/v`` as they are
-- the tokenizer's ``embed_positions`` and ``codebook`` as they are
+- the tokenizer's ``embed_positions`` and ``codebook``, the post-VQ
+  encoder's ``embed_positions2`` and the classifier's ``layer_weights`` as
+  they are
 - CAM++: Conv2d kernel (KH, KW, I, O) -> (O, I, KH, KW), BatchNorm ``scale``
   -> ``weight`` and its ``mean`` / ``var`` -> the ``running_mean`` /
   ``running_var`` buffers
@@ -134,6 +136,27 @@ def tokenizer_state_from_jax(params: Mapping[str, Any]
     package's ``tokenizer.WhisperVQEncoder``."""
     return state_from_jax_tree(params,
                                same={"embed_positions", "codebook"})
+
+
+def post_vq_state_from_jax(params: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX ``PostVQEncoder`` params -> state dict of this package's
+    ``tokenizer.asr_decoder.PostVQEncoder``."""
+    return state_from_jax_tree(params, same={"embed_positions2"})
+
+
+def whisper_decoder_state_from_jax(params: Mapping[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """JAX ``WhisperVQDecoder`` params -> state dict of this package's
+    ``tokenizer.asr_decoder.WhisperVQDecoder``."""
+    return state_from_jax_tree(params, same={"embed_positions"})
+
+
+def audio_classifier_state_from_jax(params: Mapping[str, Any]
+                                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``WhisperAudioClassifier`` params -> state dict of this
+    package's ``tokenizer.asr_decoder.WhisperAudioClassifier``."""
+    return state_from_jax_tree(params, same={"layer_weights"})
 
 
 def campplus_state_from_jax(params: Mapping[str, Any]

@@ -7,7 +7,7 @@ f32 on the CPU, tiny configs:
   keys neither package maps); for flow, HiFT, the tokenizer, CAM++, the
   three LM plans (qwen2, speech_lm, transformer_lm) and the v1 plans
   (flow_v1 with the macaron FF and a batch-norm conv module,
-  block_conformer, dit) the
+  block_conformer, dit) and the ASR head's (post_vq, whisper_decoder) the
   port's ``convert_*_state_dict`` is exactly ``*_state_from_jax`` of the
   JAX ``convert_*_state_dict``, with the same unused keys, also under
   torch's legacy ``weight_g`` / ``weight_v`` names; the port's plan,
@@ -42,6 +42,7 @@ from moss_speech_decoder_cosy_tpu.models.flow import (
 from moss_speech_decoder_cosy_tpu.models.hift import HiFTGenerator as JHiFT
 from moss_speech_decoder_cosy_tpu.models.llm import speech_lm as JSL
 from moss_speech_decoder_cosy_tpu.models.llm import transformer_lm as JTL
+from moss_speech_decoder_cosy_tpu.tokenizer import asr_decoder as JA
 from moss_speech_decoder_cosy_tpu.tokenizer import model as JT
 from moss_speech_decoder_cosy_tpu.tokenizer import tiny_tokenizer_config
 from moss_speech_decoder_cosy_tpu.utils import checkpoint as JK
@@ -64,9 +65,10 @@ from moss_speech_decoder_cosy_torch.utils import onnx_io as TO
 from moss_speech_decoder_cosy_torch.utils import ref_config as TR
 from moss_speech_decoder_cosy_torch.weights import (
     campplus_state_from_jax, dit_state_from_jax, flow_state_from_jax,
-    flow_v1_state_from_jax, hift_state_from_jax, qwen2_state_from_jax,
-    speech_lm_state_from_jax, state_from_jax_tree, tokenizer_state_from_jax,
-    transformer_lm_state_from_jax)
+    flow_v1_state_from_jax, hift_state_from_jax, post_vq_state_from_jax,
+    qwen2_state_from_jax, speech_lm_state_from_jax, state_from_jax_tree,
+    tokenizer_state_from_jax, transformer_lm_state_from_jax,
+    whisper_decoder_state_from_jax)
 
 from test_torch_flow_v1 import init_v1, tiny_v1_config
 
@@ -164,6 +166,11 @@ def models():
     tp = jax.jit(JT.WhisperVQEncoder(tcfg).init)(
         jax.random.PRNGKey(2), jnp.zeros((1, 16, tcfg.num_mel_bins)),
         jnp.ones((1, 16), bool))
+    q0, v0 = jnp.zeros((1, 4, tcfg.d_model)), jnp.ones((1, 4), bool)
+    pvq = jax.jit(JA.PostVQEncoder(tcfg).init)(jax.random.PRNGKey(13), q0, v0)
+    wd = jax.jit(JA.WhisperVQDecoder(tcfg).init)(
+        jax.random.PRNGKey(14), jnp.zeros((1, 5), jnp.int32),
+        jnp.ones((1, 5), bool), q0, v0)
     cp = _seeded_bn(_np(jax.jit(JCam.CAMPPlus(**CAM_KW).init)(
         jax.random.PRNGKey(3), jnp.zeros((1, 50, 80)))), 4)
     scfg = JSL.tiny_speech_lm_config()
@@ -219,6 +226,16 @@ def models():
                       tokenizer_state_from_jax,
                       {"embed_positions2.weight": extra,
                        "layers.2.fc1.weight": extra}),
+        # the post-VQ plan leaves the pre-VQ keys, the decoder's the
+        # tokenizer's (one checkpoint holds all three)
+        "post_vq": (tcfg, TTC.tiny_tokenizer_config(), _np(pvq),
+                    post_vq_state_from_jax,
+                    {"layers.0.fc1.weight": extra, "conv1.weight": extra,
+                     "codebook.weight": extra}),
+        "whisper_decoder": (tcfg, TTC.tiny_tokenizer_config(), _np(wd),
+                            whisper_decoder_state_from_jax,
+                            {"proj_out.weight": extra,
+                             "layers.2.fc1.weight": extra}),
         "campplus": (CAM_KW["block_layers"], CAM_KW["block_layers"], cp,
                      campplus_state_from_jax,
                      {"head.bn1.num_batches_tracked": np.zeros((), np.int64),
@@ -226,7 +243,8 @@ def models():
 
 
 KINDS = ("flow", "hift", "tokenizer", "campplus", "qwen2", "speech_lm",
-         "transformer_lm", "flow_v1", "block_conformer", "dit")
+         "transformer_lm", "flow_v1", "block_conformer", "dit", "post_vq",
+         "whisper_decoder")
 PORT_CONVERT = {k: getattr(TK, f"convert_{k}_state_dict") for k in KINDS}
 JAX_CONVERT = {k: getattr(JK, f"convert_{k}_state_dict") for k in KINDS}
 
@@ -251,7 +269,8 @@ def _assert_states_equal(got, want):
     ("flow", False), ("hift", False), ("hift", True), ("tokenizer", False),
     ("campplus", False), ("qwen2", False), ("speech_lm", False),
     ("transformer_lm", False), ("flow_v1", False),
-    ("block_conformer", False), ("dit", False)])
+    ("block_conformer", False), ("dit", False), ("post_vq", False),
+    ("whisper_decoder", False)])
 def test_converter_equals_jax_path(models, kind, legacy):
     """``legacy``: HiFT's weight-norm pairs under ``weight_g`` /
     ``weight_v`` (the other models hold no weight norm)."""

@@ -19,6 +19,18 @@ from moss_speech_decoder_cosy_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _cupti_before_graphs():
+    """CUPTI set up before this module's first graph capture, so the
+    profiled tests trace every graphed kernel (``utils.graphs.
+    prepare_profiler``)."""
+    if torch.cuda.is_available():
+        from moss_speech_decoder_cosy_torch.utils.graphs import (
+            prepare_profiler)
+        prepare_profiler()
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -541,11 +553,16 @@ def test_graphed_steps_match_eager(card, enc_kernel):
 def test_profiler_counts_the_graphed_kernels(card, enc_kernel):
     """One graphed ``stream_decode`` (every graph already captured) under
     torch.profiler: the fused kernels the card ran equal the launch
-    counters the session added at each replay."""
+    counters the session added at each replay.  The trace comes from
+    ``utils.graphs.profiled``: CUPTI set up before this module captured a
+    graph, and the decode inside the traced part of the window (the first
+    milliseconds of a trace go unrecorded: a lead-in of marker kernels
+    comes first, and markers traced on both sides of the decode prove
+    it)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from moss_speech_decoder_cosy_torch.ops import fused_block as fb
     from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    from moss_speech_decoder_cosy_torch.utils.graphs import profiled
     sess = _tiny_kv_sessions(card, enc_kernel)[0]
     tokens = np.random.RandomState(6).randint(
         0, sess.dec.flow_cfg.vocab_size, (1, 30))
@@ -553,10 +570,8 @@ def test_profiler_counts_the_graphed_kernels(card, enc_kernel):
     torch.cuda.synchronize()
     fb.launch_fused_tf_group.launches = 0
     fc.launch_fused_conformer_group.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sess.stream_decode(tokens)
-        torch.cuda.synchronize()
+    prof, _, edges = profiled(lambda: sess.stream_decode(tokens))
+    assert all(edges), "a kernel of the decode may lie outside the trace"
     ran = {"fused_tf_group_kernel": 0, "fused_conformer_group_kernel": 0}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1205,3 +1220,83 @@ def test_v1_token2wav_on_card_matches_cpu(card):
     assert wav.shape == (1, 256 * n) and np.isfinite(wav).all()
     err = float((mels["cuda"] - mels["cpu"]).abs().max())
     assert err <= 1e-4, err
+
+
+# the 24 kHz source card against CPU: chip_smoke.py's HIFT_SOURCE_TOL
+HIFT_SOURCE_TOL = 1e-2
+
+
+@pytest.mark.parametrize("seconds", [20, 30])
+def test_24k_source_on_card_matches_cpu(card, seconds):
+    """The MOSS vocoder's NSF source (``SourceModuleHnNSF2``) over a seeded
+    voiced f0 contour, f32, card against CPU with the same draws: its
+    frame-rate phase scan runs along a contiguous axis (4.4e-3 off over
+    30 s on an H100; a strided scan put it 0.018 off)."""
+    from moss_speech_decoder_cosy_torch.models.hift.generator import (
+        SourceModuleHnNSF2, seeded_draws)
+    from moss_speech_decoder_cosy_torch.utils.config import moss_hift_config
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+
+    cfg = moss_hift_config()
+    frames = seconds * cfg.sampling_rate // cfg.total_upsample
+    rng = np.random.RandomState(31 + seconds)
+    t = np.arange(frames) / 50.0
+    f0 = 140 + 50 * np.sin(2 * np.pi * 0.3 * t) + rng.randn(frames) * 3
+    f0[rng.rand(frames) < 0.1] = 0.0
+    f0 = np.repeat(f0, cfg.total_upsample)[None, :, None].astype(np.float32)
+    with torch.device("meta"):
+        state = seeded_state(SourceModuleHnNSF2(cfg), 30)
+    draws = seeded_draws(cfg.nb_harmonics + 1, f0.shape[1], "cpu")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = SourceModuleHnNSF2(cfg)
+        m.load_state_dict(state)
+        m = m.to(dev)
+        with torch.inference_mode():
+            got[dev] = m(torch.from_numpy(f0).to(dev),
+                         *(d.to(dev) for d in draws)).cpu()
+    assert torch.isfinite(got["cuda"]).all()
+    err = float((got["cuda"] - got["cpu"]).abs().max())
+    assert err <= HIFT_SOURCE_TOL, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_asr_graphed_decodes_equal_eager(card, dtype):
+    """The tiny ASR's decodes on the card: greedy (through the fallback
+    ladder), beam 4 and timestamp tokens with each step a replayed CUDA
+    graph equal the same steps run eagerly; every step after the first
+    call of a shape replays, and a second call of other states reuses the
+    graphs."""
+    from moss_speech_decoder_cosy_torch.tokenizer import tiny_tokenizer_config
+    from moss_speech_decoder_cosy_torch.tokenizer.asr_decoder import (
+        DecodeSteps, PostVQEncoder, WhisperASR, WhisperVQDecoder)
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+
+    cfg = tiny_tokenizer_config()
+    with torch.device("meta"):
+        post, dec = PostVQEncoder(cfg), WhisperVQDecoder(cfg)
+    codebook = np.random.RandomState(1).randn(
+        cfg.quantize_vocab_size, cfg.d_model).astype(np.float32)
+    kw = dict(max_len=16, segment_tokens=8, timestamp_begin=cfg.vocab_size - 16,
+              dtype=dtype)
+    asr = WhisperASR(cfg, seeded_state(post, 2), seeded_state(dec, 3),
+                     codebook, **kw)
+    ids = np.random.RandomState(2).randint(0, cfg.quantize_vocab_size, (1, 20))
+    enc, valid = asr.encode_segments(ids)
+    eager = DecodeSteps(asr.dec, 16, graphs=False)
+    for s in range(enc.shape[0]):
+        e, v = enc[s:s + 1], valid[s:s + 1]
+        calls = (lambda x: x.sample(e, v, 1, 2)[:2],
+                 lambda x: x.sample(e, v, 1, 2, temperature=0.7, seed=s),
+                 lambda x: x.beam(e, v, 1, 2, 4)[:2],
+                 lambda x: x.timestamp(e, v, 1, 2, asr.timestamp_begin))
+        for call in calls:
+            for a, b in zip(call(asr.steps), call(eager)):
+                assert torch.equal(a, b)
+    steps = asr.steps.steps
+    assert len(steps.graphs) == 3 and not eager.steps.graphs
+    # 3 segments x 4 decodes x 15 steps, the 3 first calls capturing
+    assert steps.replays == 3 * 4 * 15 - 3
+    got = asr.transcribe(ids, temperatures=(0.0, 0.7))
+    assert len(got) == 3 and all(g.dtype == np.int32 for g in got)

@@ -57,5 +57,30 @@ def test_scan_covers_the_package():
                 "models/llm/transformer_lm.py", "serving/lm_server.py",
                 "serving/token_server.py", "synthesizer.py", "frontend.py",
                 "models/flow/flow_v1.py", "models/flow/dit.py",
-                "models/flow/vdiff.py", "pipeline/stream_v1.py"):
+                "models/flow/vdiff.py", "pipeline/stream_v1.py",
+                "tokenizer/asr_decoder.py", "eval/rtf.py", "eval/score.py",
+                "eval/benchmark.py", "data/dataset.py", "data/processor.py",
+                "data/tar.py", "bin/benchmark.py", "bin/score.py",
+                "bin/validate_reference.py", "bin/tools.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod
+
+
+def test_the_asr_eval_and_data_modules_load_no_jax():
+    """Imported in a fresh interpreter, the ASR head, the eval harness, the
+    data pipeline and their CLIs leave jax, flax and the JAX package out of
+    ``sys.modules`` (the AST scan misses an import made indirectly)."""
+    import subprocess
+    import sys
+    mods = ["tokenizer.asr_decoder", "eval", "eval.rtf", "eval.score",
+            "eval.benchmark", "data", "data.processor", "data.tar",
+            "bin.benchmark", "bin.score", "bin.validate_reference",
+            "bin.tools"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module('moss_speech_decoder_cosy_torch.' + m)"
+            "\n"
+            f"print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == "[]", out
