@@ -806,9 +806,9 @@ def first_hop_s(torch, kv, tokens) -> float:
 def kv_slice_phase(torch, fb, fc) -> dict:
     """Full-width bf16 ``stream_decode`` of 250 tokens through the KV
     session with the per-layer encoder and with ``enc_kernel=True``, each
-    graphed (the default; 1 warm-up + median of 3), eager (``graphs=
-    False``; 1 warm-up + 1 run) and graphed again in one call,
-    with the launch counts checked around every timed call;
+    graphed (the default), eager (``graphs=False``) and graphed again in
+    one call, each 1 warm-up + median of 3, with the launch counts checked
+    around every timed call;
     the first hop graphed and eager.  Returns the measurements."""
 
     flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
@@ -841,8 +841,7 @@ def kv_slice_phase(torch, fb, fc) -> dict:
                            ("graphed_again", graphed)):
             wav, walls[name] = timed_runs(
                 lambda: sess.stream_decode(tokens),
-                f"{mode} {name} stream_decode", want,
-                runs=1 if name == "eager" else 3)
+                f"{mode} {name} stream_decode", want)
             check(wav, f"{mode} {name} stream_decode")
         rec = dict(launches=want[conformer] if enc_kernel else launches,
                    fused_tf_group_launches=launches,
@@ -1164,14 +1163,16 @@ def host_launches(torch, fn) -> dict:
     calls (``cudaLaunchKernel*``, ``cudaGraphLaunch``), the kernels the
     card ran, device time and its share of the wall (the profiler's own
     host cost lowers that share), the device time of ``fused_tf_group``
-    and the ten kernels that took the most device time."""
+    and the ten kernels that took the most device time, and the edges
+    proved."""
     from moss_speech_decoder_cosy_torch.utils.graphs import profiled
     prof, wall, edges = profiled(fn)
     if not all(edges):
         raise AssertionError(f"a kernel of the profiled run may lie "
                              f"outside the trace (markers before and "
                              f"after it traced: {edges})")
-    return trace_summary(prof, wall, device_s_of=("fused_tf_group",))
+    return dict(trace_summary(prof, wall, device_s_of=("fused_tf_group",)),
+                edges=list(edges))
 
 
 def batcher_phase(torch, fb) -> dict:
@@ -3015,8 +3016,7 @@ def trace_summary(prof, wall: float, top: int = 10,
 def asr_config():
     from moss_speech_decoder_cosy_torch.tokenizer import (
         glm4_voice_tokenizer_config)
-    return dataclasses.replace(glm4_voice_tokenizer_config(),
-                               include_post_vq=True)
+    return glm4_voice_tokenizer_config()
 
 
 def seeded_asr(torch, device: str, dtype=None, graphs: bool = True):
@@ -3503,7 +3503,6 @@ def main(argv=None) -> int:
     from moss_speech_decoder_cosy_torch.ops import fused_block as fb
     from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
     from moss_speech_decoder_cosy_torch.utils.device import card_line
-    from moss_speech_decoder_cosy_torch.utils.graphs import prepare_profiler
 
     # 1. card
     card = card_line()
@@ -3511,9 +3510,6 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # CUPTI set up before the first graph capture: the profiled runs trace
-    # every graphed kernel
-    prepare_profiler()
 
     # 2. build
     t0 = time.perf_counter()

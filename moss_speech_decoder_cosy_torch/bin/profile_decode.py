@@ -53,7 +53,7 @@ import torch
 from ..pipeline import AudioDecoder
 from ..utils import config as C
 from ..utils.device import card_line
-from ..utils.graphs import prepare_profiler, profiled, trace_tables
+from ..utils.graphs import profiled, trace_tables
 from ..weights import seeded_states
 
 
@@ -252,7 +252,6 @@ def main(argv=None) -> int:
         raise SystemExit("profile_decode needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    prepare_profiler()
     results = dict(card=card_line(), torch=torch.__version__,
                    cuda=torch.version.cuda, tokens=args.tokens)
     tokens = np.random.RandomState(0).randint(

@@ -62,18 +62,11 @@ def tokenizer_config_from_json(path):
         ffn_dim=c.get("encoder_ffn_dim", 5120),
         encoder_layers=c.get("encoder_layers", 32),
         quantize_position=c.get("quantize_position", 16),
-        pooling_position=c.get("pooling_position", 16),
         pooling_kernel_size=c.get("pooling_kernel_size", 4),
         quantize_vocab_size=c.get("quantize_vocab_size", 16384),
         max_source_positions=c.get("max_source_positions", 1500),
         causal_attention=c.get("encoder_causal_attention", True),
         quantize_causal_block_size=c.get("quantize_causal_block_size", 200),
-        quantize_ema_decay=c.get("quantize_ema_decay", 0.99),
-        quantize_commit_coefficient=c.get("quantize_commit_coefficient",
-                                          0.25),
-        quantize_loss_scale=c.get("quantize_loss_scale", 10.0),
-        quantize_restart_interval=c.get("quantize_restart_interval", 100),
-        include_post_vq=not c.get("quantize_encoder_only", True),
         decoder_layers=c.get("decoder_layers", 4),
         decoder_attention_heads=c.get("decoder_attention_heads", 20),
         decoder_ffn_dim=c.get("decoder_ffn_dim", 5120),

@@ -456,40 +456,43 @@ class DecodeSteps:
                 final[rows, best])
 
 
+# The JAX package's four decode functions, by name.  Each builds its own
+# eager ``DecodeSteps`` (fresh buffers, no graph): a caller that decodes
+# more than once, as ``WhisperASR`` does, keeps one ``DecodeSteps``.
 def greedy_decode(decoder: WhisperVQDecoder, enc, enc_valid, bos_id: int,
-                  eos_id: int, max_len: int = 64, graphs: bool = True):
+                  eos_id: int, max_len: int = 64):
     """Greedy decoding: (tokens (B, max_len) padded with eos, lengths)."""
-    toks, n, _ = DecodeSteps(decoder, max_len, graphs).sample(
+    toks, n, _ = DecodeSteps(decoder, max_len, graphs=False).sample(
         enc, enc_valid, bos_id, eos_id)
     return toks, n
 
 
 def sample_decode(decoder: WhisperVQDecoder, enc, enc_valid, bos_id: int,
                   eos_id: int, seed: int = 0, temperature: float = 0.0,
-                  max_len: int = 64, graphs: bool = True):
+                  max_len: int = 64):
     """Greedy (temperature 0) or temperature sampling: (tokens, lengths
     with bos, sum_logprob)."""
-    return DecodeSteps(decoder, max_len, graphs).sample(
+    return DecodeSteps(decoder, max_len, graphs=False).sample(
         enc, enc_valid, bos_id, eos_id, temperature, seed)
 
 
 def timestamp_decode(decoder: WhisperVQDecoder, enc, enc_valid, bos_id: int,
                      eos_id: int, timestamp_begin: int,
                      max_initial_timestamp_index: int = 50,
-                     max_len: int = 64, graphs: bool = True):
+                     max_len: int = 64):
     """Greedy decoding under the timestamp grammar (generation_whisper.py:
     349-352,520-525): (tokens, lengths)."""
-    return DecodeSteps(decoder, max_len, graphs).timestamp(
+    return DecodeSteps(decoder, max_len, graphs=False).timestamp(
         enc, enc_valid, bos_id, eos_id, timestamp_begin,
         max_initial_timestamp_index)
 
 
 def beam_decode(decoder: WhisperVQDecoder, enc, enc_valid, bos_id: int,
                 eos_id: int, beam_size: int = 4, max_len: int = 64,
-                length_penalty: float = 1.0, graphs: bool = True):
+                length_penalty: float = 1.0):
     """Beam search (HF ``generate(num_beams=...)``, generation_whisper.py:
     277): (best tokens, lengths, best score)."""
-    return DecodeSteps(decoder, max_len, graphs).beam(
+    return DecodeSteps(decoder, max_len, graphs=False).beam(
         enc, enc_valid, bos_id, eos_id, beam_size, length_penalty)
 
 

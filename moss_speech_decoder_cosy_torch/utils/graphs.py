@@ -7,7 +7,6 @@ shows it holds every kernel of the work it traced."""
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -26,17 +25,6 @@ MARKER = "spin_kernel"
 # had just traced 648k events), and once lost the last kernel before it
 # closed
 EDGE_S = 0.25
-
-
-def prepare_profiler() -> None:
-    """Sets CUPTI up before the process captures its first CUDA graph, and
-    keeps it set up across profiling cycles (``TEARDOWN_CUPTI=0``): kernels
-    of graphs captured before CUPTI's first set-up, or across a teardown,
-    can go untraced (pytorch#75504).  Call it once, before any
-    capture, in a process that profiles graphed work."""
-    from torch.profiler._utils import _init_for_cuda_graphs
-    os.environ.setdefault("TEARDOWN_CUPTI", "0")
-    _init_for_cuda_graphs()
 
 
 def _raw_events(prof):

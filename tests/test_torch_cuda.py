@@ -20,17 +20,6 @@ from moss_speech_decoder_cosy_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _cupti_before_graphs():
-    """CUPTI set up before this module's first graph capture, so the
-    profiled tests trace every graphed kernel (``utils.graphs.
-    prepare_profiler``)."""
-    if torch.cuda.is_available():
-        from moss_speech_decoder_cosy_torch.utils.graphs import (
-            prepare_profiler)
-        prepare_profiler()
-
-
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
