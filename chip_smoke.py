@@ -28,9 +28,9 @@ Phases (any failure raises and the script exits non-zero):
 4. Offline and windowed slice at full width: ``moss_flow_config()`` with
    flash attention and ``moss_hift_config()``, weights drawn from seed 0,
    bf16 compute.  ``token2wav`` of 250 tokens and ``stream_inference`` of
-   100 tokens, 1 warm-up + median of 3 and 1 warm-up + 1 timed call, with
-   the launch counts read around every timed call, and the first chunk's
-   latency of a new streaming session.
+   100 tokens, 1 warm-up + median of 3 and one timed call after a
+   50-token warm-up, with the launch counts read around every timed
+   call, and the first chunk's latency of a new streaming session.
 5. KV slice at full width, the configuration ``bench.py`` runs at batch 1:
    ``moss_flow_config()`` (ring attention, no flash), 10 steps with a
    4096-frame noise buffer, block 5, mel cache 8, max_token_len 40,
@@ -131,7 +131,7 @@ Phases (any failure raises and the script exits non-zero):
    and seed -> 250 tokens, the text ratio's minimum -> ``token2wav`` at
    ``cosyvoice2_flow_config()`` with flash attention -> 24 kHz), exactly
    560 ``flash_chunk_attention`` launches, the LM's seconds beside the
-   decoder's; ``tts_stream`` of a 50-id text (100 tokens); and
+   decoder's; ``tts_stream`` of a 25-id text (50 tokens); and
    ``ChatAudioConsumer`` over an interleaved 13-text / 26-audio id stream
    of the 250 tokens (blocks 25, 50, 100, 75).  ``cross_lm``: f32 logits of
    the full-width LM cut to 4 layers through prefill and 32 teacher-forced
@@ -168,9 +168,10 @@ Phases (any failure raises and the script exits non-zero):
    ``word_timestamps`` (wall a segment), ms a decode step graphed (each
    step one CUDA graph replay) and eager, their tokens equal, one
    profiled decode; ``eval``, ``run_seed_tts_benchmark(score=True)`` over
-   4 seeded 3-6 s utterances with 3 s prompts through the full-width
-   codec, the bf16 MOSS decoder with flash and the f32 ASR (``failed ==
-   0``, WER and SIM in ``result.json``, each sample's RTF, the flash
+   2 seeded 3-4 s utterances with 3 s prompts
+   through the full-width codec, the bf16 MOSS decoder with flash and the
+   f32 ASR (``failed == 0``, WER and SIM in ``result.json``, each
+   sample's RTF, the flash
    launches); ``data``, the data chain over 32 seeded 24 kHz utterances
    from parquet and indexed-tar shards (samples a second, the fbank card
    against CPU).  ``cross_asr``: f32 card against CPU, the post-VQ states
@@ -183,6 +184,26 @@ Phases (any failure raises and the script exits non-zero):
    the first graph capture, and every profiled run opens with a lead-in
    of marker kernels (a trace misses its first milliseconds) and must show
    markers traced on both sides of its work (``utils/graphs.py``).
+   The card-vs-CPU KV, batcher and windowed phases
+   (``cross_kv``, ``cross_kv_options``, ``cross_batcher``,
+   ``cross_batcher_concat``, ``cross_windowed``, ``cross_kv_batch``) run
+   the estimator with ``CROSS_MID_BLOCKS`` (2) mid blocks in place of 12:
+   the same widths, schedules, buckets, rings and tolerances, 4 fused
+   groups an iteration of the same shapes in place of 14 (their CPU sides
+   took 218-318 s at full depth); ``cross`` (offline and one window) and
+   the kernel phases keep the full depth.
+   Training (``train``, after ``data``), f32 with TF32 off, each step 1
+   warm-up + the median of 5, peak memory, FLOPs, with every kernel's
+   launch count held at 0 and the three CUDA entries' autograd guard
+   raising on the card: the flow at ``moss_flow_config()`` (dropout 0.1,
+   4 x 10 s, ``accum_steps`` 1 and 2, one profiled step), the HiFT GAN
+   (``moss_hift_config()`` + MPD ++ MRD, 4 x 1 s, a discriminator and a
+   generator turn), the speech LM at CosyVoice2-0.5B width (2 x (60 + 250
+   ids), CE and DPO, one profiled CE step) and the VQ codebook (the
+   GLM-4-Voice tokenizer, 2 x 10 s, a dead-code restart).
+   ``cross_train``: one flow loss and its gradient (2 mid blocks, 2 x 40
+   tokens) and one HiFT generator loss and its gradient (0.2 s), card
+   against CPU with the same draws.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -195,6 +216,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import sys
 import time
@@ -209,6 +231,10 @@ PACKAGE = "moss_speech_decoder_cosy_torch"
 CROSS_TOL = 1e-4
 # KV mels, f32 on the card: the graphed steps vs the same steps run eagerly
 GRAPH_TOL = 1e-5
+# the KV, batcher and windowed card-vs-CPU phases run the estimator with 2
+# mid blocks in place of 12 (4 fused groups of the same shapes in place of
+# 14): their CPU sides ran the full depth in f32 for 218-318 s of a smoke
+CROSS_MID_BLOCKS = 2
 # bf16 windowed stream: a lockstep row against the same tokens alone, as a
 # share of the stream's peak.  The two run the flow at other row counts, and
 # at bf16 the seeded full-width wav moves 14-18% of its peak with the row
@@ -630,14 +656,15 @@ def conformer_phase(torch, fc) -> list:
     return records
 
 
-def seeded_models(flash: bool = True):
+def seeded_models(flash: bool = True, mid_blocks: int | None = None):
     """(flow_cfg, hift_cfg, flow_state, hift_state): the MOSS presets,
     weights from seeds 0 and 1.  ``flash``: the estimator's attention
     through the flash kernel (offline and windowed decode); without it, the
     KV session's configuration, with ``bench.py``'s 4096-frame noise
     buffer.  The states (the same for both: neither switch changes a
     parameter) are drawn once, ~4 s of host time, and each call gets its
-    own copy."""
+    own copy.  ``mid_blocks``: the estimator cut to that many mid blocks
+    (the same widths; the state keeps the first ones' weights)."""
     from moss_speech_decoder_cosy_torch.utils import config as C
     from moss_speech_decoder_cosy_torch.weights import seeded_states
 
@@ -651,8 +678,16 @@ def seeded_models(flash: bool = True):
     else:
         flow_cfg = dataclasses.replace(flow_cfg, cfm=dataclasses.replace(
             flow_cfg.cfm, max_noise_len=KV_NOISE_LEN))
-    return (flow_cfg, hift_cfg) + tuple(
+    flow_state, hift_state = (
         {k: v.clone() for k, v in state.items()} for state in SEEDED["moss"])
+    if mid_blocks is not None:
+        flow_cfg = dataclasses.replace(flow_cfg, estimator=dataclasses.replace(
+            flow_cfg.estimator, num_mid_blocks=mid_blocks))
+        cut = re.compile(r"\.mid_(?:res|tf)_(\d+)[._]")
+        flow_state = {k: v for k, v in flow_state.items()
+                      if not (m := cut.search(k))
+                      or int(m.group(1)) < mid_blocks}
+    return flow_cfg, hift_cfg, flow_state, hift_state
 
 
 def launches_per_decode(flow_cfg) -> int:
@@ -663,12 +698,13 @@ def launches_per_decode(flow_cfg) -> int:
     return blocks * flow_cfg.cfm.n_timesteps
 
 
-def timed_runs(call, what: str, want: dict, runs: int = 3):
-    """One warm-up call, then ``runs`` timed calls with each kernel's launch
-    count (``counter.launches`` for each counter of ``want``) set to 0 just
+def timed_runs(call, what: str, want: dict, runs: int = 3, warmup=None):
+    """One warm-up call (``warmup()`` if given, else ``call()``), then
+    ``runs`` timed calls with each kernel's launch count
+    (``counter.launches`` for each counter of ``want``) set to 0 just
     before each call and checked against ``want[counter]`` just after.
     Returns (last output, walls)."""
-    call()
+    (warmup or call)()
     walls = []
     for _ in range(runs):
         for counter in want:
@@ -714,10 +750,13 @@ def slice_phase(torch, fa) -> dict:
     hop, ahead = dec.pipe_cfg.block_size, flow_cfg.pre_lookahead_len
     windows = max(0, (n_stream - ahead) // hop) + 1
     stream_launches = per_decode * windows
-    # one timed call: the smoke's time goes to the v1 phases
+    # one timed call after a 50-token warm-up (every window shape, the
+    # filled 40-token window included): the smoke's time goes to the v1
+    # and train phases
     swav, stream_walls = timed_runs(
         lambda: dec.stream_inference(stream_tokens), "stream_inference",
-        {counter: stream_launches}, runs=1)
+        {counter: stream_launches}, runs=1,
+        warmup=lambda: dec.stream_inference(stream_tokens[:, :50]))
     want_len = n_stream * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
     if swav.shape != (1, want_len) or not np.isfinite(swav).all():
         raise AssertionError(f"bad stream output {swav.shape}")
@@ -870,7 +909,8 @@ def cross_kv_phase(fb, fc) -> dict:
     (``enc_kernel=True``).  The wav is not compared: the NSF source's
     random draws differ between devices."""
 
-    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(
+        flash=False, mid_blocks=CROSS_MID_BLOCKS)
     n_tokens = 40
     tokens = np.random.RandomState(2).randint(0, flow_cfg.vocab_size,
                                               (1, n_tokens))
@@ -1041,7 +1081,8 @@ def cross_kv_options_phase(fb) -> dict:
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
-    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(
+        flash=False, mid_blocks=CROSS_MID_BLOCKS)
     n_tokens = 40
     tokens = np.random.RandomState(3).randint(0, flow_cfg.vocab_size,
                                               (1, n_tokens))
@@ -1277,7 +1318,8 @@ def cross_batcher_phase(fb, fused: bool = True) -> dict:
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
-    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(
+        flash=False, mid_blocks=CROSS_MID_BLOCKS)
     n_tokens = 40
     rng = np.random.RandomState(4)
     streams = [(rng.randn(1, flow_cfg.spk_embed_dim).astype(np.float32),
@@ -1531,7 +1573,8 @@ def cross_windowed_phase(torch) -> dict:
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
-    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(
+        flash=False, mid_blocks=CROSS_MID_BLOCKS)
     n_tokens = 58
     tokens = np.random.RandomState(5).randint(0, flow_cfg.vocab_size,
                                               (2, n_tokens))
@@ -1757,21 +1800,30 @@ def seeded_codec(torch, device, decoder=None, speaker: bool = False):
     CAM++ (BatchNorm running statistics drawn too) from seed 6, on
     ``device``."""
     from moss_speech_decoder_cosy_torch.codec import SpeechCodec
-    from moss_speech_decoder_cosy_torch.models.campplus import (
-        CAMPPlus, SpeakerEncoder)
+    from moss_speech_decoder_cosy_torch.models.campplus import SpeakerEncoder
     from moss_speech_decoder_cosy_torch.tokenizer import (
-        WhisperVQEncoder, glm4_voice_tokenizer_config)
-    from moss_speech_decoder_cosy_torch.weights import seeded_state
+        glm4_voice_tokenizer_config)
     cfg = glm4_voice_tokenizer_config()
-    key = ("tok", "spk")
-    states = SEEDED.get(key)
-    if states is None:
-        with torch.device("meta"):
-            tok, cam = WhisperVQEncoder(cfg), CAMPPlus()
-        states = SEEDED[key] = (seeded_state(tok, 5), seeded_state(cam, 6))
+    states = codec_states(torch)
     spk = (SpeakerEncoder(states[1], device=device) if speaker else None)
     return SpeechCodec(cfg, states[0], decoder, speaker_encoder=spk,
                        device=device)
+
+
+def codec_states(torch):
+    """(tokenizer state, CAM++ state) at full width from seeds 5 and 6,
+    drawn once."""
+    from moss_speech_decoder_cosy_torch.models.campplus import CAMPPlus
+    from moss_speech_decoder_cosy_torch.tokenizer import (
+        WhisperVQEncoder, glm4_voice_tokenizer_config)
+    from moss_speech_decoder_cosy_torch.weights import seeded_state
+    key = ("tok", "spk")
+    if key not in SEEDED:
+        with torch.device("meta"):
+            tok = WhisperVQEncoder(glm4_voice_tokenizer_config())
+            cam = CAMPPlus()
+        SEEDED[key] = (seeded_state(tok, 5), seeded_state(cam, 6))
+    return SEEDED[key]
 
 
 SEEDED: dict = {}
@@ -1948,7 +2000,8 @@ def cross_kv_batch_phase(fb) -> dict:
     from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
     from moss_speech_decoder_cosy_torch.utils.config import PipelineConfig
 
-    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(
+        flash=False, mid_blocks=CROSS_MID_BLOCKS)
     n_tokens = 40
     tokens = np.random.RandomState(6).randint(0, flow_cfg.vocab_size,
                                               (2, n_tokens))
@@ -1997,7 +2050,9 @@ def cross_kv_batch_phase(fb) -> dict:
 
 # ------------------------------------------------------------------ serving
 SERVE_REQUESTS = 4
-VC_PROMPT_S, VC_AUDIO_S = 3.0, 10.0
+# the VC session: a 3 s prompt, 5 s of audio (the smoke's time: a longer
+# session measures the same per-frame handler)
+VC_PROMPT_S, VC_AUDIO_S = 3.0, 5.0
 # the port's plan reshapes, inverted: port layout -> the reference's layout
 PLAN_INVERSE = {"g": lambda t: t.reshape(-1, 1, 1),
                 "conv1": lambda t: t[..., None]}
@@ -2383,15 +2438,19 @@ LM_RECENT = 64
 
 def seeded_lm(torch, cfg, seed: int, device: str, dtype):
     """``Qwen2SpeechLM(cfg)`` with weights drawn from ``seed`` (the released
-    ``llm.pt`` is not in the repo) on ``device`` in ``dtype``."""
+    ``llm.pt`` is not in the repo) on ``device`` in ``dtype``; the state is
+    drawn once a (config, seed) and copied."""
     from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
         Qwen2SpeechLM, load_lm)
     from moss_speech_decoder_cosy_torch.weights import seeded_state
 
-    with torch.device("meta"):
-        lm = Qwen2SpeechLM(cfg)
-    return load_lm(Qwen2SpeechLM, cfg, seeded_state(lm, seed), device,
-                   dtype)
+    key = ("lm", cfg, seed)
+    if key not in SEEDED:
+        with torch.device("meta"):
+            lm = Qwen2SpeechLM(cfg)
+        SEEDED[key] = seeded_state(lm, seed)
+    return load_lm(Qwen2SpeechLM, cfg, {k: v.clone() for k, v in
+                                        SEEDED[key].items()}, device, dtype)
 
 
 def lm_step_bound_ms(lm, positions: int, elem: int = 2):
@@ -2592,13 +2651,18 @@ def lm_phase(torch, fa) -> dict:
     for w in (wav, wav2):
         if w.shape != (1, samples) or not np.isfinite(w).all():
             raise AssertionError(f"bad tts output {w.shape}")
-    short = SpeechSynthesizer(lm, dec, max_tokens=100)
+    # a 25-id text: min_len 50 tokens (the stream's hops, within the
+    # smoke's time)
+    stream_n = 50
+    short = SpeechSynthesizer(lm, dec, max_tokens=stream_n)
     counter.launches = 0
-    t = time.perf_counter()                         # 50 ids: min_len 100
-    chunks = list(short.tts_stream(texts[1][None, :50], seed=seeds[1]))
+    t = time.perf_counter()
+    chunks = list(short.tts_stream(texts[1][None, :stream_n // 2],
+                                   seed=seeds[1]))
     stream_s = time.perf_counter() - t
     stream_wav = np.concatenate(chunks, axis=-1)
-    stream_samples = 100 * flow_cfg.token_mel_ratio * hift_cfg.total_upsample
+    stream_samples = (stream_n * flow_cfg.token_mel_ratio
+                      * hift_cfg.total_upsample)
     if stream_wav.shape != (1, stream_samples) or \
             not np.isfinite(stream_wav).all() or counter.launches == 0:
         raise AssertionError(f"bad tts_stream {stream_wav.shape}, "
@@ -2607,8 +2671,8 @@ def lm_phase(torch, fa) -> dict:
         tokens=n, audio_s=audio_s, samples=samples, tts_s=tts_s,
         rtf=tts_s / audio_s, lm_s=lm_s, decoder_s=dec_s,
         lm_share=lm_s / (lm_s + dec_s), flash_launches=flash,
-        stream_tokens=100, stream_chunks=len(chunks), stream_s=stream_s,
-        stream_rtf=stream_s / (100 / LM_RATE),
+        stream_tokens=stream_n, stream_chunks=len(chunks),
+        stream_s=stream_s, stream_rtf=stream_s / (stream_n / LM_RATE),
         stream_flash_launches=counter.launches,
         wav_max_abs=float(np.abs(wav).max()))
     print("lm tts", json.dumps(tts_rec), flush=True)
@@ -2977,8 +3041,9 @@ ASR_CROSS_MAX_LEN = 32
 # encode_train card against CPU, f32: the pooled hidden states as a share
 # of their peak (the pre-VQ tokenizer, as POOLED_REL_TOL)
 TRAIN_REL_TOL = 1e-4
-# the eval run: 4 seeded utterances of 3-6 s, each behind a 3 s prompt
-EVAL_SECONDS = (3.0, 4.0, 5.0, 6.0)
+# the eval run: 2 seeded utterances of 3-4 s, each behind a 3 s prompt
+# (two keep the smoke's time; the harness runs any number alike)
+EVAL_SECONDS = (3.0, 4.0)
 # the data run: 32 seeded 24 kHz utterances of 2-4 s; the matcha fbank
 # card against CPU
 DATA_UTTS = 32
@@ -3235,8 +3300,8 @@ def seedtts_layout(root: Path, seconds, prompt_s: float = 3.0) -> None:
 
 
 def eval_phase(torch, fa) -> dict:
-    """``run_seed_tts_benchmark(..., score=True)`` over 4 seeded utterances
-    of 3-6 s behind 3 s prompts: the full-width codec (``seeded_codec``,
+    """``run_seed_tts_benchmark(..., score=True)`` over 2 seeded utterances
+    of 3-4 s behind 3 s prompts: the full-width codec (``seeded_codec``,
     with CAM++) over the MOSS decoder with flash attention in bf16 (decoding
     through ``decode_streaming``), the f32 ASR of the ``asr`` phase as the
     WER transcriber; ``failed == 0``, ``result.json`` holds WER and SIM;
@@ -3483,6 +3548,453 @@ def cross_hift_phase(torch, card: str = "cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# training (one process): the flow, the HiFT GAN, the speech LM, the VQ
+# --------------------------------------------------------------------------
+
+# the flow's batch: 4 utterances of 10 s (125 tokens, 500 mel frames)
+TRAIN_FLOW = (4, 125)
+# the GAN's batch: 4 utterances of 1 s of seeded speech-like 24 kHz audio
+TRAIN_GAN = (4, 1.0)
+# the LM's batch: 2 rows of 60 text ids and 250 speech ids (10 s)
+TRAIN_LM = (2, 60, 250)
+# the VQ's batch: 2 x 10 s of 16 kHz mel (1000 frames)
+TRAIN_VQ = (2, 1000)
+TRAIN_RUNS = 5
+# card against CPU, f32: the loss relative, each gradient as a share of its
+# peak (plus GRAD_NOISE of the largest one, for gradients zero in exact
+# arithmetic: the key projections' biases)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+GRAD_NOISE = 1e-7
+CROSS_TRAIN_TOKENS = 40
+CROSS_TRAIN_AUDIO_S = 0.2
+
+
+def train_timed(torch, step, runs: int = TRAIN_RUNS):
+    """1 warm-up, then the median of ``runs`` host walls of ``step()``,
+    each ending in ``torch.cuda.synchronize()``; the peak of device memory
+    allocated over all of them.  Returns (last output, median s, peak
+    bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, statistics.median(walls), torch.cuda.max_memory_allocated()
+
+
+def step_trace(torch, step, wall_s: float, profile: bool = True) -> dict:
+    """The FLOPs of one more ``step()`` (products and convolutions, the
+    backward's included; ``utils.flops.count_flops``) over the timed
+    median wall ``wall_s``; with ``profile``, one more step traced
+    (``trace_summary``: device time, busy share, kernels, the top 5)."""
+    from moss_speech_decoder_cosy_torch.utils.flops import count_flops
+    from moss_speech_decoder_cosy_torch.utils.graphs import profiled
+    _, flops = count_flops(step)
+    out = dict(tflop=flops / 1e12, tflop_per_s=flops / wall_s / 1e12)
+    if profile:
+        prof, wall, edges = profiled(step)
+        out.update(trace_summary(prof, wall, top=5), edges=list(edges))
+    return out
+
+
+def finite_positive(torch, *values) -> bool:
+    return all(bool(torch.isfinite(v).all()) and float(v) > 0
+               for v in values)
+
+
+def guard_raises(torch, counters, dev: str = "cuda") -> dict:
+    """Each CUDA entry under autograd on the card raises ``RuntimeError``
+    naming its switch, and launches nothing."""
+    from moss_speech_decoder_cosy_torch.ops import flash_attention as fa
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    q, k, v = (torch.randn((1, 2, 8, 64), device=dev) for _ in range(3))
+    p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
+        6, 6, 16, 8, 2, 4, 2, 24, torch.float32, dev, seed=5)
+    scal = fb.group_scalars([6] * 6, [0] * 6, [1] * 6, dev)
+    cp, cx, pe, kv, pk = fc.make_conformer_inputs(
+        2, 3, 16, 2, 32, 6, torch.float32, dev, seed=3)
+    calls = {
+        "flash_chunk_attention": ("use_flash_attention", lambda: (
+            fa.flash_chunk_attention(q.requires_grad_(True), k, v))),
+        "flash_chunk_attention_fl": ("use_flash_attention", lambda: (
+            fa.flash_chunk_attention_fl(
+                q.detach().transpose(1, 2).reshape(1, 8, 128)
+                .requires_grad_(True), k.transpose(1, 2).reshape(1, 8, 128),
+                v.transpose(1, 2).reshape(1, 8, 128), heads=2))),
+        "fused_tf_group": ("kernel", lambda: fb.fused_tf_group(
+            p, rp_, mt, cc1, cc2, x.requires_grad_(True), rings, scal, 0,
+            heads=2, head_dim=4)),
+        "fused_conformer_group": ("enc_kernel", lambda: (
+            fc.fused_conformer_group(cp, cx.requires_grad_(True), pe, kv, pk,
+                                     0, heads=2, head_dim=8))),
+    }
+    for c in counters:
+        c.launches = 0
+    out = {}
+    for name, (switch, call) in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if switch not in str(e):
+                raise AssertionError(f"{name}'s guard does not name "
+                                     f"{switch}: {e}") from e
+            out[name] = str(e).split(":")[0]
+        else:
+            raise AssertionError(f"{name} ran under autograd on the card")
+    if any(c.launches for c in counters):
+        raise AssertionError("a guarded entry launched its kernel")
+    return out
+
+
+def train_phase(torch, counters, dev: str = "cuda") -> dict:
+    """Each model's train step at full width on the card, f32 (TF32 off),
+    with the launch counts of every CUDA kernel read around it (0: a train
+    step runs the plain paths), and the three entries' autograd guard."""
+    from moss_speech_decoder_cosy_torch.models.hift import HiFTGenerator
+    from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
+        SpeechLMConfig)
+    from moss_speech_decoder_cosy_torch.ops.melspec import (
+        matcha_mel_spectrogram)
+    from moss_speech_decoder_cosy_torch.data import processor
+    from moss_speech_decoder_cosy_torch.tokenizer.config import (
+        glm4_voice_tokenizer_config)
+    from moss_speech_decoder_cosy_torch.tokenizer.model import (
+        WhisperVQEncoder)
+    from moss_speech_decoder_cosy_torch.models.flow import (
+        CausalMaskedDiffWithXvec)
+    from moss_speech_decoder_cosy_torch.training import (
+        gan, lm as lm_mod, make_flow_train_step, make_optimizer, vq)
+    from moss_speech_decoder_cosy_torch.training.train_step import (
+        AdamW, TrainState, constant_lr)
+    from moss_speech_decoder_cosy_torch.weights import seeded_module
+    import copy
+
+    out = {"guard": guard_raises(torch, counters, dev)}
+    for c in counters:
+        c.launches = 0
+
+    # the flow: the MOSS preset (encoder dropout 0.1; the KV session's
+    # configuration: no flash) from seed 0, 4 x 10 s
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(flash=False)
+    b, n_tok = TRAIN_FLOW
+    n_mel = n_tok * flow_cfg.token_mel_ratio
+    rng = np.random.RandomState(0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in dict(
+        speech_token=rng.randint(0, flow_cfg.vocab_size, (b, n_tok)),
+        token_valid=np.ones((b, n_tok), bool),
+        speech_feat=rng.randn(b, n_mel, flow_cfg.output_size).astype(
+            np.float32),
+        feat_valid=np.ones((b, n_mel), bool),
+        embedding=rng.randn(b, flow_cfg.spk_embed_dim).astype(
+            np.float32)).items()}
+    flow = {"batch": b, "tokens": n_tok, "mel_frames": n_mel,
+            "dropout": flow_cfg.encoder.dropout_rate}
+    model = CausalMaskedDiffWithXvec(flow_cfg)
+    model.load_state_dict(flow_state, strict=True)
+    model.to(dev).train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    for accum in (1, 2):
+        model.load_state_dict(before)
+        state = TrainState(0, model, make_optimizer()(model.parameters()))
+        step = make_flow_train_step(state.model, accum_steps=accum)
+        g = torch.Generator(device=dev).manual_seed(1)
+        (_, m), s, peak = train_timed(torch, lambda: step(state, batch,
+                                                          generator=g))
+        moved = sum(not torch.equal(before[k], v)
+                    for k, v in state.model.state_dict().items())
+        trace = step_trace(torch, lambda: step(state, batch, generator=g),
+                           s, profile=accum == 1)
+        flow[f"accum_{accum}"] = dict(
+            ms=s * 1e3, mel_frames_per_s=b * n_mel / s,
+            peak_mem_gb=peak / 1e9, loss=float(m["loss"]),
+            grad_norm=float(m["grad_norm"]), steps=state.step,
+            params_moved=moved, params=len(before),
+            n_params=sum(p.numel() for p in state.model.parameters()),
+            **trace)
+        if not (finite_positive(torch, m["loss"], m["grad_norm"])
+                and moved == len(before)):
+            raise AssertionError(f"flow train step: {flow}")
+    del state, step, before, model
+    out["flow"] = flow
+    print("train flow", json.dumps(flow), flush=True)
+
+    # the GAN: the MOSS HiFT (seed 1) + MPD ++ MRD (seed 2), 4 x 1 s
+    b, seconds = TRAIN_GAN
+    sr = hift_cfg.sampling_rate
+    audio = np.stack([seeded_audio(seconds, sr, 80 + i) for i in range(b)])
+    speech = torch.as_tensor(audio).to(dev)
+    with torch.no_grad():
+        mel = matcha_mel_spectrogram(speech, num_mels=hift_cfg.in_channels,
+                                     sampling_rate=sr)
+    rows = list(processor.compute_f0(
+        [{"speech": a, "speech_feat": np.zeros((mel.shape[1], 1))}
+         for a in audio], sample_rate=sr))
+    gbatch = {"speech": speech[:, :mel.shape[1] * hift_cfg.total_upsample],
+              "speech_feat": mel, "pitch_feat": torch.as_tensor(
+                  np.stack([r["pitch_feat"] for r in rows])).to(dev)}
+    gen = HiFTGenerator(hift_cfg)
+    gen.load_state_dict(hift_state, strict=True)
+    gen.to(dev).train()
+    disc = seeded_module(gan.MultipleDiscriminator, 2, dev)
+
+    def adam(m):
+        return AdamW(m.parameters(), constant_lr(2e-4), b1=0.8, b2=0.99,
+                     weight_decay=0.0)
+    gstate = gan.GanTrainState(0, gen, disc, adam(gen), adam(disc))
+    disc_step, gen_step = gan.make_gan_train_step([lambda w: (
+        matcha_mel_spectrogram(w, sampling_rate=sr))])
+    (_, dm), ds, dpeak = train_timed(torch, lambda: disc_step(gstate,
+                                                              gbatch))
+    (_, gm), gs, gpeak = train_timed(torch, lambda: gen_step(gstate,
+                                                             gbatch))
+    gtrace = step_trace(torch, lambda: gen_step(gstate, gbatch), gs,
+                        profile=False)
+    dtrace = step_trace(torch, lambda: disc_step(gstate, gbatch), ds,
+                        profile=False)
+    ganr = dict(batch=b, seconds=seconds, mel_frames=int(mel.shape[1]),
+                gen_tflop=gtrace["tflop"],
+                gen_tflop_per_s=gtrace["tflop_per_s"],
+                disc_tflop=dtrace["tflop"],
+                disc_tflop_per_s=dtrace["tflop_per_s"],
+                disc_ms=ds * 1e3, gen_ms=gs * 1e3,
+                disc_peak_mem_gb=dpeak / 1e9, gen_peak_mem_gb=gpeak / 1e9,
+                audio_s_per_s=b * seconds / (ds + gs),
+                **{k: float(v) for k, v in {**dm, **gm}.items()},
+                gen_params=sum(p.numel() for p in gen.parameters()),
+                disc_params=sum(p.numel() for p in disc.parameters()))
+    if not all(np.isfinite(ganr[k]) for k in ("loss_disc", "loss",
+                                              "loss_gen", "loss_fm",
+                                              "loss_mel", "loss_f0")):
+        raise AssertionError(f"GAN train step: {ganr}")
+    out["gan"] = ganr
+    print("train gan", json.dumps(ganr), flush=True)
+    del gstate, gen, disc, gbatch
+
+    # the LM: CosyVoice2-0.5B width, f32, 2 x (60 text + 250 speech)
+    cfg = SpeechLMConfig()
+    b, n_text, n_speech = TRAIN_LM
+    rng = np.random.RandomState(10)
+
+    def ids(hi, n):
+        return torch.as_tensor(rng.randint(0, hi, (b, n))).to(dev)
+    lens = {k: torch.full((b,), n, device=dev) for k, n in (
+        ("text_token_len", n_text), ("speech_token_len", n_speech),
+        ("chosen_token_len", n_speech), ("rejected_token_len", n_speech))}
+    lbatch = {"text_token": ids(cfg.backbone.vocab_size, n_text),
+              "speech_token": ids(cfg.speech_token_size, n_speech),
+              "chosen_token": ids(cfg.speech_token_size, n_speech),
+              "rejected_token": ids(cfg.speech_token_size, n_speech), **lens}
+    model = seeded_lm(torch, cfg, 10, dev, torch.float32).train()
+    ref = copy.deepcopy(model).eval().requires_grad_(False)
+    lstate = TrainState(0, model, make_optimizer()(model.parameters()))
+    ce = lm_mod.make_lm_train_step()
+    dpo = lm_mod.make_dpo_train_step(ref, beta=0.01)
+    (_, cm), cs, cpeak = train_timed(torch, lambda: ce(lstate, lbatch))
+    (_, pm), ps, ppeak = train_timed(torch, lambda: dpo(lstate, lbatch))
+    n_params = sum(p.numel() for p in model.parameters())
+    ctrace = step_trace(torch, lambda: ce(lstate, lbatch), cs)
+    lmr = dict(batch=b, text=n_text, speech=n_speech, n_params=n_params,
+               ce_trace=ctrace,
+               adamw_state_gb=2 * 4 * n_params / 1e9,
+               ce_ms=cs * 1e3, dpo_ms=ps * 1e3,
+               ce_speech_tokens_per_s=b * n_speech / cs,
+               dpo_speech_tokens_per_s=2 * b * n_speech / ps,
+               ce_peak_mem_gb=cpeak / 1e9, dpo_peak_mem_gb=ppeak / 1e9,
+               ce_loss=float(cm["loss"]), acc=float(cm["acc"]),
+               dpo_loss=float(pm["loss"]),
+               reward_margin=float(pm["reward_margin"]), steps=lstate.step)
+    if not (np.isfinite(lmr["ce_loss"]) and np.isfinite(lmr["dpo_loss"])):
+        raise AssertionError(f"LM train step: {lmr}")
+    out["lm"] = lmr
+    print("train lm", json.dumps(lmr), flush=True)
+    del lstate, model, ref, lbatch
+
+    # the VQ: the GLM-4-Voice tokenizer, 2 x 10 s, the restart at the last
+    # timed step
+    vcfg = dataclasses.replace(glm4_voice_tokenizer_config(),
+                               quantize_restart_interval=1 + TRAIN_RUNS)
+    b, frames = TRAIN_VQ
+    enc = WhisperVQEncoder(vcfg)
+    enc.load_state_dict(codec_states(torch)[0], strict=True)
+    enc.to(dev).train()
+    rng = np.random.RandomState(5)
+    vmel = torch.as_tensor(rng.randn(b, frames, vcfg.num_mel_bins).astype(
+        np.float32)).to(dev)
+    vvalid = torch.ones((b, frames), dtype=torch.bool, device=dev)
+    # the EMA counts of a long run: they sum to the tokens of a step and
+    # spread over the codes log-normally (seed 5), so codes are dead by the
+    # restart as they become in training (a fresh state's counts are all 1)
+    n_tokens = b * frames // 8
+    share = torch.softmax(torch.as_tensor(2.0 * rng.randn(
+        vcfg.quantize_vocab_size).astype(np.float32)), 0)
+    vstate = [dataclasses.replace(vq.init_vq_state(enc.codebook),
+                                  ema_count=(n_tokens * share).to(dev))]
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def vq_step():
+        enc.zero_grad(set_to_none=True)
+        st = vstate[0]
+        hidden, q_st, tids, tv = enc.encode_train(vmel, vvalid, st.codebook)
+        loss = torch.mean(q_st ** 2) + vq.commit_loss(
+            hidden, st.codebook[tids], tv, vcfg)
+        loss.backward()
+        vstate[0] = vq.ema_update(st, hidden, tids, tv, vcfg, generator=g)
+        return loss.detach()
+    vloss, vs, vpeak = train_timed(torch, vq_step)
+    after = vstate[0]
+
+    def vq_fwd_bwd():
+        enc.zero_grad(set_to_none=True)
+        hidden, q_st, tids, tv = enc.encode_train(vmel, vvalid,
+                                                  after.codebook)
+        (torch.mean(q_st ** 2) + vq.commit_loss(
+            hidden, after.codebook[tids], tv, vcfg)).backward()
+    vtrace = step_trace(torch, vq_fwd_bwd, vs, profile=False)
+    restarted = float((after.ema_count == 1.0).float().mean())
+    vqr = dict(batch=b, mel_frames=frames, tokens=n_tokens,
+               ms=vs * 1e3, peak_mem_gb=vpeak / 1e9, loss=float(vloss),
+               tflop=vtrace["tflop"], tflop_per_s=vtrace["tflop_per_s"],
+               steps=after.steps,
+               restart_interval=vcfg.quantize_restart_interval,
+               restarted_share=restarted,
+               grad_norm=float(torch.sqrt(sum(
+                   (p.grad.float() ** 2).sum() for p in enc.parameters()
+                   if p.grad is not None))))
+    if not (np.isfinite(vqr["loss"]) and vqr["grad_norm"] > 0
+            and after.steps == 1 + TRAIN_RUNS):
+        raise AssertionError(f"VQ train step: {vqr}")
+    out["vq"] = vqr
+    print("train vq", json.dumps(vqr), flush=True)
+
+    launched = {c.__name__: c.launches for c in counters}
+    out["kernel_launches"] = launched
+    if any(launched.values()):
+        raise AssertionError(f"a train step launched a kernel: {launched}")
+    return out
+
+
+def grads_close(got: dict, want: dict) -> dict:
+    """Each gradient within ``TRAIN_GRAD_TOL`` of its own peak (plus
+    ``GRAD_NOISE`` of the largest peak); returns the worst ratio."""
+    top = max(float(np.abs(w).max()) for w in want.values())
+    worst = ("", 0.0)
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max())
+        ratio = err / (TRAIN_GRAD_TOL * float(np.abs(w).max())
+                       + GRAD_NOISE * top)
+        if ratio > worst[1]:
+            worst = (k, ratio)
+    return dict(worst_param=worst[0], worst_share_of_tol=worst[1],
+                ok=worst[1] <= 1.0)
+
+
+def cross_train_phase(torch, card: str = "cuda") -> dict:
+    """f32, the card against the CPU with the same draws: one flow loss
+    and its gradient (the estimator at ``CROSS_MID_BLOCKS``, 2 x 40
+    tokens, the encoder's dropout at 0.1 with masks drawn on the host),
+    and one HiFT generator loss and its gradient over 0.2 s."""
+    from moss_speech_decoder_cosy_torch.models.flow import (
+        CausalMaskedDiffWithXvec)
+    from moss_speech_decoder_cosy_torch.models.flow.flow import (
+        FlowLossDraws)
+    from moss_speech_decoder_cosy_torch.models.hift import HiFTGenerator
+    from moss_speech_decoder_cosy_torch.ops.dropout import Dropout
+    from moss_speech_decoder_cosy_torch.ops.melspec import (
+        matcha_mel_spectrogram)
+    from moss_speech_decoder_cosy_torch.training import gan
+    from moss_speech_decoder_cosy_torch.weights import seeded_module
+
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(
+        flash=False, mid_blocks=CROSS_MID_BLOCKS)
+    b, n_tok = 2, CROSS_TRAIN_TOKENS
+    n_mel = n_tok * flow_cfg.token_mel_ratio
+    rng = np.random.RandomState(7)
+    valid = np.ones((b, n_tok), bool)
+    valid[1, n_tok - 6:] = False
+    arrays = dict(
+        speech_token=rng.randint(0, flow_cfg.vocab_size, (b, n_tok)),
+        token_valid=valid,
+        speech_feat=rng.randn(b, n_mel, flow_cfg.output_size).astype(
+            np.float32),
+        feat_valid=np.repeat(valid, flow_cfg.token_mel_ratio, axis=1),
+        embedding=rng.randn(b, flow_cfg.spk_embed_dim).astype(np.float32))
+    draws = FlowLossDraws.draw((b, n_mel, flow_cfg.output_size),
+                               torch.Generator().manual_seed(8), "cpu")
+    res = {}
+    for dev in (card, "cpu"):
+        m = CausalMaskedDiffWithXvec(flow_cfg)
+        m.load_state_dict(flow_state, strict=True)
+        m.to(dev).train()
+        t = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+        d = FlowLossDraws(draws.prompt.to(dev), draws.keep.to(dev),
+                          type(draws.cfm)(*(x.to(dev) for x in (
+                              draws.cfm.t, draws.cfm.z, draws.cfm.cfg))))
+        loss = m.loss(t["speech_token"], t["token_valid"], t["speech_feat"],
+                      t["feat_valid"], t["embedding"], d,
+                      drop=Dropout(flow_cfg.encoder.dropout_rate,
+                                   torch.Generator().manual_seed(9)))
+        loss.backward()
+        res[dev] = (float(loss.detach()), {k: p.grad.cpu().numpy()
+                                  for k, p in m.named_parameters()})
+        del m
+    flow = dict(tokens=n_tok, mid_blocks=CROSS_MID_BLOCKS,
+                loss=res["cpu"][0], loss_card=res[card][0],
+                loss_rel_diff=abs(res[card][0] - res["cpu"][0])
+                / abs(res["cpu"][0]), loss_rtol=TRAIN_LOSS_RTOL,
+                grad_tol=TRAIN_GRAD_TOL,
+                **grads_close(res[card][1], res["cpu"][1]))
+    print("cross_train flow", json.dumps(flow), flush=True)
+
+    # HiFT: the generator's loss over 0.2 s, the NSF draws from the host
+    sr, up = hift_cfg.sampling_rate, hift_cfg.total_upsample
+    wav = torch.as_tensor(seeded_audio(CROSS_TRAIN_AUDIO_S, sr, 90)[None])
+    # the mel of the host's audio is the input on both devices
+    mel = matcha_mel_spectrogram(wav, num_mels=hift_cfg.in_channels,
+                                 sampling_rate=sr)
+    n_frames = min(mel.shape[1], wav.shape[1] // up)
+    mel, wav = mel[:, :n_frames], wav[:, :n_frames * up]
+    f0 = np.full((1, n_frames), 140.0, np.float32)
+    h = hift_cfg.nb_harmonics + 1
+    g = torch.Generator().manual_seed(11)
+    nsf = (torch.rand((1, h), generator=g),
+           torch.randn((1, n_frames * up, h), generator=g))
+    res = {}
+    for dev in (card, "cpu"):
+        gen = HiFTGenerator(hift_cfg)
+        gen.load_state_dict(hift_state, strict=True)
+        gen.to(dev).train()
+        disc = seeded_module(gan.MultipleDiscriminator, 12, dev)
+        batch = {"speech": wav.to(dev), "speech_feat": mel.to(dev),
+                 "pitch_feat": torch.as_tensor(f0).to(dev)}
+        loss, _ = gan.generator_objective(
+            gen, disc, batch, [lambda w: matcha_mel_spectrogram(
+                w, sampling_rate=sr)], tuple(x.to(dev) for x in nsf))
+        loss.backward()
+        res[dev] = (float(loss.detach()), {k: p.grad.cpu().numpy()
+                                  for k, p in gen.named_parameters()})
+        del gen, disc
+    hift = dict(seconds=CROSS_TRAIN_AUDIO_S, mel_frames=n_frames,
+                loss=res["cpu"][0], loss_card=res[card][0],
+                loss_rel_diff=abs(res[card][0] - res["cpu"][0])
+                / abs(res["cpu"][0]), loss_rtol=TRAIN_LOSS_RTOL,
+                grad_tol=TRAIN_GRAD_TOL,
+                **grads_close(res[card][1], res["cpu"][1]))
+    print("cross_train hift", json.dumps(hift), flush=True)
+    for name, r in (("flow", flow), ("HiFT generator", hift)):
+        if not (r["loss_rel_diff"] <= TRAIN_LOSS_RTOL and r["ok"]):
+            raise AssertionError(f"card and CPU {name} training losses or "
+                                 f"gradients disagree: {r}")
+    return {"flow": flow, "hift": hift}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -3552,6 +4064,9 @@ def main(argv=None) -> int:
     asr = phase("asr", asr_phase, torch)
     ev = phase("eval", eval_phase, torch, fa)
     data = phase("data", data_phase, torch)
+    train = phase("train", train_phase, torch,
+                  (fa.launch_flash_chunk_attention, fb.launch_fused_tf_group,
+                   fc.launch_fused_conformer_group))
 
     # 6. cross-device
     cross = phase("cross", cross_phase, torch)
@@ -3569,6 +4084,7 @@ def main(argv=None) -> int:
     cross["v1"] = phase("cross_v1", cross_v1_phase, torch)
     cross["asr"] = phase("cross_asr", cross_asr_phase, torch)
     cross["hift"] = phase("cross_hift", cross_hift_phase, torch)
+    cross["train"] = phase("cross_train", cross_train_phase, torch)
 
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
@@ -3594,6 +4110,8 @@ def main(argv=None) -> int:
         source=f"{PACKAGE}/csrc/flash_chunk_attention.cu",
         replaces="moss_speech_decoder_cosy_tpu/ops/pallas_attention.py:30",
         launches=sl["launches"], synth_launches=lmr["tts"]["flash_launches"],
+        train_launches=train["kernel_launches"][
+            "launch_flash_chunk_attention"],
         v1_launches=v1["f32"]["launches"],
         v1_stream_launches=v1["stream"]["launches"],
         eval_launches=ev["flash_launches"], v1_shapes=[
@@ -3611,6 +4129,7 @@ def main(argv=None) -> int:
         source=f"{PACKAGE}/csrc/fused_tf_group.cu",
         replaces="moss_speech_decoder_cosy_tpu/ops/pallas_block.py:158",
         launches=kv_sl["launches"],
+        train_launches=train["kernel_launches"]["launch_fused_tf_group"],
         max_abs_err=max(group_rec["max_abs_err"].values()),
         ms=group_rec["ms"], ms_warm_l2=group_rec["ms_warm_l2"],
         plain_ms=group_rec["plain_ms"],
@@ -3630,6 +4149,8 @@ def main(argv=None) -> int:
         source=f"{PACKAGE}/csrc/fused_conformer_group.cu",
         replaces="moss_speech_decoder_cosy_tpu/ops/pallas_conformer.py:57",
         launches=kv_sl["enc_kernel"]["launches"],
+        train_launches=train["kernel_launches"][
+            "launch_fused_conformer_group"],
         max_abs_err=max(conf_rec["max_abs_err"].values()),
         ms=conf_rec["ms"], ms_warm_l2=conf_rec["ms_warm_l2"],
         plain_ms=conf_rec["plain_ms"], bound_ms=conf_rec["bound_ms"],
@@ -3646,7 +4167,7 @@ def main(argv=None) -> int:
                  slice=sl, kv_slice=kv_sl, kv_api=api, kv_batch=kvb,
                  kv_quant=kvq, batcher=bat, windowed_device=win,
                  tokenizer=tok, serve=srv, lm=lmr, v1=v1, asr=asr,
-                 eval=ev, data=data, cross=cross),
+                 eval=ev, data=data, train=train, cross=cross),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -67,6 +67,11 @@ def tokenizer_config_from_json(path):
         max_source_positions=c.get("max_source_positions", 1500),
         causal_attention=c.get("encoder_causal_attention", True),
         quantize_causal_block_size=c.get("quantize_causal_block_size", 200),
+        quantize_ema_decay=c.get("quantize_ema_decay", 0.99),
+        quantize_commit_coefficient=c.get("quantize_commit_coefficient",
+                                          0.25),
+        quantize_loss_scale=c.get("quantize_loss_scale", 10.0),
+        quantize_restart_interval=c.get("quantize_restart_interval", 100),
         decoder_layers=c.get("decoder_layers", 4),
         decoder_attention_heads=c.get("decoder_attention_heads", 20),
         decoder_ffn_dim=c.get("decoder_ffn_dim", 5120),

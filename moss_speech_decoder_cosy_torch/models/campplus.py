@@ -16,7 +16,6 @@ A6).
 
 from __future__ import annotations
 
-import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -24,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.convs import Conv1d
+from ..ops.convs import Conv1d, Conv2d
 from ..ops.melspec import kaldi_fbank
 from ..utils.device import resolve_device
 
@@ -59,29 +58,6 @@ class BatchNorm(nn.Module):
                 * self.weight + self.bias)
 
 
-class Conv2d(nn.Module):
-    """torch-style Conv2d on (B, H, W, C) tensors, weight (O, I, KH, KW),
-    no bias."""
-
-    def __init__(self, in_channels: int, features: int,
-                 kernel_size: Tuple[int, int], stride=(1, 1),
-                 padding=(0, 0)):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty((features, in_channels)
-                                               + tuple(kernel_size)))
-        self.stride, self.padding = tuple(stride), tuple(padding)
-
-    def seed_init(self, name, shape, g):
-        """``weights.seeded_state``'s draw: lecun-normal weight."""
-        return torch.randn(shape, generator=g) * (
-            1.0 / math.sqrt(math.prod(shape[1:])))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, None, self.stride,
-                     self.padding)
-        return y.permute(0, 2, 3, 1)
-
-
 def _out_len(n: int, stride: int) -> int:
     """Length after a k3, pad-1 conv of ``stride``."""
     return (n - 1) // stride + 1
@@ -90,13 +66,16 @@ def _out_len(n: int, stride: int) -> int:
 class BasicResBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride=(1, 1)):
         super().__init__()
-        self.conv1 = Conv2d(in_planes, planes, (3, 3), stride, (1, 1))
+        self.conv1 = Conv2d(in_planes, planes, (3, 3), stride, (1, 1),
+                            use_bias=False)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = Conv2d(planes, planes, (3, 3), (1, 1), (1, 1))
+        self.conv2 = Conv2d(planes, planes, (3, 3), (1, 1), (1, 1),
+                            use_bias=False)
         self.bn2 = BatchNorm(planes)
         self.shortcut = tuple(stride) != (1, 1) or in_planes != planes
         if self.shortcut:
-            self.shortcut_conv = Conv2d(in_planes, planes, (1, 1), stride)
+            self.shortcut_conv = Conv2d(in_planes, planes, (1, 1), stride,
+                                        use_bias=False)
             self.shortcut_bn = BatchNorm(planes)
 
     def forward(self, x):                        # (B, F, T, C)
@@ -113,12 +92,12 @@ class FCM(nn.Module):
     def __init__(self, feat_dim: int = 80, m_channels: int = 32):
         super().__init__()
         m = m_channels
-        self.conv1 = Conv2d(1, m, (3, 3), (1, 1), (1, 1))
+        self.conv1 = Conv2d(1, m, (3, 3), (1, 1), (1, 1), use_bias=False)
         self.bn1 = BatchNorm(m)
         for i in range(2):
             self.add_module(f"block{i}a", BasicResBlock(m, m, (2, 1)))
             self.add_module(f"block{i}b", BasicResBlock(m, m))
-        self.conv2 = Conv2d(m, m, (3, 3), (2, 1), (1, 1))
+        self.conv2 = Conv2d(m, m, (3, 3), (2, 1), (1, 1), use_bias=False)
         self.bn2 = BatchNorm(m)
         f = feat_dim
         for _ in range(3):

@@ -1,6 +1,6 @@
-"""Conditional flow matching with a fixed-step Euler solver (inference),
-after the JAX package's ``models/flow/cfm.py`` (reference
-flow/flow_matching.py:199-230).
+"""Conditional flow matching with a fixed-step Euler solver, after the JAX
+package's ``models/flow/cfm.py`` (reference flow/flow_matching.py:
+158-230), and the OT-CFM training loss.
 
 - The noise is a fixed standard-normal buffer from
   ``np.random.RandomState(0)``, sliced to length, so streaming windows and
@@ -9,12 +9,15 @@ flow/flow_matching.py:199-230).
 - The Euler carry, the CFG combine and the t/dt schedule stay in f32
   (``solver_dtype="float32"``); the estimator runs in ``estimator_dtype``
   or the dtype of ``mu``.
+- ``compute_loss`` takes its random draws as a ``CFMDraws`` (from a
+  ``torch.Generator``, or the JAX package's own draws in the tests).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +37,25 @@ def _fixed_noise(max_len: int, dim: int) -> np.ndarray:
 def t_span_cosine(n_timesteps: int) -> np.ndarray:
     t = np.linspace(0.0, 1.0, n_timesteps + 1)
     return (1.0 - np.cos(t * 0.5 * np.pi)).astype(np.float32)
+
+
+@dataclasses.dataclass
+class CFMDraws:
+    """The OT-CFM loss's draws: ``t`` (B,) uniform in [0, 1) before the
+    t-scheduler, ``z`` (B, T, D) standard normal, ``cfg`` (B,) uniform in
+    [0, 1) (a row's conditioning is dropped where it is <=
+    ``training_cfg_rate``)."""
+    t: torch.Tensor
+    z: torch.Tensor
+    cfg: torch.Tensor
+
+    @classmethod
+    def draw(cls, shape: Tuple[int, int, int], generator: torch.Generator,
+             device) -> "CFMDraws":
+        b = shape[0]
+        return cls(t=torch.rand(b, generator=generator, device=device),
+                   z=torch.randn(shape, generator=generator, device=device),
+                   cfg=torch.rand(b, generator=generator, device=device))
 
 
 class CausalConditionalCFM(nn.Module):
@@ -101,3 +123,30 @@ class CausalConditionalCFM(nn.Module):
             x = self.euler_step(x, float(t_i), float(dt_i), mu_in, valid_in,
                                 spks_in, cond_in, streaming)
         return x.float()
+
+    def compute_loss(self, x1: torch.Tensor, valid: torch.Tensor,
+                     mu: torch.Tensor, spks: torch.Tensor,
+                     cond: torch.Tensor, draws: CFMDraws,
+                     streaming: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The OT-CFM loss (flow_matching.py:158-196): x1 the target mel
+        (B, T, n_mel), valid bool (B, T).  Returns (the masked MSE of the
+        predicted flow, the flow sample y)."""
+        c = self.cfg
+        d = x1.shape[-1]
+        tt = draws.t.to(x1.dtype)[:, None, None]
+        if c.t_scheduler == "cosine":
+            tt = 1.0 - torch.cos(tt * 0.5 * np.pi)
+        z = draws.z.to(x1.dtype)
+        y = (1.0 - (1.0 - c.sigma_min) * tt) * z + tt * x1
+        u = x1 - (1.0 - c.sigma_min) * z
+        if c.training_cfg_rate > 0:
+            keep = (draws.cfg > c.training_cfg_rate).to(x1.dtype)
+            mu = mu * keep[:, None, None]
+            spks = spks * keep[:, None]
+            cond = cond * keep[:, None, None]
+        pred = self.estimator(y, valid, mu, tt[:, 0, 0], spks, cond,
+                              streaming=streaming)
+        m = valid[..., None].to(x1.dtype)
+        loss = torch.sum(((pred - u) * m) ** 2) / (torch.sum(m) * d)
+        return loss, y

@@ -13,7 +13,7 @@ which the CosyVoice-v1 encoders (``flow_v1.py``) may enable.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +26,9 @@ from ...ops.embeddings import espnet_rel_pos, wenet_rel_pos
 from ...ops.masks import chunk_attention_mask
 from ...ops.norms import LayerNorm
 from ...utils.config import EncoderConfig
+
+# a dropout (``ops/dropout.Dropout``) in the training forward, else None
+Drop = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 class LinearEmbed(nn.Module):
@@ -41,8 +44,10 @@ class LinearEmbed(nn.Module):
         self.linear = nn.Linear(in_features, output_size)
         self.norm = LayerNorm(output_size, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Drop = None) -> torch.Tensor:
         x = self.norm(self.linear(x))
+        if drop is not None:
+            x = drop(x)
         if self.relu:
             x = F.relu(x)
         # a device fill, not an upload, so a captured step can run it
@@ -139,8 +144,9 @@ class FeedForward(nn.Module):
         self.w_2 = nn.Linear(hidden, dim)
         self.act = get_activation(activation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(self.act(self.w_1(x)))
+    def forward(self, x: torch.Tensor, drop: Drop = None) -> torch.Tensor:
+        h = self.act(self.w_1(x))
+        return self.w_2(h if drop is None else drop(h))
 
 
 class ConformerEncoderLayer(nn.Module):
@@ -171,15 +177,17 @@ class ConformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
                 pos_emb: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``pad_mask`` bool (B, T), needed only by the conv module."""
+                pad_mask: Optional[torch.Tensor] = None,
+                drop: Drop = None) -> torch.Tensor:
+        """``pad_mask`` bool (B, T), needed only by the conv module;
+        ``drop`` the feed-forwards' dropout (training)."""
         if self.macaron:
-            x = x + 0.5 * self.ff_macaron(self.norm_ff_macaron(x))
+            x = x + 0.5 * self.ff_macaron(self.norm_ff_macaron(x), drop)
         x = x + self.self_attn(self.norm_mha(x), pos_emb, attn_mask)
         if self.conv:
             x = x + self.conv_module(self.norm_conv(x), pad_mask)
         x = x + (0.5 if self.macaron else 1.0) * self.feed_forward(
-            self.norm_ff(x))
+            self.norm_ff(x), drop)
         return self.norm_final(x) if self.conv else x
 
 
@@ -224,29 +232,31 @@ class UpsampleConformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
-                streaming: bool = False
+                streaming: bool = False, drop: Drop = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: embedded tokens (B, T, input_size); valid bool (B, T).
+        """x: embedded tokens (B, T, input_size); valid bool (B, T);
+        ``drop`` the training forward's dropout (the embeddings and the
+        feed-forwards, as the JAX package places it).
         Returns (features (B, T*stride, output_size), valid_up)."""
         c = self.cfg
         t = x.shape[1]
-        x = self.embed(x)
+        x = self.embed(x, drop)
         pos = self._rel_pos(t, x.device).to(x.dtype)
         if context is not None:
-            context = self.embed(context)
+            context = self.embed(context, drop)
         chunk = c.static_chunk_size if streaming else 0
         attn_mask = chunk_attention_mask(valid, chunk)
 
         x = self.pre_lookahead_layer(x, context)
         for layer in self.encoders:
-            x = layer(x, attn_mask, pos, valid)
+            x = layer(x, attn_mask, pos, valid, drop)
 
         x = self.up_layer(x)
         valid_up = torch.repeat_interleave(valid, c.upsample_stride, dim=1)
-        x = self.up_embed(x)
+        x = self.up_embed(x, drop)
         pos_up = self._rel_pos(t * c.upsample_stride, x.device).to(x.dtype)
         attn_mask_up = chunk_attention_mask(
             valid_up, chunk * c.upsample_stride if streaming else 0)
         for layer in self.up_encoders:
-            x = layer(x, attn_mask_up, pos_up, valid_up)
+            x = layer(x, attn_mask_up, pos_up, valid_up, drop)
         return self.after_norm(x), valid_up

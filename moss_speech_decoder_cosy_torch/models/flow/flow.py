@@ -1,20 +1,41 @@
-"""CausalMaskedDiffWithXvec inference: speech tokens -> mel by conditional
-flow matching, after the JAX package's ``models/flow/flow.py`` (reference
-cosyvoice/flow/flow.py:151-283).  A pure function of (tokens, valid mask,
-prompt mel, speaker embedding) with ``streaming``/``finalize`` flags; the
-pipeline owns all session state.
+"""CausalMaskedDiffWithXvec: speech tokens -> mel by conditional flow
+matching, after the JAX package's ``models/flow/flow.py`` (reference
+cosyvoice/flow/flow.py:151-283).  Inference is a pure function of (tokens,
+valid mask, prompt mel, speaker embedding) with ``streaming``/``finalize``
+flags; the pipeline owns all session state.  ``loss`` is the training
+objective, its random draws passed in (``FlowLossDraws``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 from torch import nn
 
-from .cfm import CausalConditionalCFM
-from .encoder import UpsampleConformerEncoder
+from .cfm import CausalConditionalCFM, CFMDraws
+from .encoder import Drop, UpsampleConformerEncoder
 from ...utils.config import FlowConfig
+
+
+@dataclasses.dataclass
+class FlowLossDraws:
+    """The flow loss's draws: ``prompt`` (B,) uniform in [0, 1), the
+    prompt prefix as a share of 0.3 of each row's frames; ``keep`` (B,)
+    bool, the prefix kept (probability 0.5); the CFM loss's ``cfm``."""
+    prompt: torch.Tensor
+    keep: torch.Tensor
+    cfm: CFMDraws
+
+    @classmethod
+    def draw(cls, feat_shape: Tuple[int, int, int],
+             generator: torch.Generator, device) -> "FlowLossDraws":
+        b = feat_shape[0]
+        return cls(prompt=torch.rand(b, generator=generator, device=device),
+                   keep=torch.rand(b, generator=generator,
+                                   device=device) < 0.5,
+                   cfm=CFMDraws.draw(feat_shape, generator, device))
 
 
 class CausalMaskedDiffWithXvec(nn.Module):
@@ -72,3 +93,28 @@ class CausalMaskedDiffWithXvec(nn.Module):
         conds[:, :p] = prompt_feat.to(mu.dtype)
         return self.decoder(mu, mel_valid, spks=spks, cond=conds,
                             streaming=streaming)
+
+    def loss(self, token: torch.Tensor, token_valid: torch.Tensor,
+             feat: torch.Tensor, feat_valid: torch.Tensor,
+             embedding: torch.Tensor, draws: FlowLossDraws,
+             drop: Drop = None, streaming: bool = True) -> torch.Tensor:
+        """The training objective (reference flow.py:189-235): unified
+        streaming training, a random prompt prefix of the target mel as the
+        condition, dropped for half the rows.  ``drop``: the encoder's
+        dropout.  feat (B, Tm, n_mel) with Tm = tokens x token_mel_ratio."""
+        tm = feat.shape[1]
+        spks = self._spk(embedding)
+        h, mel_valid = self.encoder(self._embed_tokens(token, token_valid),
+                                    token_valid, streaming=streaming,
+                                    drop=drop)
+        mu = self.encoder_proj(h)
+        mel_valid = mel_valid & feat_valid
+        lens = feat_valid.sum(dim=1)
+        idx = (draws.prompt * 0.3 * lens).to(torch.int32)
+        pos = torch.arange(tm, device=feat.device)[None, :]
+        cond_mask = (pos < idx[:, None]) & draws.keep[:, None]
+        conds = feat * cond_mask[..., None].to(feat.dtype)
+        loss, _ = self.decoder.compute_loss(feat, mel_valid, mu[:, :tm], spks,
+                                            conds, draws.cfm,
+                                            streaming=streaming)
+        return loss

@@ -1,5 +1,5 @@
 """v-prediction diffusion flow (the cosyvoice1 GradTTS / stable-audio fork),
-after the JAX package's ``models/flow/vdiff.py``: inference only.
+after the JAX package's ``models/flow/vdiff.py``.
 
 - ``VDiffusion``: the DDIM-style v-diffusion sampler
   (cosyvoice1/flow/stable/sampling.py:48-88) over the rotary DiT of
@@ -9,13 +9,16 @@ after the JAX package's ``models/flow/vdiff.py``: inference only.
 - ``GradTTSDiffWithXvec`` (cosyvoice1/flow/flow_gradtts.py:24-142): the v1
   token encoder and interpolating length regulator feeding the sampler.
 
-The v-objective training loss and the Sobol timestep draws are training
-(ROADMAP A14).
+Training: the v-objective loss (``VDiffusion.compute_loss``,
+``GradTTSDiffWithXvec.loss``; stable_diffusion.py:71-93), its draws passed
+in as ``VDiffDraws``, and the scrambled Sobol timestep draws
+(``sobol_times``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +54,33 @@ def ddim_tables(n_timesteps: int, eta: float):
     return f32(t), f32(alphas), f32(sigmas), a_next, f32(adj), f32(ddim)
 
 
+def sobol_times(n: int, seed: int = 0) -> np.ndarray:
+    """Scrambled Sobol timestep draws (stable_diffusion.py:57's SobolEngine
+    role), host-side, for ``VDiffDraws.t``."""
+    from scipy.stats import qmc
+    return qmc.Sobol(1, scramble=True, seed=seed).random(n)[:, 0] \
+        .astype(np.float32)
+
+
+@dataclasses.dataclass
+class VDiffDraws:
+    """The v-objective loss's draws: ``t`` (B,) timesteps in [0, 1)
+    (uniform or ``sobol_times``), ``eps`` (B, T, D) standard normal,
+    ``cfg`` (B,) uniform (a row's conditioning is dropped where it is <=
+    the dropout probability)."""
+    t: torch.Tensor
+    eps: torch.Tensor
+    cfg: torch.Tensor
+
+    @classmethod
+    def draw(cls, shape: Tuple[int, int, int], generator: torch.Generator,
+             device) -> "VDiffDraws":
+        b = shape[0]
+        return cls(t=torch.rand(b, generator=generator, device=device),
+                   eps=torch.randn(shape, generator=generator, device=device),
+                   cfg=torch.rand(b, generator=generator, device=device))
+
+
 class VDiffusion(nn.Module):
     """v-objective diffusion over a rotary DiT (stable_diffusion.py:28-110);
     CFG as a batch of 2 when ``inference_cfg_rate > 0``."""
@@ -60,6 +90,31 @@ class VDiffusion(nn.Module):
         self.dit = dit
         self.inference_cfg_rate = inference_cfg_rate
         self.estimator = DiTEstimator(dit)
+
+    def compute_loss(self, x0: torch.Tensor, valid: torch.Tensor,
+                     mu: torch.Tensor, spks: torch.Tensor,
+                     cond: torch.Tensor, draws: VDiffDraws,
+                     cfg_dropout_prob: float = 0.1
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Masked MSE on v = eps alpha - x0 sigma (stable_diffusion.py:
+        71-93); returns (loss, predicted v)."""
+        d = x0.shape[-1]
+        t = draws.t.to(x0.dtype)
+        alphas = torch.cos(t * np.pi / 2)[:, None, None]
+        sigmas = torch.sin(t * np.pi / 2)[:, None, None]
+        eps = draws.eps.to(x0.dtype)
+        noised = x0 * alphas + eps * sigmas
+        target = eps * alphas - x0 * sigmas
+        if cfg_dropout_prob > 0:
+            keep = (draws.cfg > cfg_dropout_prob).to(x0.dtype)
+            mu = mu * keep[:, None, None]
+            spks = spks * keep[:, None]
+            cond = cond * keep[:, None, None]
+        v = self.estimator(noised, valid, mu, t, spks, cond)
+        m = valid[..., None].to(x0.dtype)
+        loss = torch.sum(((v - target) * m) ** 2) / torch.clamp(
+            torch.sum(m) * d, min=1.0)
+        return loss, v
 
     def forward(self, mu: torch.Tensor, valid: torch.Tensor,
                 spks: torch.Tensor, cond: torch.Tensor,
@@ -133,18 +188,24 @@ class GradTTSDiffWithXvec(nn.Module):
         return int(n_tokens / self.cfg.input_frame_rate
                    * self.sample_rate / self.hop)
 
+    def _front(self, token: torch.Tensor, valid: torch.Tensor,
+               embedding: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(encoded tokens (B, T, d), speaker projection (B, d))."""
+        norm = torch.linalg.vector_norm(embedding, dim=-1, keepdim=True)
+        spks = self.spk_embed_affine_layer(
+            embedding / torch.clamp(norm, min=1e-12))
+        x = self.input_embedding(torch.clamp(token.long(), min=0))
+        x = x * valid[..., None].to(x.dtype)
+        return self.encoder_proj(self.encoder(x, valid)), spks
+
     def inference(self, token: torch.Tensor, valid: torch.Tensor,
                   prompt_feat: torch.Tensor, embedding: torch.Tensor,
                   mel_len: int, n_timesteps: int = 10,
                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``token`` holds the prompt's tokens first (flow_gradtts.py:
         101-142); returns the mel after the prompt's frames, f32."""
-        norm = torch.linalg.vector_norm(embedding, dim=-1, keepdim=True)
-        spks = self.spk_embed_affine_layer(
-            embedding / torch.clamp(norm, min=1e-12))
-        x = self.input_embedding(torch.clamp(token.long(), min=0))
-        x = x * valid[..., None].to(x.dtype)
-        h = self.encoder_proj(self.encoder(x, valid))
+        h, spks = self._front(token, valid, embedding)
         h = self.length_regulator(h, mel_len)
         p = prompt_feat.shape[1]
         cond = torch.zeros((h.shape[0], mel_len, self.cfg.output_size),
@@ -155,3 +216,15 @@ class GradTTSDiffWithXvec(nn.Module):
         mel = self.decoder(h, feat_valid, spks, cond,
                            n_timesteps=n_timesteps, noise=noise)
         return mel[:, p:]
+
+    def loss(self, token: torch.Tensor, token_valid: torch.Tensor,
+             feat: torch.Tensor, feat_valid: torch.Tensor,
+             embedding: torch.Tensor, draws: VDiffDraws) -> torch.Tensor:
+        """The training objective (flow_gradtts.py:55-99): the condition is
+        zeros (the reference's prompt-prefix conditioning is commented
+        out)."""
+        h, spks = self._front(token, token_valid, embedding)
+        h = self.length_regulator(h, feat.shape[1])
+        loss, _ = self.decoder.compute_loss(feat, feat_valid, h, spks,
+                                            torch.zeros_like(feat), draws)
+        return loss

@@ -303,6 +303,21 @@ class HiFTGenerator(nn.Module):
                                mel.device)
         return self.m_source(s, *draws)
 
+    def forward_train(self, mel: torch.Tensor,
+                      draws: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                      = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (reference generator.py:555-568): (wav,
+        f0), the gradient reaching the f0 predictor through the source.
+        ``draws``: the NSF source's (rand_ini, noise), default
+        ``self.draws``."""
+        f0 = self.f0_predictor(mel)
+        s = torch.repeat_interleave(f0[:, :, None], self.cfg.total_upsample,
+                                    dim=1)
+        if draws is None:
+            draws = self.draws(self.cfg.nb_harmonics + 1, s.shape[1],
+                               mel.device)
+        return self.decode(mel, self.m_source(s, *draws)), f0
+
     def forward(self, mel: torch.Tensor,
                 cache_source: Optional[torch.Tensor] = None,
                 draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None

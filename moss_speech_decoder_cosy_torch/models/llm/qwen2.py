@@ -367,6 +367,23 @@ class Qwen2Model(nn.Module):
         lengths += 1 if advance is None else advance.long()
         return x, cache
 
+    def forward_causal(self, embeds: torch.Tensor) -> torch.Tensor:
+        """The training forward: causal attention over ``embeds`` (B, T, D)
+        at positions 0..T-1 with no cache (autograd records no in-place
+        write, and no ``max_seq_len``-slot cache is allocated); the hidden
+        states (B, T, D), equal to ``forward_embeds`` on a fresh cache."""
+        t = embeds.shape[1]
+        positions = torch.arange(t, device=embeds.device)
+        bias = _bias(positions[None, :] <= positions[:, None])[None, None]
+        cos, sin = _angles(positions, self.cfg, embeds.dtype)
+        x = embeds
+        for layer in self.layers:
+            h = layer.input_layernorm(x)
+            k, v = layer.kv(h, cos, sin)
+            x = x + layer.attend(h, cos, sin, k, v, bias)
+            x = x + layer.mlp(x)
+        return self.norm(x)
+
     def forward_embeds(self, embeds: torch.Tensor, cache: KVCache,
                        n_valid: Optional[Index] = None
                        ) -> Tuple[torch.Tensor, KVCache]:

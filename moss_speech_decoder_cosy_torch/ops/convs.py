@@ -1,12 +1,13 @@
-"""1-D convolutions on feature-last (B, T, C) tensors, after the JAX
-package's ``ops/convs.py``.
+"""Convolutions on feature-last tensors, (B, T, C) and ``Conv2d``'s
+(B, H, W, C), after the JAX package's ``ops/convs.py``.
 
 Parameters are in torch layout: ``Conv1d`` weight (O, I/groups, K),
-``ConvTranspose1d`` weight (I, O, K).  With ``weight_norm=True`` the
-direction ``v`` and gain ``g`` stay two parameters and the kernel is
-``g * v / max(||v||, 1e-12)`` (torch ``weight_norm(dim=0)``): the norm runs
-over (I, K) per output channel for ``Conv1d`` and over (O, K) per input
-channel for ``ConvTranspose1d``.
+``ConvTranspose1d`` weight (I, O, K), ``Conv2d`` weight (O, I, KH, KW).
+With ``weight_norm=True`` the direction ``v`` and gain ``g`` stay two
+parameters and the kernel is ``g * v / max(||v||, 1e-12)`` (torch
+``weight_norm(dim=0)``): the norm runs over all but the first axis, (I, K)
+per output channel for ``Conv1d``, (O, K) per input channel for
+``ConvTranspose1d``, (I, KH, KW) per output channel for ``Conv2d``.
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ from torch import nn
 
 def _weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """kernel = g * v / max(||v||, 1e-12), norm over all but axis 0."""
-    norm = torch.sqrt(torch.sum(v * v, dim=(1, 2), keepdim=True))
-    return v * (g[:, None, None] / torch.clamp(norm, min=1e-12))
+    rest = tuple(range(1, v.dim()))
+    norm = torch.sqrt(torch.sum(v * v, dim=rest, keepdim=True))
+    return v * (g.view((-1,) + (1,) * len(rest))
+                / torch.clamp(norm, min=1e-12))
 
 
 class _WeightedConv(nn.Module):
     """Holds ``weight`` or (``v``, ``g``) of a given shape, plus ``bias``."""
 
-    def __init__(self, shape: Tuple[int, int, int], bias_features: int,
+    def __init__(self, shape: Tuple[int, ...], bias_features: int,
                  use_bias: bool, weight_norm: bool):
         super().__init__()
         self.weight_norm = weight_norm
@@ -106,3 +109,20 @@ class ConvTranspose1d(_WeightedConv):
         y = F.conv_transpose1d(x.transpose(1, 2), self.kernel(), self.bias,
                                stride=self.stride, padding=self.padding)
         return y.transpose(1, 2)
+
+
+class Conv2d(_WeightedConv):
+    """torch-style Conv2d on (B, H, W, C_in) -> (B, H', W', C_out), symmetric
+    integer padding per axis."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Tuple[int, int], stride=(1, 1), padding=(0, 0),
+                 use_bias: bool = True, weight_norm: bool = False):
+        super().__init__((features, in_channels) + tuple(kernel_size),
+                         features, use_bias, weight_norm)
+        self.stride, self.padding = tuple(stride), tuple(padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.kernel(), self.bias,
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)

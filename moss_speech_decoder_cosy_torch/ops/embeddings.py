@@ -61,7 +61,8 @@ def _table(kind: str, d_model: int, length: int, device) -> torch.Tensor:
     """The ``kind`` table ("rel" or "abs") of at least ``length`` positions
     on ``device``, uploaded once and regrown by doubling, so a step captured
     in a CUDA graph slices it with no upload.  A position's entry does not
-    depend on the table's length."""
+    depend on the table's length.  The table is a normal tensor even when
+    inference mode builds it, so a training forward may use it too."""
     key = (kind, d_model, str(torch.device(device or "cpu")))
     got = _ON_DEVICE.get(key)
     if got is None or got[0] < length:
@@ -69,8 +70,9 @@ def _table(kind: str, d_model: int, length: int, device) -> torch.Tensor:
             _REPLACED.append(got[1])
         n = max(length, 16, 2 * got[0] if got else 0)
         make = _rel_pe_table if kind == "rel" else _abs_pe_table
-        got = _ON_DEVICE[key] = (n, torch.from_numpy(make(d_model, n)).to(
-            device or "cpu"))
+        with torch.inference_mode(False):
+            got = _ON_DEVICE[key] = (n, torch.from_numpy(
+                make(d_model, n)).to(device or "cpu"))
     return got[1]
 
 

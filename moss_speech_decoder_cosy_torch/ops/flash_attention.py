@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
+from .autograd_guard import forbid_autograd
 
 _NEG = -1.0e30
 KERNEL_HEAD_DIM = 64
@@ -142,6 +143,8 @@ def flash_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           valid_len: Optional[int] = None) -> torch.Tensor:
     """q/k/v (B, H, T, dk) -> (B, H, T, dk); chunk_size 0 = full attention,
     ``valid_len`` masks keys >= valid_len."""
+    forbid_autograd("flash_chunk_attention",
+                               "use_flash_attention", q, k, v)
     _check(q, k, v, 4)
     b, h, t, _ = q.shape
     vl = _valid_len(t, valid_len)
@@ -160,6 +163,8 @@ def flash_chunk_attention_fl(q: torch.Tensor, k: torch.Tensor,
                              ) -> torch.Tensor:
     """Feature-last entry: q/k/v (B, T, H*dk) -> (B, T, H*dk), no
     transposes on the CUDA path."""
+    forbid_autograd("flash_chunk_attention_fl",
+                               "use_flash_attention", q, k, v)
     _check(q, k, v, 3)
     b, t, hd = q.shape
     if hd % heads:

@@ -64,6 +64,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from . import cuda_build
+from .autograd_guard import forbid_autograd
 from ..utils.flops import fused_tf_group_flops, kernel_flops
 
 _NEG = -1.0e10
@@ -453,6 +454,8 @@ def fused_tf_group(p: Dict[str, torch.Tensor], rp_: Dict[str, torch.Tensor],
 
     Returns (x_out (rows, cf, ch), rings, cc1_new, cc2_new); the conv
     caches come back unmasked."""
+    forbid_autograd("fused_tf_group", "kernel", p, rp_, mt, cc1,
+                               cc2, x, rings)
     _check(p, rp_, mt, cc1, cc2, x, rings, scal, offset, heads, head_dim,
            act_fn)
     rows, cf, cin = x.shape

@@ -59,6 +59,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import cuda_build
+from .autograd_guard import forbid_autograd
 from ..utils.flops import fused_conformer_group_flops, kernel_flops
 # kernel_tolerance: the fused group's rule (f32 2e-5, four bf16 ulps of the
 # largest output), which holds here for the same reasons
@@ -305,6 +306,8 @@ def fused_conformer_group(p: Dict[str, torch.Tensor], x: torch.Tensor,
     when C > Rt.
 
     Returns (x_out (1, C, D), ring_kv, ring_pk)."""
+    forbid_autograd("fused_conformer_group", "enc_kernel", p, x,
+                               pos_emb, ring_kv, ring_pk)
     if not torch.is_tensor(n_tok):
         n_tok = int(n_tok)
     _check(p, x, pos_emb, ring_kv, ring_pk, n_tok, heads, head_dim, act_fn)

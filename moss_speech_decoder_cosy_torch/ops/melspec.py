@@ -34,7 +34,7 @@ def matcha_mel_spectrogram(wav: torch.Tensor, n_fft: int = 1920,
     """wav (B, L) -> log-mel (B, T, num_mels), T = (L - hop) // hop + 1
     after (n_fft - hop) / 2 reflect padding on both sides."""
     pad = (n_fft - hop_size) // 2
-    x = F.pad(wav.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    x = stft_ops.reflect_pad(wav.float(), pad)
     real, imag = stft_ops.stft(x, n_fft, hop_size,
                                _hann(win_size), center=False)
     mag = torch.sqrt(real * real + imag * imag + 1e-9)

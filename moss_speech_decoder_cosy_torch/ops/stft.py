@@ -55,11 +55,13 @@ _ON_DEVICE: Dict[Tuple[int, str], Tuple[np.ndarray, torch.Tensor]] = {}
 def _t(a: np.ndarray, device) -> torch.Tensor:
     """``a`` (a window or a DFT basis) on ``device``, uploaded once per
     array and device, so a vocoder step captured in a CUDA graph uploads
-    nothing."""
+    nothing; a normal tensor even when inference mode uploads it, so a
+    training forward may use it too."""
     key = (id(a), str(torch.device(device)))
     got = _ON_DEVICE.get(key)
     if got is None or got[0] is not a:
-        got = _ON_DEVICE[key] = (a, torch.from_numpy(a).to(device))
+        with torch.inference_mode(False):
+            got = _ON_DEVICE[key] = (a, torch.from_numpy(a).to(device))
     return got[1]
 
 
@@ -68,8 +70,21 @@ def frame(x: torch.Tensor, n_fft: int, hop: int,
     """(B, L) -> (B, T, n_fft) frames, torch.stft framing (``center``:
     n_fft // 2 reflect padding on both sides)."""
     if center:
-        x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+        x = reflect_pad(x, n_fft // 2)
     return x.unfold(-1, n_fft, hop)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, L) reflect-padded by ``pad`` on both sides; a pad of L or more
+    reflects again at each end (numpy's and the JAX package's ``reflect``,
+    where ``F.pad`` refuses it)."""
+    n = x.shape[-1]
+    if pad < n:
+        return F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    period = 2 * (n - 1)
+    idx = np.arange(-pad, n + pad) % period
+    idx = np.where(idx >= n, period - idx, idx)
+    return x[:, torch.as_tensor(idx, device=x.device)]
 
 
 def stft(x: torch.Tensor, n_fft: int, hop: int, window: np.ndarray,

@@ -7,7 +7,8 @@ fully causal attention and causal convs, average pooling by 4 and the VQ
 after layer 16, a codebook of 16384; the ASR head's post-VQ encoder layers
 and Whisper decoder (``tokenizer/asr_decoder.py``; quantize_encoder_only
 checkpoints ship without it, config.json:55).  Only the fields the port
-reads are here: the EMA codebook's training knobs come with the trainer.
+reads are here, the EMA codebook's training knobs (``training/vq.py``)
+among them.
 """
 
 from __future__ import annotations
@@ -28,6 +29,11 @@ class WhisperVQConfig:
     max_source_positions: int = 1500     # post-conv positions (30 s)
     causal_attention: bool = True
     quantize_causal_block_size: int = 200  # used when causal_attention=False
+    # the EMA codebook's training (training/vq.py)
+    quantize_ema_decay: float = 0.99
+    quantize_commit_coefficient: float = 0.25
+    quantize_loss_scale: float = 10.0
+    quantize_restart_interval: int = 100
     # the ASR supervision head
     decoder_layers: int = 4
     decoder_attention_heads: int = 20

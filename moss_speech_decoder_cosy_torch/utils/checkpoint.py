@@ -5,7 +5,9 @@ tokenizer (speech_tokenizer/utils.py:18-38) with its ASR head (the post-VQ
 layers and the Whisper decoder), CAM++ (``campplus.onnx``
 initializers or a ``campplus.pt`` state dict) and the LMs (an HF Qwen2,
 CosyVoice2's and CosyVoice v1's ``llm.pt``), after the JAX package's
-``utils/checkpoint.py``.
+``utils/checkpoint.py``; and the trainer's own checkpoints
+(``save_checkpoint``, ``AsyncCheckpointManager``, ``shape_filtered_merge``;
+torch files where the JAX package writes orbax directories).
 
 The port's modules carry the JAX package's parameter names (``weights.py``),
 so a reference tensor maps onto a port key straight, with no detour through
@@ -27,8 +29,11 @@ tensor converts to float32, as ``weights.py`` does.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import struct
-from typing import Dict, List, Mapping, Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -695,3 +700,158 @@ def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
         sd = sd["state_dict"]
     return {k: (v.float() if v.dtype == torch.bfloat16 else v
                 ).detach().numpy() for k, v in sd.items()}
+
+
+# ------------------------------------------------------------- native IO
+# A checkpoint is a directory holding the tree (nested dicts of tensors:
+# state dicts, optimizer states) as one torch file, and ``metadata.json``.
+STATE_FILE = "state.pt"
+META_FILE = "metadata.json"
+
+
+def _to_cpu(tree):
+    """A copy of ``tree`` with every tensor detached onto the CPU."""
+    if isinstance(tree, Mapping):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _write(path: str, tree, metadata: Optional[dict]) -> None:
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(tree, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if metadata:
+        with open(os.path.join(path, META_FILE), "w") as f:
+            json.dump(metadata, f, indent=2)
+
+
+def save_checkpoint(path, tree, metadata: Optional[dict] = None) -> None:
+    """Writes ``tree`` (copied to the CPU) and ``metadata`` under the
+    directory ``path``."""
+    _write(os.path.abspath(path), _to_cpu(tree), metadata)
+
+
+def load_checkpoint(path, map_location="cpu"):
+    """The tree ``save_checkpoint`` wrote under ``path``."""
+    return torch.load(os.path.join(path, STATE_FILE),
+                      map_location=map_location, weights_only=True)
+
+
+def load_metadata(path) -> dict:
+    """``path``'s metadata ({} when it has none)."""
+    meta = os.path.join(path, META_FILE)
+    if not os.path.exists(meta):
+        return {}
+    with open(meta) as f:
+        return json.load(f)
+
+
+class AsyncCheckpointManager:
+    """Checkpoints written in the background while training goes on, with
+    a keep-latest retention: ``save(step, tree)`` copies the tree to the
+    CPU at once and writes ``root/{prefix}{step}`` on a writer thread
+    (into a temporary directory renamed when complete, so ``steps()`` sees
+    only whole checkpoints); after each write, the directories beyond the
+    newest ``keep`` are deleted.  Call ``wait()`` before exit: it raises a
+    failed write's error."""
+
+    def __init__(self, root, keep: int = 3, prefix: str = "step_"):
+        self.root = os.path.abspath(root)
+        self.keep = keep
+        self.prefix = prefix
+        os.makedirs(self.root, exist_ok=True)
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending: List[Future] = []
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.root, f"{self.prefix}{step}")
+
+    def _commit(self, step: int, tree, metadata: Optional[dict]) -> None:
+        tmp = self._dir(step) + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        _write(tmp, tree, {"step": step, **metadata} if metadata else None)
+        shutil.rmtree(self._dir(step), ignore_errors=True)
+        os.rename(tmp, self._dir(step))
+        self.gc()
+
+    def save(self, step: int, tree, metadata: Optional[dict] = None) -> None:
+        self._pending.append(self._pool.submit(self._commit, step,
+                                               _to_cpu(tree), metadata))
+
+    def steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.root):
+            if name.startswith(self.prefix):
+                try:
+                    out.append(int(name[len(self.prefix):]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def gc(self) -> None:
+        """Deletes all but the newest ``keep`` committed checkpoints."""
+        for step in self.steps()[: -self.keep or None]:
+            shutil.rmtree(self._dir(step), ignore_errors=True)
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
+        self.gc()
+
+    def latest(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore_latest(self, map_location="cpu"):
+        """(tree, step) of the newest committed checkpoint, or (None,
+        None)."""
+        step = self.latest()
+        if step is None:
+            return None, None
+        return load_checkpoint(self._dir(step), map_location), step
+
+    def close(self) -> None:
+        self.wait()
+        self._pool.shutdown()
+
+
+def _flatten(tree: Mapping, prefix: Tuple = ()) -> Dict[Tuple, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _unflatten(flat: Mapping[Tuple, Any]) -> Dict:
+    out: Dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def shape_filtered_merge(params: Mapping, loaded: Mapping
+                         ) -> Tuple[Dict, List[str]]:
+    """A partial restore that keeps ``params``' leaf where ``loaded`` has
+    none of the same path and shape, reporting those paths of ``loaded``
+    ("/"-joined) it skipped (the reference's shape-filtered load,
+    bin/train.py:149-169).  Trees are nested mappings; a state dict is
+    one level."""
+    flat_p, flat_l = _flatten(params), _flatten(loaded)
+    out = dict(flat_p)
+    skipped = []
+    for k, v in flat_l.items():
+        if k in flat_p and tuple(np.shape(flat_p[k])) == tuple(np.shape(v)):
+            out[k] = v
+        else:
+            skipped.append("/".join(map(str, k)))
+    return _unflatten(out), skipped

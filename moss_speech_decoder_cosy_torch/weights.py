@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .ops.convs import Conv1d, ConvTranspose1d
+from .ops.convs import Conv1d, Conv2d, ConvTranspose1d
 from .ops.norms import GroupNorm, LayerNorm
 
 _SAME = {"bias", "g", "alpha", "pos_bias_u", "pos_bias_v"}
@@ -168,6 +168,13 @@ def campplus_state_from_jax(params: Mapping[str, Any]
                                                 "var": "running_var"})
 
 
+# JAX ``training.gan`` discriminators' params (``MultipleDiscriminator``,
+# ``MultiPeriodDiscriminator``, ``MultiResolutionDiscriminator``, the single
+# ones) -> state dicts of this package's ``training.gan`` modules of the same
+# names: weight-norm Conv2d ``v`` (KH, KW, I, O) -> (O, I, KH, KW), ``g`` and
+# ``bias`` as they are
+discriminator_state_from_jax = state_from_jax_tree
+
 # JAX ``Qwen2Model``, ``Qwen2SpeechLM`` and ``TransformerLM`` params (numpy
 # leaves) -> state dicts of this package's ``models.llm`` modules: their
 # names carry over one to one (RMSNorm ``scale`` -> ``weight``)
@@ -217,10 +224,11 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
                 val = normal(shape, 1.0)
             elif isinstance(mod, nn.Linear):
                 val = normal(shape, 1.0 / math.sqrt(shape[1]))
-            elif isinstance(mod, (Conv1d, ConvTranspose1d)) and name in (
-                    "weight", "v"):
-                fan_in = (shape[1] * shape[2] if isinstance(mod, Conv1d)
-                          else shape[0] * shape[2])
+            elif isinstance(mod, (Conv1d, Conv2d, ConvTranspose1d)) \
+                    and name in ("weight", "v"):
+                fan_in = (shape[0] * shape[2]
+                          if isinstance(mod, ConvTranspose1d)
+                          else math.prod(shape[1:]))
                 val = normal(shape, 0.01 if small
                              else 1.0 / math.sqrt(fan_in))
             elif name == "g":
@@ -235,8 +243,22 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
                     state[pre + name] = val
         if getattr(mod, "weight_norm", False):
             v = state[pre + "v"]
-            state[pre + "g"] = torch.sqrt((v * v).sum(dim=(1, 2)))
+            state[pre + "g"] = torch.sqrt(
+                (v * v).sum(dim=tuple(range(1, v.dim()))))
     return state
+
+
+def seeded_module(build: Callable[[], nn.Module], seed: int,
+                  device=None) -> nn.Module:
+    """``build()`` holding ``seeded_state`` of ``seed`` (drawn from a twin
+    built on the meta device), on ``device`` (the card unless the caller
+    asks for the CPU), f32, in train mode: a trainer's initial weights."""
+    from .utils.device import resolve_device
+    with torch.device("meta"):
+        meta = build()
+    module = build()
+    module.load_state_dict(seeded_state(meta, seed), strict=True)
+    return module.to(resolve_device(device)).train()
 
 
 def seeded_states(flow_cfg, hift_cfg, seed: int = 0, v1: bool = False

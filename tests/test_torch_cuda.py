@@ -1289,3 +1289,97 @@ def test_asr_graphed_decodes_equal_eager(card, dtype):
     assert steps.replays == 3 * 4 * 15 - 3
     got = asr.transcribe(ids, temperatures=(0.0, 0.7))
     assert len(got) == 3 and all(g.dtype == np.int32 for g in got)
+
+
+# ------------------------------------------------------------------ training
+@pytest.mark.parametrize("entry", ["flash_chunk_attention",
+                                   "flash_chunk_attention_fl",
+                                   "fused_tf_group", "fused_conformer_group"])
+def test_kernel_entries_raise_under_autograd_on_card(card, entry):
+    """A CUDA tensor that requires grad never reaches a kernel: the entry
+    raises naming its switch and launches nothing."""
+    from moss_speech_decoder_cosy_torch.ops import fused_block as fb
+    from moss_speech_decoder_cosy_torch.ops import fused_conformer as fc
+    if entry.startswith("flash"):
+        q, k, v = _qkv((1, 2, 8, 64), torch.float32, 3)
+        if entry.endswith("_fl"):
+            q, k, v = (x.transpose(1, 2).reshape(1, 8, 128)
+                       for x in (q, k, v))
+            counter, switch = fa.launch_flash_chunk_attention, \
+                "use_flash_attention"
+
+            def call():
+                fa.flash_chunk_attention_fl(q.requires_grad_(True), k, v,
+                                            heads=2)
+        else:
+            counter, switch = fa.launch_flash_chunk_attention, \
+                "use_flash_attention"
+
+            def call():
+                fa.flash_chunk_attention(q.requires_grad_(True), k, v)
+    elif entry == "fused_tf_group":
+        p, rp_, mt, cc1, cc2, x, rings = fb.make_group_inputs(
+            6, 6, 16, 8, 2, 4, 2, 24, torch.float32, card, seed=5)
+        scal = fb.group_scalars([6] * 6, [0] * 6, [1] * 6, card)
+        counter, switch = fb.launch_fused_tf_group, "kernel"
+
+        def call():
+            fb.fused_tf_group(p, rp_, mt, cc1, cc2, x.requires_grad_(True),
+                              rings, scal, 0, heads=2, head_dim=4)
+    else:
+        p, x, pe, kv, pk = fc.make_conformer_inputs(
+            2, 3, 16, 2, 32, 6, torch.float32, card, seed=3)
+        counter, switch = fc.launch_fused_conformer_group, "enc_kernel"
+
+        def call():
+            fc.fused_conformer_group(p, x.requires_grad_(True), pe, kv, pk,
+                                     0, heads=2, head_dim=8)
+    before = counter.launches
+    with pytest.raises(RuntimeError, match=switch):
+        call()
+    assert counter.launches == before
+
+
+def test_flow_train_step_on_card_matches_cpu(card):
+    """One ``make_flow_train_step`` step at the tiny flow config with the
+    same draws on both devices (drawn on the host): the loss within 1e-5
+    relative, every gradient within 1e-4 of its peak (plus 1e-7 of the
+    largest, for gradients zero in exact arithmetic), the card's step
+    launching no kernel."""
+    from moss_speech_decoder_cosy_torch.models.flow.cfm import CFMDraws
+    from moss_speech_decoder_cosy_torch.models.flow.flow import (
+        FlowLossDraws)
+    from moss_speech_decoder_cosy_torch.training import (
+        create_flow_train_state, make_flow_train_step)
+    from moss_speech_decoder_cosy_torch.utils.config import tiny_flow_config
+    cfg = tiny_flow_config()
+    rng = np.random.RandomState(0)
+    b, tt = 2, 12
+    tm = tt * cfg.token_mel_ratio
+    arrays = dict(
+        speech_token=rng.randint(0, cfg.vocab_size, (b, tt)),
+        token_valid=np.ones((b, tt), bool),
+        speech_feat=rng.randn(b, tm, cfg.output_size).astype(np.float32),
+        feat_valid=np.ones((b, tm), bool),
+        embedding=rng.randn(b, cfg.spk_embed_dim).astype(np.float32))
+    d = FlowLossDraws.draw((b, tm, cfg.output_size),
+                           torch.Generator().manual_seed(1), "cpu")
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        state = create_flow_train_state(cfg, seed=2, device=dev)
+        step = make_flow_train_step(state.model)
+        draws = FlowLossDraws(d.prompt.to(dev), d.keep.to(dev), CFMDraws(
+            d.cfm.t.to(dev), d.cfm.z.to(dev), d.cfm.cfg.to(dev)))
+        before = fa.launch_flash_chunk_attention.launches
+        state, m = step(state, {k: torch.as_tensor(v).to(dev)
+                                for k, v in arrays.items()},
+                        draws=lambda i, mb: (draws, None))
+        assert fa.launch_flash_chunk_attention.launches == before
+        got[dev.type] = (float(m["loss"]), {
+            k: p.grad.cpu().numpy() for k, p in state.model.named_parameters()})
+    (lc, gc), (lh, gh) = got["cuda"], got["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    top = max(float(np.abs(g).max()) for g in gh.values())
+    for k, g in gh.items():
+        assert float(np.abs(gc[k] - g).max()) <= \
+            1e-4 * float(np.abs(g).max()) + 1e-7 * top, k

@@ -61,7 +61,10 @@ def test_scan_covers_the_package():
                 "tokenizer/asr_decoder.py", "eval/rtf.py", "eval/score.py",
                 "eval/benchmark.py", "data/dataset.py", "data/processor.py",
                 "data/tar.py", "bin/benchmark.py", "bin/score.py",
-                "bin/validate_reference.py", "bin/tools.py"):
+                "bin/validate_reference.py", "bin/tools.py",
+                "training/train_step.py", "training/gan.py",
+                "training/vq.py", "training/lm.py", "ops/dropout.py",
+                "ops/autograd_guard.py", "utils/export.py", "bin/train.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod
 
 
@@ -84,3 +87,23 @@ def test_the_asr_eval_and_data_modules_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == "[]", out
+
+
+@pytest.mark.parametrize("mod", [
+    "training", "training.train_step", "training.gan", "training.vq",
+    "training.lm", "ops.dropout", "ops.autograd_guard", "utils.export",
+    "bin.train"])
+def test_the_training_modules_load_no_jax(mod):
+    """The same for the trainer: its modules, the dropout, the checkpoint
+    averaging and the training CLI, each imported in a fresh
+    interpreter."""
+    import subprocess
+    import sys
+    code = ("import importlib, sys\n"
+            f"importlib.import_module('moss_speech_decoder_cosy_torch.{mod}')"
+            "\n"
+            f"print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == "[]", (mod, out)

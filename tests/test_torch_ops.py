@@ -193,21 +193,24 @@ def test_rel_position_attention(flavor):
                                   "flash_chunk"])
 def test_unet_attention(mode):
     """Additive-bias path, and the flash path (JAX: the Pallas kernel in
-    interpret mode; port: the kernel's plain version on the CPU)."""
+    interpret mode; port: the kernel's plain version on the CPU).  The port
+    runs under ``torch.no_grad()``, as inference does: the flash entry
+    refuses inputs that autograd would record."""
     b, t, d = 2, 12, 24
     x = _rand(b, t, d)
     chunk = 4 if mode.endswith("chunk") else 0
     jm = j_attn.UNetAttention(2, 8)
     p = jm.init(jax.random.PRNGKey(6), jnp.asarray(x))
     tm = _port(t_attn.UNetAttention(d, 2, 8), p["params"])
-    if mode.startswith("bias"):
-        m = j_masks.chunk_attention_mask(jnp.ones((b, t), bool), chunk)
-        bias = j_masks.mask_to_bias(m)
-        want = jm.apply(p, jnp.asarray(x), bias)
-        got = tm(torch.from_numpy(x), torch.from_numpy(np.array(bias)))
-    else:
-        want = jm.apply(p, jnp.asarray(x), None, chunk)
-        got = tm(torch.from_numpy(x), None, chunk)
+    with torch.no_grad():
+        if mode.startswith("bias"):
+            m = j_masks.chunk_attention_mask(jnp.ones((b, t), bool), chunk)
+            bias = j_masks.mask_to_bias(m)
+            want = jm.apply(p, jnp.asarray(x), bias)
+            got = tm(torch.from_numpy(x), torch.from_numpy(np.array(bias)))
+        else:
+            want = jm.apply(p, jnp.asarray(x), None, chunk)
+            got = tm(torch.from_numpy(x), None, chunk)
     _close(got, want)
 
 
