@@ -204,6 +204,31 @@ Phases (any failure raises and the script exits non-zero):
    ``cross_train``: one flow loss and its gradient (2 mid blocks, 2 x 40
    tokens) and one HiFT generator loss and its gradient (0.2 s), card
    against CPU with the same draws.
+   The multi-device modules and the tools, after ``cross_train``:
+   ``spmd``: ``spmd_decoder(["cuda:0"], batch=4)`` over ``kv_batch``'s 4 x
+   250 tokens on its bf16 decoder (1 warm-up + 1 timed int16 decode, its
+   ``fused_tf_group`` launches counted; within 1 LSB of ``kv_batch``'s
+   lockstep stream), and two replicas on ``cuda:0`` in f32 at
+   ``CROSS_MID_BLOCKS`` over 4 x 40 tokens against the batch-4 session
+   (``CROSS_TOL``), every replica tensor on ``cuda:0``.  ``dist``: one
+   NCCL group of world size 1 on 127.0.0.1; the data-parallel flow step
+   with ZeRO-sharded moments at full width (the ``train`` batch) against
+   the single-process step with the same draws (loss 1e-5 relative), 1
+   warm-up + the median of 3; the 4-layer LM (``cross_lm``'s) made
+   tensor-parallel at world size 1 against the unsharded one (prefill +
+   8 forced decode steps' logits, 1e-4 of the peak); the NCCL kernels of
+   one profiled DP step and one profiled TP forward counted (the
+   collectives are issued on the card).  ``tools``: ``profile_wave`` at
+   ``kernel:5:35`` (graphed, median of 3) and ``kernel:10:30`` (the
+   kernel's limit reported); one ``profile_tail`` (graphed, median of
+   3); ``ablate_dtype`` at full width; ``ablate_block
+   --random-init`` at blocks 5 and 10; the copy audit of one wavefront
+   iteration; one ``utils.profiling.trace`` of a 20-token KV decode whose
+   Chrome trace holds its ``fused_tf_group`` kernels; one ``aot_compile``
+   replay of ``forward_causal`` over the 4-layer LM's first layer against
+   the eager call (1e-6 of the peak) and one ``torch.export`` round trip
+   of it; ``ablate_dtype`` and ``ablate_block`` on the seeded states the
+   other phases share.
 7. One ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1711,6 +1736,7 @@ def kv_batch_phase(torch, fb) -> dict:
     for got in (pcm, pcm_eager):
         if got.shape != (b, samples) or got.dtype != np.int16:
             raise AssertionError(f"bad lockstep int16 output {got.shape}")
+    SEEDED["kv_batch"] = (kv.dec, tokens, pcm)     # the spmd and tools
     wav = sessions[True].stream_decode(tokens)
     rows = []
     for i in range(b):
@@ -3995,6 +4021,314 @@ def cross_train_phase(torch, card: str = "cuda") -> dict:
     return {"flow": flow, "hift": hift}
 
 
+SPMD_LSB = 1                # int16 SPMD against the lockstep session
+DIST_LOSS_RTOL = 1e-5       # DP / ZeRO step against one process
+TP_REL_TOL = 1e-4           # TP logits against the unsharded LM, of peak
+AOT_REL_TOL = 1e-6          # graph replay / export against eager, of peak
+TP_DECODE_STEPS = 8
+
+
+def spmd_phase(torch, fb, dev: str = "cuda") -> dict:
+    """The lane-sharded decoder on the card (see the module doc); ``dev``
+    "cpu" rehearses it at the tiny configs."""
+    card = "cuda:0" if dev == "cuda" else "cpu"
+    dec, tokens, lockstep_pcm = SEEDED["kv_batch"]
+    b, n = tokens.shape
+    cfg = dec.flow_cfg
+    audio_s = n * cfg.token_mel_ratio * dec.hift_cfg.total_upsample / \
+        dec.hift_cfg.sampling_rate
+    spmd = dec.spmd_decoder([card], batch=b, token_cap=n + 16)
+    rep = spmd.replicas[0]
+    launches = wave_launches(rep, cfg, n)
+    pcm, walls = timed_runs(lambda: spmd.decode(tokens, output="int16"),
+                            "spmd decode", {fb.launch_fused_tf_group:
+                                            launches}, runs=1)
+    lsb = int(np.abs(pcm.astype(np.int32)
+                     - lockstep_pcm.astype(np.int32)).max())
+    out = dict(streams=b, tokens=n, replicas=1, launches=launches,
+               wall_s=walls[0], x_realtime=b * audio_s / walls[0],
+               int16_max_lsb=lsb, replica_kernel=rep._kernel)
+
+    # two replicas on one card, f32 at CROSS_MID_BLOCKS, against batch 4
+    flow_cfg, hift_cfg, flow_state, hift_state = seeded_models(
+        flash=False, mid_blocks=CROSS_MID_BLOCKS)
+    kv = kv_decoder(flow_cfg, hift_cfg, flow_state, hift_state, 40)
+    toks = np.random.RandomState(9).randint(0, flow_cfg.vocab_size, (4, 40))
+    want = kv.dec.kv_stream_decoder(token_cap=56, batch=4).stream_decode(
+        toks)
+    two = kv.dec.spmd_decoder([card, card], batch=4, token_cap=56)
+    got = two.decode(toks)
+    err = float(np.abs(got - want).max())
+    devices = two.replica_devices()
+    out["f32_two_replicas"] = dict(
+        tokens=40, mid_blocks=CROSS_MID_BLOCKS, max_abs_diff=err,
+        tol=CROSS_TOL, peak=float(np.abs(want).max()),
+        replica_devices=[sorted(d) for d in devices])
+    print("spmd", json.dumps(out), flush=True)
+    if lsb > SPMD_LSB or not rep._kernel:
+        raise AssertionError(f"the SPMD int16 stream left the lockstep "
+                             f"session's: {out}")
+    if not (np.isfinite(got).all() and err <= CROSS_TOL) or \
+            devices != [{card}, {card}]:
+        raise AssertionError(f"two SPMD replicas disagree with the batch-4 "
+                             f"session: {out}")
+    return out
+
+
+def nccl_events(torch, fn) -> dict:
+    """{name: count} of the events of one profiled ``fn`` whose name holds
+    "nccl": the process group's record of each collective it issued
+    ("nccl:all_reduce", ...) and the device work NCCL ran for it (at world
+    size 1 an in-place all-reduce moves nothing and runs no kernel)."""
+    from moss_speech_decoder_cosy_torch.utils.graphs import (
+        _raw_events, profiled)
+    prof, _, edges = profiled(fn)
+    if not all(edges):
+        raise RuntimeError("a kernel of the profiled call may lie outside "
+                           "the trace")
+    out = {}
+    for e in _raw_events(prof):
+        if "nccl" in e.name().lower():
+            key = f"{e.name()[:60]} ({str(e.device_type()).split('.')[-1]})"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def issued(events: dict, op: str) -> int:
+    """How many times ``nccl_events`` saw the group issue ``op``."""
+    return sum(n for k, n in events.items() if k.startswith(f"nccl:{op} "))
+
+
+def dist_phase(torch, dev: str = "cuda") -> dict:
+    """One NCCL group of world size 1: data parallelism with ZeRO and
+    tensor parallelism on the card (see the module doc)."""
+    import copy
+    import socket
+    from moss_speech_decoder_cosy_torch.models.flow import (
+        CausalMaskedDiffWithXvec)
+    from moss_speech_decoder_cosy_torch.models.flow.flow import (
+        FlowLossDraws)
+    from moss_speech_decoder_cosy_torch.models.llm.qwen2 import Qwen2Config
+    from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
+        SpeechLMConfig)
+    from moss_speech_decoder_cosy_torch.parallel import distributed as D
+    from moss_speech_decoder_cosy_torch.parallel.mesh import data_group
+    from moss_speech_decoder_cosy_torch.parallel.tp import tensor_parallel
+    from moss_speech_decoder_cosy_torch.training import (
+        make_flow_train_step, make_optimizer)
+    from moss_speech_decoder_cosy_torch.training.train_step import TrainState
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    D.initialize(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        dg = data_group()
+        out = dict(backend=torch.distributed.get_backend(), world=dg.world)
+        flow_cfg, _, flow_state, _ = seeded_models(flash=False)
+        b, n_tok = TRAIN_FLOW
+        n_mel = n_tok * flow_cfg.token_mel_ratio
+        rng = np.random.RandomState(0)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in dict(
+            speech_token=rng.randint(0, flow_cfg.vocab_size, (b, n_tok)),
+            token_valid=np.ones((b, n_tok), bool),
+            speech_feat=rng.randn(b, n_mel, flow_cfg.output_size).astype(
+                np.float32),
+            feat_valid=np.ones((b, n_mel), bool),
+            embedding=rng.randn(b, flow_cfg.spk_embed_dim).astype(
+                np.float32)).items()}
+        draws = FlowLossDraws.draw((b, n_mel, flow_cfg.output_size),
+                                   torch.Generator(dev).manual_seed(3),
+                                   dev)
+
+        def state(zero):
+            model = CausalMaskedDiffWithXvec(flow_cfg)
+            model.load_state_dict(flow_state, strict=True)
+            model.to(dev).train()
+            opt = make_optimizer(zero=dg if zero else None)
+            return TrainState(0, model, opt(model.parameters()))
+
+        def draws_fn(i, mb):
+            return draws, None
+
+        one = state(False)
+        step1 = make_flow_train_step(one.model, dp=None)
+        _, m1 = step1(one, batch, draws=draws_fn)
+        loss1 = float(m1["loss"])
+        _, s1, _ = train_timed(torch, lambda: step1(one, batch,
+                                                    draws=draws_fn), runs=3)
+        del one, step1
+        dp = state(True)
+        step = make_flow_train_step(dp.model, dp=dg)
+        _, m2 = step(dp, batch, draws=draws_fn)    # from the same weights
+        loss_dp = float(m2["loss"])
+        _, s, peak = train_timed(
+            torch, lambda: step(dp, batch, draws=draws_fn), runs=3)
+        out["flow"] = dict(batch=b, tokens=n_tok, loss_single=loss1,
+                           loss_dp=loss_dp, rel=abs(loss_dp - loss1)
+                           / abs(loss1), tol=DIST_LOSS_RTOL, ms=s * 1e3,
+                           single_ms=s1 * 1e3,
+                           peak_mem_gb=peak / 1e9,
+                           moment_bytes=dp.optimizer.moment_bytes(),
+                           nccl=nccl_events(torch, lambda: step(
+                               dp, batch, draws=draws_fn)))
+        del dp, step
+
+        cfg = SpeechLMConfig(backbone=dataclasses.replace(
+            Qwen2Config(), num_layers=LM_CROSS_LAYERS))
+        ref = seeded_lm(torch, cfg, 11, dev, torch.float32)
+        tp = tensor_parallel(copy.deepcopy(ref))
+        rng = np.random.RandomState(6)
+        text = rng.randint(0, ref.cfg.backbone.vocab_size, (1, LM_TEXT))
+        forced = rng.randint(0, ref.cfg.speech_token_size, TP_DECODE_STEPS)
+
+        @torch.inference_mode()
+        def decode(lm):
+            h, cache = lm.prefill(lm.prompt_embeds(
+                text, np.zeros((1, 0), np.int64)))
+            rows = [lm.llm_decoder(h[:, -1])]
+            for tok in forced:
+                e = lm.speech_embedding(torch.tensor([[int(tok)]],
+                                                     device=dev))
+                h, cache = lm.llm.forward_embeds(e, cache)
+                rows.append(lm.llm_decoder(h[:, -1]))
+            return torch.cat(rows).float().cpu().numpy()
+
+        want, got = decode(ref), decode(tp)
+        peak = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        out["tp"] = dict(layers=LM_CROSS_LAYERS, steps=TP_DECODE_STEPS,
+                         peak=peak, max_abs_diff=err, rel=err / peak,
+                         tol=TP_REL_TOL,
+                         nccl=nccl_events(torch, lambda: decode(tp)))
+        SEEDED["tools_lm"] = ref
+    finally:
+        D.shutdown()
+    print("dist", json.dumps(out), flush=True)
+    if not (out["flow"]["rel"] <= DIST_LOSS_RTOL and np.isfinite(loss_dp)):
+        raise AssertionError(f"the data-parallel flow step left the "
+                             f"single-process step: {out}")
+    if not out["tp"]["rel"] <= TP_REL_TOL:
+        raise AssertionError(f"the tensor-parallel LM left the unsharded "
+                             f"one: {out}")
+    # a DP step: the gradients' all-reduce, the ZeRO all-gather and the
+    # batch's row / length all-reduce; TP: two all-reduces a layer a step
+    tp_want = 2 * LM_CROSS_LAYERS * (TP_DECODE_STEPS + 1)
+    if not (issued(out["flow"]["nccl"], "all_reduce") >= 2
+            and issued(out["flow"]["nccl"], "all_gather") >= 1
+            and issued(out["tp"]["nccl"], "all_reduce") >= tp_want):
+        raise AssertionError(f"the process group did not issue the "
+                             f"collectives: {out}")
+    return out
+
+
+def tools_phase(torch, fb, dev: str = "cuda", tool_args=()) -> dict:
+    """The A14e tools on the card (see the module doc); ``tool_args``
+    (``--config tiny``) and ``dev`` "cpu" rehearse it."""
+    import copy
+    import tempfile
+    from moss_speech_decoder_cosy_torch.bin import (
+        ablate_block, ablate_dtype, analyze_wave_copies, profile_tail,
+        profile_wave)
+    from moss_speech_decoder_cosy_torch.utils import export, profiling
+
+    dec, tokens, _ = SEEDED["kv_batch"]
+    stream = tokens[:1]
+    seconds = stream.shape[1] / 12.5
+    t0 = time.perf_counter()
+    out = {"profile_wave": [profile_wave.profile_spec(
+        dec, spec, stream, seconds, 3, True)
+        for spec in ("kernel:5:35", "kernel:10:30")]}
+    for row in out["profile_wave"]:
+        print("profile_wave", json.dumps(row), flush=True)
+    t1 = time.perf_counter()
+    kv = dec.kv_stream_decoder(token_cap=stream.shape[1] + 16)
+    out["profile_tail"] = dict(graphed=profile_tail.profile(kv, stream, 3))
+    print("profile_tail", json.dumps(out["profile_tail"]), flush=True)
+    t2 = time.perf_counter()
+    # a steady iteration is the same in any stream past the ODE's depth
+    eager = dec.kv_stream_decoder(token_cap=96, graphs=False)
+    with torch.inference_mode():
+        out["copies"] = analyze_wave_copies.audit(eager, tokens[:1, :80])
+    print("copies", json.dumps(out["copies"]), flush=True)
+    out["part_s"] = dict(profile_wave=t1 - t0, profile_tail=t2 - t1,
+                         copies=time.perf_counter() - t2)
+    part_s = out["part_s"]
+    t0 = time.perf_counter()
+    states = seeded_models(flash=False)[2:]
+    out["ablate_dtype"] = ablate_dtype.main(["--device", dev, *tool_args],
+                                            states)
+    part_s["ablate_dtype"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ablate_block"] = ablate_block.main(["--random-init", "5", "10",
+                                             "--device", dev, *tool_args],
+                                            states)
+    part_s["ablate_block"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # a trace of a 20-token decode holds its kernels
+    short = tokens[:1, :20]
+    kv20 = dec.kv_stream_decoder(token_cap=36)
+    kv20.stream_decode(short)
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as t:
+            with profiling.annotate("kv_decode_20"):
+                kv20.stream_decode(short)
+        text = Path(t.path).read_text()
+        out["trace"] = dict(bytes=len(text), wall_s=t.wall_s,
+                            fused_tf_group=text.count("fused_tf_group"),
+                            annotated="kv_decode_20" in text)
+    part_s["trace"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # aot_compile and export of the causal forward of the 4-layer LM's
+    # first layer (the export holds its weights)
+    lm = SEEDED.pop("tools_lm")
+    one = copy.deepcopy(lm.llm)
+    one.layers = one.layers[:1]
+    g = torch.Generator(dev).manual_seed(7)
+    d_model = one.cfg.hidden_size
+    x, x2 = (torch.randn(2, 64, d_model, device=dev, generator=g)
+             for _ in range(2))
+    with torch.inference_mode():
+        call = export.aot_compile(one.forward_causal, x)
+        want = one.forward_causal(x2)
+        got = call(x2)
+        peak = float(want.abs().max())
+    with torch.no_grad():
+        blob = export.export_serialized(one.forward_causal, x)
+        back = export.load_serialized(blob)(x2)
+    part_s["aot_export"] = time.perf_counter() - t0
+    out["aot"] = dict(graphs=len(call.graphs.graphs),
+                      replays=call.graphs.replays,
+                      rel=float((got - want).abs().max()) / peak,
+                      export_bytes=len(blob),
+                      export_rel=float((back - want).abs().max()) / peak,
+                      tol=AOT_REL_TOL)
+    print("tools", json.dumps({k: out[k] for k in ("trace", "aot")}),
+          flush=True)
+    wave = out["profile_wave"]
+    if "scan_s" not in wave[0] or "kernel_limit" not in wave[1] or \
+            "scan_s" in wave[1]:
+        raise AssertionError(f"profile_wave rows: {wave}")
+    if wave[0]["launches"] != wave_launches(kv, dec.flow_cfg,
+                                            stream.shape[1]):
+        raise AssertionError(f"profile_wave's kernel row launched "
+                             f"{wave[0]['launches']} groups")
+    if not (out["trace"]["fused_tf_group"] and out["trace"]["annotated"]):
+        raise AssertionError(f"the trace misses its kernels: {out['trace']}")
+    if not (out["aot"]["rel"] <= AOT_REL_TOL
+            and out["aot"]["export_rel"] <= AOT_REL_TOL
+            and out["aot"]["graphs"] == 1 and out["aot"]["replays"] >= 1):
+        raise AssertionError(f"aot_compile / export: {out['aot']}")
+    if not out["copies"]["copies"] or \
+            len(out["ablate_block"]["blocks"]) != 2:
+        raise AssertionError("the copy audit or ablate_block came back "
+                             "empty")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -4086,6 +4420,11 @@ def main(argv=None) -> int:
     cross["hift"] = phase("cross_hift", cross_hift_phase, torch)
     cross["train"] = phase("cross_train", cross_train_phase, torch)
 
+    # 6b. multi-device modules and tools
+    spmd = phase("spmd", spmd_phase, torch, fb)
+    dist = phase("dist", dist_phase, torch)
+    tools = phase("tools", tools_phase, torch, fb)
+
     # 7. result
     main_rec = next(r for r in records if r["layout"] == "fl"
                     and r["dtype"] == "bfloat16" and r["chunk"] == 0
@@ -4138,7 +4477,8 @@ def main(argv=None) -> int:
         batcher_launches=bat["graphed"]["fused_tf_group_launches"],
         serve_launches=srv["decode_stream"]["fused_tf_group_launches"],
         segmented_launches=api["segmented_launches"], per_row=per_row,
-        lockstep_launches=kvb["launches"], lockstep=lockstep)]
+        lockstep_launches=kvb["launches"], lockstep=lockstep,
+        spmd_launches=spmd["launches"])]
     # the blocks group (the larger read) with a full ring, as the steady
     # stream runs it, timed with L2 flushed: each hop streams the
     # estimator's rings between two encoder launches
@@ -4167,7 +4507,8 @@ def main(argv=None) -> int:
                  slice=sl, kv_slice=kv_sl, kv_api=api, kv_batch=kvb,
                  kv_quant=kvq, batcher=bat, windowed_device=win,
                  tokenizer=tok, serve=srv, lm=lmr, v1=v1, asr=asr,
-                 eval=ev, data=data, train=train, cross=cross),
+                 eval=ev, data=data, train=train, cross=cross,
+                 spmd=spmd, dist=dist, tools=tools),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

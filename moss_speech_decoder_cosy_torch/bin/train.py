@@ -15,18 +15,32 @@ Example:
       --model flow --train_data shards.list --model_dir exp/flow \\
       --epochs 1 --accum_grad 2
 
-Data parallelism and tensor parallelism wait for ROADMAP A8: ``--tp`` or
-``--world_size`` above 1 raise ``NotImplementedError``.
+Several processes (``torchrun --nproc_per_node N -m
+moss_speech_decoder_cosy_torch.bin.train ... --world_size N``, or one
+process per rank with ``--rank R --dist_address HOST:PORT``): ``nccl`` on
+the cards, ``gloo`` with ``--device cpu``.  The ranks form ``world_size /
+tp`` data-parallel replicas of ``tp`` tensor-parallel ranks each (TP
+inner, as the JAX package's ``(data, model)`` mesh).  Each replica reads
+its own shards (``DataList(rank=, world_size=)``); a step runs only while
+every rank has a batch.  The flow step is the single-process step on the
+replicas' rows together (``training/train_step.py``) with ZeRO-sharded
+moments, the LM steps likewise (moments replicated), the GAN turns
+average their gradients (DDP).  ``--tp`` shards the LM and DPO trainers'
+``Qwen2SpeechLM`` (``parallel/tp.py``), as in the JAX package; its
+checkpoints hold the whole weights, gathered from the ranks' slices.  Only
+rank 0 writes checkpoints, logs and samples.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import faulthandler
 import functools
 import json
 import os
+import random
 import time
 
 import numpy as np
@@ -72,10 +86,89 @@ def parse_args(argv=None):
                    help="weights from seed, the step draws from seed + 1")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tp", type=int, default=1,
-                   help="LM tensor parallelism (ROADMAP A8)")
+                   help="LM tensor parallelism: ranks a replica")
     p.add_argument("--world_size", type=int, default=1,
-                   help="data-parallel processes (ROADMAP A8)")
+                   help="processes (default torchrun's WORLD_SIZE)")
+    p.add_argument("--rank", type=int, default=None,
+                   help="this process's rank (default torchrun's RANK)")
+    p.add_argument("--dist_address", default=None,
+                   help="host:port of rank 0 (default MASTER_ADDR:"
+                        "MASTER_PORT)")
     return p.parse_args(argv)
+
+
+class NullLogger:
+    """The logger of a rank other than 0."""
+
+    def log(self, step, metrics):
+        pass
+
+    def close(self):
+        pass
+
+
+@dataclasses.dataclass
+class Parallel:
+    """The process's place: its data-parallel group (None in one replica)
+    and replica index and count, its tensor-parallel group (None without
+    ``--tp``), and whether it writes (rank 0)."""
+    dp: object = None
+    dp_rank: int = 0
+    dp_world: int = 1
+    tp_group: object = None
+    writer: bool = True
+    device: object = None
+    owns_group: bool = False
+
+
+def setup_parallel(args, device) -> Parallel:
+    """Joins the process group of ``--world_size`` ranks (or torchrun's)
+    and makes the data- and tensor-parallel groups."""
+    import torch.distributed as dist
+    from ..parallel import distributed as D
+    from ..parallel.mesh import DataGroup
+    world = (args.world_size if args.world_size > 1
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world == 1 and args.tp == 1:
+        return Parallel()
+    if args.tp > 1 and args.model not in ("lm", "lm_dpo"):
+        raise ValueError("--tp shards the LM and DPO trainers only")
+    if world % args.tp:
+        raise ValueError(f"--tp {args.tp} does not divide the world size "
+                         f"{world}")
+    if not D.initialize(args.dist_address, world, args.rank, device=device):
+        raise ValueError(f"--world_size {world} --tp {args.tp} needs a "
+                         "process group: --dist_address or torchrun")
+    rank, tp = dist.get_rank(), args.tp
+    n_dp = world // tp
+    # every rank makes every group, in the same order
+    tp_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp)))
+                 for d in range(n_dp)] if tp > 1 else None
+    dp_groups = [dist.new_group(list(range(t, world, tp)))
+                 for t in range(tp)] if n_dp > 1 else None
+    return Parallel(
+        dp=DataGroup(dp_groups[rank % tp]) if dp_groups else None,
+        dp_rank=rank // tp, dp_world=n_dp,
+        tp_group=tp_groups[rank // tp] if tp_groups else None,
+        writer=rank == 0, owns_group=True)
+
+
+def lockstep(batches, par: Parallel):
+    """``batches`` while every rank has one: each step the ranks agree
+    that none has run out (the JAX package's fixed steps per epoch)."""
+    from ..parallel import distributed as D
+    synced = par.dp is not None or par.tp_group is not None
+    it = iter(batches)
+    while True:
+        got = next(it, None)
+        if synced:
+            have = torch.tensor([0 if got is None else 1],
+                                device=par.device)
+            if int(-D.all_reduce_max(-have)) == 0:
+                return
+        if got is None:
+            return
+        yield got
 
 
 class MetricLogger:
@@ -124,7 +217,8 @@ def make_dataloader(args, data_list: str, flow_cfg, hift_cfg):
     gan = args.model == "hifigan"
     with open(data_list) as f:
         shards = [line.strip() for line in f if line.strip()]
-    dl = DataList(shards)
+    dl = DataList(shards, rank=args.par.dp_rank,
+                  world_size=args.par.dp_world)
     procs = [
         processor.parquet_opener,
         functools.partial(processor.resample, resample_rate=24000),
@@ -146,11 +240,16 @@ def make_dataloader(args, data_list: str, flow_cfg, hift_cfg):
 
 def epochs(args, make):
     """Yields (epoch, batch) over ``--epochs``, each epoch a fresh
-    pipeline from ``make() -> (DataList, pipeline)``."""
+    pipeline from ``make() -> (DataList, pipeline)``, while every rank has
+    a batch."""
     for epoch in range(args.epochs):
+        # the sample shuffle's draws, seeded: alike on the tensor-parallel
+        # ranks of one replica (they must read the same batches), each
+        # replica's own
+        random.seed(f"{args.seed}/{args.par.dp_rank}/{epoch}")
         dl, pipeline = make()
         dl.set_epoch(epoch)
-        for batch in pipeline:
+        for batch in lockstep(pipeline, args.par):
             yield epoch, batch
 
 
@@ -199,12 +298,15 @@ def train_flow(args, flow_cfg, hift_cfg, logger, device):
     from ..training import (create_flow_train_state, make_flow_train_step,
                             make_optimizer)
     from ..utils import checkpoint as ckpt
+    par = args.par
     state = create_flow_train_state(
-        flow_cfg, args.seed, make_optimizer(args.peak_lr, args.warmup_steps),
+        flow_cfg, args.seed, make_optimizer(args.peak_lr, args.warmup_steps,
+                                            zero=par.dp),
         device=device)
     state.step = resume(args, {None: state.model})
     fast_forward(state.optimizer, state.step)
-    step_fn = make_flow_train_step(state.model, accum_steps=args.accum_grad)
+    step_fn = make_flow_train_step(state.model, accum_steps=args.accum_grad,
+                                   dp=par.dp)
     g = torch.Generator(device=device).manual_seed(args.seed + 1)
     make = functools.partial(make_dataloader, args, args.train_data,
                              flow_cfg, hift_cfg)
@@ -217,7 +319,7 @@ def train_flow(args, flow_cfg, hift_cfg, logger, device):
             logger.log(state.step, metrics)
             print(f"epoch {epoch} step {state.step}: "
                   f"loss={float(metrics['loss']):.4f}", flush=True)
-        if state.step % args.save_per_step == 0 or last:
+        if (state.step % args.save_per_step == 0 or last) and par.writer:
             ckpt.save_checkpoint(
                 os.path.join(args.model_dir, f"step_{state.step}"),
                 state.model.state_dict(),
@@ -227,9 +329,10 @@ def train_flow(args, flow_cfg, hift_cfg, logger, device):
                        logger, device)
         if last:
             break
-    ckpt.save_checkpoint(os.path.join(args.model_dir, f"epoch_{epoch}"),
-                         state.model.state_dict(),
-                         metadata={"step": state.step, "epoch": epoch})
+    if par.writer:
+        ckpt.save_checkpoint(os.path.join(args.model_dir, f"epoch_{epoch}"),
+                             state.model.state_dict(),
+                             metadata={"step": state.step, "epoch": epoch})
     return state
 
 
@@ -239,7 +342,8 @@ def run_cv(args, model, flow_cfg, hift_cfg, step, logger, device):
     generator seeded 0, no dropout), and with ``--sample_at_save`` the mel
     of the first CV batch's first row (executor.py:273-377)."""
     from ..models.flow.flow import FlowLossDraws
-    _, pipeline = make_dataloader(args, args.cv_data, flow_cfg, hift_cfg)
+    _, pipeline = make_dataloader(_single(args), args.cv_data, flow_cfg,
+                                  hift_cfg)
     g = torch.Generator(device=device).manual_seed(0)
     was_training = model.training
     model.eval()
@@ -266,6 +370,14 @@ def run_cv(args, model, flow_cfg, hift_cfg, step, logger, device):
         np.save(out, mel.cpu().numpy())
         print(f"step {step}: wrote {out}", flush=True)
     model.train(was_training)
+
+
+def _single(args):
+    """``args`` as one process reads the data: every shard (the CV pass
+    runs on rank 0 alone)."""
+    single = copy.copy(args)
+    single.par = Parallel()
+    return single
 
 
 def _fit(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -296,7 +408,8 @@ def train_hifigan(args, flow_cfg, hift_cfg, logger, device):
 
     state = gan_mod.GanTrainState(start, gen, disc, adam(gen), adam(disc))
     disc_step, gen_step = gan_mod.make_gan_train_step([functools.partial(
-        matcha_mel_spectrogram, sampling_rate=hift_cfg.sampling_rate)])
+        matcha_mel_spectrogram, sampling_rate=hift_cfg.sampling_rate)],
+        dp=args.par.dp)
     make = functools.partial(make_dataloader, args, args.train_data,
                              flow_cfg, hift_cfg)
     for epoch, batch in epochs(args, make):
@@ -313,7 +426,8 @@ def train_hifigan(args, flow_cfg, hift_cfg, logger, device):
             print(f"epoch {epoch} step {state.step}: "
                   f"gen={float(gm['loss']):.4f} "
                   f"disc={float(dm['loss_disc']):.4f}", flush=True)
-        if state.step % args.save_per_step == 0 or last:
+        if (state.step % args.save_per_step == 0 or last) and \
+                args.par.writer:
             ckpt.save_checkpoint(
                 os.path.join(args.model_dir, f"gan_step_{state.step}"),
                 {"generator": gen.state_dict(),
@@ -349,7 +463,8 @@ def make_lm_dataloader(args, dpo=False):
     from ..data import DataList, build_pipeline, processor
     with open(args.train_data) as f:
         shards = [line.strip() for line in f if line.strip()]
-    dl = DataList(shards)
+    dl = DataList(shards, rank=args.par.dp_rank,
+                  world_size=args.par.dp_world)
     opener = (processor.jsonl_opener if shards[0].endswith(".jsonl")
               else processor.parquet_opener)
     procs = [
@@ -373,17 +488,30 @@ def train_lm(args, logger, device, dpo=False):
     from ..weights import seeded_module
     cfg = (tiny_speech_lm_config() if args.config == "tiny"
            else SpeechLMConfig())
+    par = args.par
     model = seeded_module(lambda: Qwen2SpeechLM(cfg), args.seed, device)
-    state = TrainState(resume(args, {None: model}), model, make_optimizer(
-        args.peak_lr, args.warmup_steps)(model.parameters()))
-    fast_forward(state.optimizer, state.step)
+    step0 = resume(args, {None: model})
     if dpo:
         ref = copy.deepcopy(model).eval().requires_grad_(False)
         if args.ref_checkpoint:
             ref.load_state_dict(ckpt.load_checkpoint(args.ref_checkpoint))
-        step_fn = lm_mod.make_dpo_train_step(ref, beta=args.dpo_beta)
+    norm_fn = None
+    if par.tp_group is not None:
+        from ..parallel.tp import (tensor_parallel, tp_full_state,
+                                   tp_global_norm)
+        tensor_parallel(model, par.tp_group)
+        if dpo:
+            tensor_parallel(ref, par.tp_group)
+        norm_fn = functools.partial(tp_global_norm, group=par.tp_group)
+    state = TrainState(step0, model, make_optimizer(
+        args.peak_lr, args.warmup_steps, norm_fn=norm_fn)(
+            model.parameters()))
+    fast_forward(state.optimizer, state.step)
+    if dpo:
+        step_fn = lm_mod.make_dpo_train_step(ref, beta=args.dpo_beta,
+                                             dp=par.dp)
     else:
-        step_fn = lm_mod.make_lm_train_step()
+        step_fn = lm_mod.make_lm_train_step(dp=par.dp)
     for epoch, batch in epochs(args, functools.partial(
             make_lm_dataloader, args, dpo)):
         state, metrics = step_fn(state, {k: torch.as_tensor(v).to(device)
@@ -394,10 +522,13 @@ def train_lm(args, logger, device, dpo=False):
             print(f"epoch {epoch} step {state.step}: "
                   f"loss={float(metrics['loss']):.4f}", flush=True)
         if state.step % args.save_per_step == 0 or last:
-            ckpt.save_checkpoint(
-                os.path.join(args.model_dir, f"lm_step_{state.step}"),
-                model.state_dict(),
-                metadata={"step": state.step, "epoch": epoch})
+            # the whole weights: under --tp every rank gives its slices
+            whole = (model.state_dict() if par.tp_group is None
+                     else tp_full_state(model, par.tp_group))
+            if par.writer:
+                ckpt.save_checkpoint(
+                    os.path.join(args.model_dir, f"lm_step_{state.step}"),
+                    whole, metadata={"step": state.step, "epoch": epoch})
         if last:
             break
     return state
@@ -405,14 +536,17 @@ def train_lm(args, logger, device, dpo=False):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tp > 1 or args.world_size > 1:
-        raise NotImplementedError(
-            "tensor- and data-parallel training wait for ROADMAP A8 (the "
-            "mesh, ZeRO and TP); the port trains in one process")
+    from ..parallel import distributed as D
     from ..utils.device import resolve_device
     device = resolve_device(args.device)
+    par = setup_parallel(args, device)
+    if device.type == "cuda" and D.is_initialized():
+        device = torch.device("cuda", torch.cuda.current_device())
+    par.device = device
+    args.par = par
     flow_cfg, hift_cfg = configs(args.config)
-    logger = MetricLogger(os.path.join(args.model_dir, "tensorboard"))
+    logger = (MetricLogger(os.path.join(args.model_dir, "tensorboard"))
+              if par.writer else NullLogger())
     try:
         if args.model == "hifigan":
             return train_hifigan(args, flow_cfg, hift_cfg, logger, device)
@@ -421,6 +555,8 @@ def main(argv=None):
         return train_flow(args, flow_cfg, hift_cfg, logger, device)
     finally:
         logger.close()
+        if par.owns_group:
+            D.shutdown()
 
 
 if __name__ == "__main__":

@@ -127,11 +127,14 @@ class CausalConditionalCFM(nn.Module):
     def compute_loss(self, x1: torch.Tensor, valid: torch.Tensor,
                      mu: torch.Tensor, spks: torch.Tensor,
                      cond: torch.Tensor, draws: CFMDraws,
-                     streaming: bool = True
+                     streaming: bool = True, reduce=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The OT-CFM loss (flow_matching.py:158-196): x1 the target mel
         (B, T, n_mel), valid bool (B, T).  Returns (the masked MSE of the
-        predicted flow, the flow sample y)."""
+        predicted flow, the flow sample y).  ``reduce`` (a data-parallel
+        rank's): the sum over the ranks of the mask's count, so the ranks'
+        losses add up to the masked mean over the global batch (the JAX
+        package divides by the count of the whole sharded batch)."""
         c = self.cfg
         d = x1.shape[-1]
         tt = draws.t.to(x1.dtype)[:, None, None]
@@ -148,5 +151,8 @@ class CausalConditionalCFM(nn.Module):
         pred = self.estimator(y, valid, mu, tt[:, 0, 0], spks, cond,
                               streaming=streaming)
         m = valid[..., None].to(x1.dtype)
-        loss = torch.sum(((pred - u) * m) ** 2) / (torch.sum(m) * d)
+        den = torch.sum(m) * d
+        if reduce is not None:
+            den = reduce(den.detach())
+        loss = torch.sum(((pred - u) * m) ** 2) / den
         return loss, y

@@ -37,6 +37,13 @@ class FlowLossDraws:
                                    device=device) < 0.5,
                    cfm=CFMDraws.draw(feat_shape, generator, device))
 
+    def rows(self, lo: int, hi: int, frames: int) -> "FlowLossDraws":
+        """Rows ``lo:hi`` (and the first ``frames`` frames) of global
+        draws: a data-parallel rank's share."""
+        c = self.cfm
+        return FlowLossDraws(self.prompt[lo:hi], self.keep[lo:hi], CFMDraws(
+            c.t[lo:hi], c.z[lo:hi, :frames], c.cfg[lo:hi]))
+
 
 class CausalMaskedDiffWithXvec(nn.Module):
     def __init__(self, cfg: FlowConfig):
@@ -97,11 +104,14 @@ class CausalMaskedDiffWithXvec(nn.Module):
     def loss(self, token: torch.Tensor, token_valid: torch.Tensor,
              feat: torch.Tensor, feat_valid: torch.Tensor,
              embedding: torch.Tensor, draws: FlowLossDraws,
-             drop: Drop = None, streaming: bool = True) -> torch.Tensor:
+             drop: Drop = None, streaming: bool = True,
+             reduce=None) -> torch.Tensor:
         """The training objective (reference flow.py:189-235): unified
         streaming training, a random prompt prefix of the target mel as the
         condition, dropped for half the rows.  ``drop``: the encoder's
-        dropout.  feat (B, Tm, n_mel) with Tm = tokens x token_mel_ratio."""
+        dropout.  feat (B, Tm, n_mel) with Tm = tokens x token_mel_ratio.
+        ``reduce``: the masked mean's denominator summed over data-parallel
+        ranks (``compute_loss``)."""
         tm = feat.shape[1]
         spks = self._spk(embedding)
         h, mel_valid = self.encoder(self._embed_tokens(token, token_valid),
@@ -116,5 +126,6 @@ class CausalMaskedDiffWithXvec(nn.Module):
         conds = feat * cond_mask[..., None].to(feat.dtype)
         loss, _ = self.decoder.compute_loss(feat, mel_valid, mu[:, :tm], spks,
                                             conds, draws.cfm,
-                                            streaming=streaming)
+                                            streaming=streaming,
+                                            reduce=reduce)
         return loss

@@ -10,6 +10,7 @@ GLM_modules/flow_inference.py:48-243):
 - ``kv_stream_decoder``   the KV-cached streaming session, B lockstep
                           streams
 - ``kv_batcher``          the continuous batcher, concurrent streams
+- ``spmd_decoder``        lockstep streams split over several devices
 
 Model work runs on the decoder's device (CUDA unless ``device="cpu"``);
 session state (token buffer, offsets, HiFT caches) is host-side numpy.
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, List, Mapping, Optional, Tuple
+from typing import Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -252,6 +253,34 @@ class AudioDecoder:
                                kernel=kernel, enc_kernel=enc_kernel,
                                graphs=graphs, write_mode=write_mode,
                                batch=batch, ring_quant=ring_quant)
+
+    def replica(self, device) -> "AudioDecoder":
+        """This decoder's weights (in their compute dtypes) on ``device``,
+        with the same configs and NSF draws."""
+        return AudioDecoder(
+            self.flow_cfg, self.hift_cfg, self.flow.state_dict(),
+            self.hift.state_dict(), self.pipe_cfg,
+            compute_dtype=self.compute_dtype,
+            estimator_dtype=self.estimator_dtype, device=device,
+            nsf_draws=self.hift.draws)
+
+    def spmd_decoder(self, devices: Sequence, prompt_token=None,
+                     prompt_feat=None, embedding=None,
+                     block_size: Optional[int] = None,
+                     ring_tokens: Optional[int] = None,
+                     token_cap: int = 2048, batch: Optional[int] = None,
+                     **session_kw):
+        """Lockstep KV decoding of ``batch`` streams (default one per
+        device) split over ``devices`` (``parallel.make_mesh()``, or any
+        list; a device may repeat), one replica each
+        (``spmd_session.SPMDKVDecoder``): no collective, every replica
+        the single-device lockstep session at ``batch / len(devices)``
+        streams.  ``session_kw`` as ``kv_stream_decoder``'s."""
+        from .spmd_session import SPMDKVDecoder
+        return SPMDKVDecoder(self, devices, prompt_token=prompt_token,
+                             prompt_feat=prompt_feat, embedding=embedding,
+                             block_size=block_size, ring_tokens=ring_tokens,
+                             token_cap=token_cap, batch=batch, **session_kw)
 
     def kv_batcher(self, n_lanes: int = 4, block_size: Optional[int] = None,
                    ring_tokens: Optional[int] = None, token_cap: int = 1024,

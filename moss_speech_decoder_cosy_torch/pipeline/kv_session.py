@@ -677,12 +677,18 @@ class KVStreamDecoder:
         if off != total:
             raise RuntimeError(f"the chunks hold {off} samples, not {total}")
 
-    def _fetch(self, wavs, total: int, output: str) -> np.ndarray:
-        """The stream of ``wavs`` on the host: every copy enqueued, then one
-        wait for the last."""
+    def _enqueue_fetch(self, wavs, total: int, output: str):
+        """Every copy of ``wavs`` to one host buffer enqueued: (the buffer,
+        the last copy's event or None)."""
         done = None
         for host, _, _, done in self._copy_back(wavs, total, output):
             pass
+        return host, done
+
+    def _fetch(self, wavs, total: int, output: str) -> np.ndarray:
+        """The stream of ``wavs`` on the host: every copy enqueued, then one
+        wait for the last."""
+        host, done = self._enqueue_fetch(wavs, total, output)
         if done is not None:
             done.synchronize()
         return host.numpy()
@@ -733,18 +739,36 @@ class KVStreamDecoder:
                 return self._fetch(
                     self._segment_wavs(token_buf, cache, plan, sizes),
                     self._samples(plan), output)
-            if wavefront and n_steady >= 2:
-                mel, _ = self._flow_mels_wave(token_buf, cache, plan)
-            else:
-                mel, _ = self._flow_mels(token_buf, cache, plan)
-            if self._bulk is None:
-                self._bulk = BulkVocoder(self.dec, self.cf)
-            frames = [e * self.ratio for e, _ in plan]
-            wav = self.meter.call(("bulk", tuple(frames)),
-                                  lambda: self._bulk.vocode(mel, frames))
+            wav = self._bulk_wav(token_buf, cache, plan,
+                                 wavefront and n_steady >= 2)
             return self._fetch([wav], wav.shape[1], output)
         return self._fetch(self._hop_wavs(token_buf, cache, voc, plan),
                            self._samples(plan), output)
+
+    def _bulk_wav(self, token_buf, cache, plan, wavefront: bool
+                  ) -> torch.Tensor:
+        """The flow of the plan (the wavefront, or hop by hop) and the bulk
+        vocoder: the streams' wav (B, samples) f32 on the device, nothing
+        read back."""
+        if wavefront:
+            mel, _ = self._flow_mels_wave(token_buf, cache, plan)
+        else:
+            mel, _ = self._flow_mels(token_buf, cache, plan)
+        if self._bulk is None:
+            self._bulk = BulkVocoder(self.dec, self.cf)
+        frames = [e * self.ratio for e, _ in plan]
+        return self.meter.call(("bulk", tuple(frames)),
+                               lambda: self._bulk.vocode(mel, frames))
+
+    @torch.inference_mode()
+    def launch(self, tokens: np.ndarray) -> torch.Tensor:
+        """The wavefront decode of (B, n) tokens with at least two steady
+        hops, enqueued: the wav (B, samples) f32 on the device; the host
+        waits for nothing but the token upload (``fetch`` it)."""
+        token_buf, cache, _, plan = self._start(tokens)
+        if sum(1 for _, fin in plan if not fin) < 2:
+            raise ValueError("launch needs at least 2 steady hops")
+        return self._bulk_wav(token_buf, cache, plan, True)
 
     def _samples(self, plan) -> int:
         return sum(e for e, _ in plan) * self.ratio * (

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops import stft as stft_ops
 from ..ops.convs import Conv2d
+from ..parallel.mesh import DataGroup
 from .train_step import AdamW
 
 LRELU = 0.1
@@ -262,12 +263,33 @@ def generator_objective(generator: nn.Module, discriminator: nn.Module,
 
 def make_gan_train_step(mel_transforms: Sequence[Callable],
                         mel_weight: float = 45.0, fm_weight: float = 2.0,
-                        tpr_weight: float = 1.0, tpr_tau: float = 0.04):
+                        tpr_weight: float = 1.0, tpr_tau: float = 0.04,
+                        dp: Optional[DataGroup] = None):
     """Returns ``(disc_step, gen_step)``, each ``(state, batch, draws=None)
     -> (state, metrics)``, the executor's alternating turns
     (executor.py:94-180).  batch: speech (B, L), speech_feat (B, T, n_mel),
     pitch_feat (B, T); ``draws``: the NSF source's ``(rand_ini, noise)``
-    for ``HiFTGenerator.forward_train`` (default: the generator's own)."""
+    for ``HiFTGenerator.forward_train`` (default: the generator's own).
+
+    ``dp`` (a ``parallel.mesh.DataGroup``; None for one process): each
+    rank's turn runs on its rows and the gradients are averaged over the
+    ranks, as the reference's DDP averages them; the TPR loss's median and
+    the NSF draws stay each rank's own, so unlike the flow and LM steps
+    this is not the single-process step on the global batch."""
+
+    def average(opt: AdamW) -> None:
+        if dp is None:
+            return
+        for p in opt.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        with torch.no_grad():
+            grads = [p.grad for p in opt.params]
+            dp.sum_(grads)
+            torch._foreach_div_(grads, dp.world)
+
+    def mean(v: torch.Tensor) -> torch.Tensor:
+        return v if dp is None else dp.sum(v) / dp.world
 
     def disc_step(state: GanTrainState, batch: Dict[str, torch.Tensor],
                   draws: Draws = None):
@@ -276,8 +298,9 @@ def make_gan_train_step(mel_transforms: Sequence[Callable],
         loss = discriminator_objective(state.generator, state.discriminator,
                                        batch, draws, tpr_weight, tpr_tau)
         loss.backward()
+        average(opt)
         opt.step()
-        return state, {"loss_disc": loss.detach()}
+        return state, {"loss_disc": mean(loss.detach())}
 
     def gen_step(state: GanTrainState, batch: Dict[str, torch.Tensor],
                  draws: Draws = None):
@@ -289,9 +312,10 @@ def make_gan_train_step(mel_transforms: Sequence[Callable],
         loss.backward()
         # the discriminator takes no update on the generator's turn
         state.discriminator.zero_grad(set_to_none=True)
+        average(opt)
         opt.step()
         state.step += 1
-        return state, {"loss": loss.detach(),
-                       **{k: v.detach() for k, v in parts.items()}}
+        return state, {"loss": mean(loss.detach()),
+                       **{k: mean(v.detach()) for k, v in parts.items()}}
 
     return disc_step, gen_step

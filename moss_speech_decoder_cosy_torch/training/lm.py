@@ -14,12 +14,13 @@ cosyvoice/llm/llm.py:263-427, utils/losses.py:24-60).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..models.llm.speech_lm import Qwen2SpeechLM
+from ..parallel.mesh import DataGroup
 from .train_step import TrainState
 
 
@@ -69,10 +70,12 @@ def pack_lm_batch(model: Qwen2SpeechLM, text: torch.Tensor,
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
-                         mask: torch.Tensor, smoothing: float = 0.0
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         mask: torch.Tensor, smoothing: float = 0.0,
+                         reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """KL(label-smoothed one-hot || softmax) over the valid positions, and
-    the accuracy."""
+    the accuracy.  ``reduce`` (a data-parallel rank's): the valid count
+    summed over the ranks, so the ranks' shares add up to the global
+    batch's mean."""
     v = logits.shape[-1]
     logp = F.log_softmax(logits.float(), dim=-1)
     tgt = torch.clamp(targets, min=0)
@@ -81,7 +84,10 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     onehot = F.one_hot(tgt, v).float() * (confidence - smooth) + smooth
     nll = -torch.sum(onehot * logp, dim=-1)
     m = mask.float()
-    denom = torch.clamp(m.sum(), min=1.0)
+    count = m.sum()
+    if reduce is not None:
+        count = reduce(count.detach())
+    denom = torch.clamp(count, min=1.0)
     loss = torch.sum(nll * m) / denom
     acc = torch.sum((logits.argmax(-1) == tgt).float() * m) / denom
     return loss, acc
@@ -96,12 +102,14 @@ def _logits(model: Qwen2SpeechLM, batch: Dict[str, torch.Tensor],
 
 
 def lm_loss(model: Qwen2SpeechLM, batch: Dict[str, torch.Tensor],
-            smoothing: float = 0.0
+            smoothing: float = 0.0, reduce=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: text_token (B, Tt), text_token_len (B,), speech_token
-    (B, Ts), speech_token_len (B,)."""
+    (B, Ts), speech_token_len (B,).  ``reduce`` as in
+    ``label_smoothing_loss``."""
     logits, targets, mask = _logits(model, batch)
-    loss, acc = label_smoothing_loss(logits, targets, mask, smoothing)
+    loss, acc = label_smoothing_loss(logits, targets, mask, smoothing,
+                                     reduce)
     return loss, {"loss": loss, "acc": acc}
 
 
@@ -132,31 +140,52 @@ def dpo_loss(policy_chosen: torch.Tensor, policy_rejected: torch.Tensor,
     return losses.mean(), chosen_rw, rejected_rw
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> None:
+def _update(state: TrainState, loss: torch.Tensor, dp=None) -> None:
+    """One update; ``dp``: the gradients summed over its ranks first."""
     opt = state.optimizer
     opt.zero_grad()
     loss.backward()
+    if dp is not None:
+        for p in opt.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        with torch.no_grad():
+            dp.sum_([p.grad for p in opt.params])
     opt.step()
     state.step += 1
 
 
-def make_lm_train_step(smoothing: float = 0.0):
+def make_lm_train_step(smoothing: float = 0.0,
+                       dp: Optional[DataGroup] = None):
     """``step(state, batch) -> (state, metrics)``: one CE update of
-    ``state.model`` (a ``Qwen2SpeechLM``); metrics ``loss``, ``acc``."""
+    ``state.model`` (a ``Qwen2SpeechLM``, or its tensor-parallel shard);
+    metrics ``loss``, ``acc``.  ``dp`` (a ``parallel.mesh.DataGroup``;
+    None for one process or under pure tensor parallelism): ``batch`` is the rank's rows, the mean runs over the global batch's
+    valid positions and the gradients are summed over the ranks."""
+    reduce = None if dp is None else dp.sum
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        loss, metrics = lm_loss(state.model, batch, smoothing)
-        _update(state, loss)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        loss, metrics = lm_loss(state.model, batch, smoothing, reduce)
+        _update(state, loss, dp)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if dp is not None:
+            metrics = {k: dp.sum(v) for k, v in metrics.items()}
+        return state, metrics
     return step
 
 
 def make_dpo_train_step(ref_model: Qwen2SpeechLM, beta: float = 0.01,
-                        ipo: bool = False, label_smoothing: float = 0.0):
+                        ipo: bool = False, label_smoothing: float = 0.0,
+                        dp: Optional[DataGroup] = None):
     """``step(state, batch) -> (state, metrics)``: one DPO update of
     ``state.model`` over chosen / rejected completions against the frozen
     ``ref_model`` (the pre-DPO policy).  batch: text_token /
     text_token_len and {chosen, rejected}_token / _token_len.  metrics:
-    ``loss``, ``reward_margin``, ``reward_acc``."""
+    ``loss``, ``reward_margin``, ``reward_acc``.  ``dp`` as in
+    ``make_lm_train_step``: the means run over the global batch's rows
+    (every rank holds as many)."""
+    world = 1 if dp is None else dp.world
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         m = state.model
         pc = sequence_logp(m, batch, "chosen")
@@ -166,8 +195,12 @@ def make_dpo_train_step(ref_model: Qwen2SpeechLM, beta: float = 0.01,
             rr = sequence_logp(ref_model, batch, "rejected")
         loss, crw, rrw = dpo_loss(pc, pr, rc, rr, beta=beta,
                                   label_smoothing=label_smoothing, ipo=ipo)
-        _update(state, loss)
-        return state, {"loss": loss.detach(),
-                       "reward_margin": (crw - rrw).mean(),
-                       "reward_acc": (crw > rrw).float().mean()}
+        loss = loss / world
+        _update(state, loss, dp)
+        metrics = {"loss": loss.detach(),
+                   "reward_margin": (crw - rrw).mean() / world,
+                   "reward_acc": (crw > rrw).float().mean() / world}
+        if dp is not None:
+            metrics = {k: dp.sum(v) for k, v in metrics.items()}
+        return state, metrics
     return step

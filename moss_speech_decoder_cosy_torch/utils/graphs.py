@@ -7,6 +7,7 @@ shows it holds every kernel of the work it traced."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -53,17 +54,17 @@ def trace_tables(prof) -> Tuple[Dict[str, list], Dict[str, int]]:
     return kernels, launches
 
 
-def profiled(fn: Callable[[], None]) -> Tuple[object, float, Tuple[bool,
-                                                                   bool]]:
-    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA), with its
-    device work between marker kernels (``MARKER``).  A trace misses the
-    kernels near the edges of its window (on an H100 the first 1-40 ms, and
-    once the last kernel), so markers, each behind a synchronize and a 2 ms
-    host wait, run for ``EDGE_S`` before ``fn`` and after it.  Returns (the
-    profile, the wall of ``fn`` to its last kernel, the window's edges
-    proved: whether a marker was traced before ``fn``'s first kernel, and
-    one after its last; with both, every kernel ``fn`` ran is in the
-    trace)."""
+@contextlib.contextmanager
+def profiled_window():
+    """The block under ``torch.profiler`` (CPU and CUDA), its device work
+    between marker kernels (``MARKER``).  A trace misses the kernels near
+    the edges of its window (on an H100 the first 1-40 ms, and once the
+    last kernel), so markers, each behind a synchronize and a 2 ms host
+    wait, run for ``EDGE_S`` before the block and after it.  Yields a dict
+    that holds, after the block, ``profile``, ``wall_s`` (the block's wall
+    to its last kernel) and ``edges`` (whether a marker was traced before
+    the block's first kernel, and one after its last; with both, every
+    kernel the block ran is in the trace)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,23 +75,35 @@ def profiled(fn: Callable[[], None]) -> Tuple[object, float, Tuple[bool,
             torch.cuda.synchronize()
             time.sleep(0.002)
 
+    rec = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         markers()
         t0 = time.perf_counter()
-        fn()
+        yield rec
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        rec["wall_s"] = time.perf_counter() - t0
         markers()
     work, marks = [], []
     for e in _raw_events(prof):
         if e.device_type() == DeviceType.CUDA:
             (marks if MARKER in e.name() else work).append(e.start_ns())
+    rec["profile"] = prof
     if not work:
-        return prof, wall, (bool(marks), bool(marks))
-    return prof, wall, (bool(marks) and min(marks) < min(work),
+        rec["edges"] = (bool(marks), bool(marks))
+    else:
+        rec["edges"] = (bool(marks) and min(marks) < min(work),
                         bool(marks) and max(marks) > max(work))
+
+
+def profiled(fn: Callable[[], None]) -> Tuple[object, float, Tuple[bool,
+                                                                   bool]]:
+    """One call of ``fn`` in a ``profiled_window``: (the profile, the wall
+    of ``fn`` to its last kernel, the window's edges proved)."""
+    with profiled_window() as rec:
+        fn()
+    return rec["profile"], rec["wall_s"], rec["edges"]
 
 
 class StepGraphs:

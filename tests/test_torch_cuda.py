@@ -1383,3 +1383,102 @@ def test_flow_train_step_on_card_matches_cpu(card):
     for k, g in gh.items():
         assert float(np.abs(gc[k] - g).max()) <= \
             1e-4 * float(np.abs(g).max()) + 1e-7 * top, k
+
+
+def test_aot_compile_replays_equal_eager(card):
+    """``utils.export.aot_compile`` of the tiny Qwen2 backbone's causal
+    forward: one CUDA graph, each call a replay equal to the eager call."""
+    from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
+        Qwen2SpeechLM, tiny_speech_lm_config)
+    from moss_speech_decoder_cosy_torch.utils.export import aot_compile
+    from moss_speech_decoder_cosy_torch.weights import seeded_module
+    lm = seeded_module(lambda: Qwen2SpeechLM(tiny_speech_lm_config()), 0,
+                       card).eval()
+    g = torch.Generator(card).manual_seed(0)
+    xs = [torch.randn(2, 9, 32, device=card, generator=g) for _ in range(3)]
+    call = aot_compile(lm.llm.forward_causal, xs[0])
+    with torch.inference_mode():
+        for x in xs[1:]:
+            want = lm.llm.forward_causal(x)
+            assert float((call(x) - want).abs().max()) <= \
+                1e-6 * float(want.abs().max())
+    assert list(call.graphs.graphs) == [("aot",)]
+    assert call.graphs.replays == 2
+    with pytest.raises(ValueError, match="compiled for"):
+        call(torch.zeros(1, 9, 32, device=card))
+
+
+@pytest.fixture
+def nccl_world_one(card):
+    """A process group of one rank on the card (NCCL), torn down after."""
+    import socket
+    from moss_speech_decoder_cosy_torch.parallel import distributed as D
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    D.initialize(f"127.0.0.1:{port}", 1, 0, device=card)
+    yield card
+    D.shutdown()
+
+
+def test_nccl_group_data_and_tensor_parallel_steps(nccl_world_one):
+    """World size 1 over NCCL: the group's sum on the card; the
+    data-parallel flow step with ZeRO moments equal to the single-process
+    step with the same draws (loss 1e-6 relative, parameters 1e-6); the
+    tensor-parallel tiny LM's loss equal to the unsharded one (2e-5)."""
+    import copy
+    import torch.distributed as dist
+    from moss_speech_decoder_cosy_torch.models.flow.flow import (
+        FlowLossDraws)
+    from moss_speech_decoder_cosy_torch.models.llm.speech_lm import (
+        Qwen2SpeechLM, tiny_speech_lm_config)
+    from moss_speech_decoder_cosy_torch.parallel.mesh import data_group
+    from moss_speech_decoder_cosy_torch.parallel.tp import tensor_parallel
+    from moss_speech_decoder_cosy_torch.training import (
+        create_flow_train_state, lm as LM, make_flow_train_step,
+        make_optimizer)
+    from moss_speech_decoder_cosy_torch.utils.config import tiny_flow_config
+    from moss_speech_decoder_cosy_torch.weights import seeded_module
+    card = nccl_world_one
+    assert dist.get_backend() == "nccl"
+    dg = data_group()
+    assert float(dg.sum(torch.ones(3, device=card)).sum()) == 3.0
+    cfg = tiny_flow_config()
+    rng = np.random.RandomState(0)
+    b, tt = 2, 12
+    tm = tt * cfg.token_mel_ratio
+    batch = {k: torch.as_tensor(v).to(card) for k, v in dict(
+        speech_token=rng.randint(0, cfg.vocab_size, (b, tt)),
+        token_valid=np.ones((b, tt), bool),
+        speech_feat=rng.randn(b, tm, cfg.output_size).astype(np.float32),
+        feat_valid=np.ones((b, tm), bool),
+        embedding=rng.randn(b, cfg.spk_embed_dim).astype(
+            np.float32)).items()}
+    d = FlowLossDraws.draw((b, tm, cfg.output_size),
+                           torch.Generator(card).manual_seed(1), card)
+    got = {}
+    for dp in (None, dg):
+        state = create_flow_train_state(
+            cfg, seed=2, device=card,
+            optimizer=make_optimizer(zero=dp))
+        state, m = make_flow_train_step(state.model, dp=dp)(
+            state, batch, draws=lambda i, mb: (d, None))
+        got[dp is None] = (float(m["loss"]), {
+            k: p.detach().clone() for k, p in state.model.named_parameters()})
+    (l1, p1), (l2, p2) = got[True], got[False]
+    assert abs(l2 - l1) <= 1e-6 * abs(l1)
+    for k in p1:
+        assert float((p2[k] - p1[k]).abs().max()) <= 1e-6, k
+    lm_cfg = tiny_speech_lm_config()
+    ref = seeded_module(lambda: Qwen2SpeechLM(lm_cfg), 0, card).eval()
+    tp = tensor_parallel(copy.deepcopy(ref))
+    lm_batch = {
+        "text_token": torch.tensor([[3, 5, 7, 9]], device=card),
+        "text_token_len": torch.tensor([4], device=card),
+        "speech_token": torch.tensor([[1, 2, 3]], device=card),
+        "speech_token_len": torch.tensor([3], device=card)}
+    with torch.no_grad():
+        want = float(LM.lm_loss(ref, lm_batch)[0])
+        assert abs(float(LM.lm_loss(tp, lm_batch)[0]) - want) <= \
+            2e-5 * abs(want)

@@ -64,7 +64,13 @@ def test_scan_covers_the_package():
                 "bin/validate_reference.py", "bin/tools.py",
                 "training/train_step.py", "training/gan.py",
                 "training/vq.py", "training/lm.py", "ops/dropout.py",
-                "ops/autograd_guard.py", "utils/export.py", "bin/train.py"):
+                "ops/autograd_guard.py", "utils/export.py", "bin/train.py",
+                "parallel/__init__.py", "parallel/distributed.py",
+                "parallel/mesh.py", "parallel/tp.py",
+                "pipeline/spmd_session.py", "utils/profiling.py",
+                "bin/tool_setup.py", "bin/ablate_block.py",
+                "bin/ablate_dtype.py", "bin/profile_wave.py",
+                "bin/profile_tail.py", "bin/analyze_wave_copies.py"):
         assert f"moss_speech_decoder_cosy_torch/{mod}" in FILES, mod
 
 
@@ -107,3 +113,23 @@ def test_the_training_modules_load_no_jax(mod):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == "[]", (mod, out)
+
+
+def test_the_parallel_and_tool_modules_load_no_jax():
+    """The same for the multi-device modules and the measurement tools,
+    imported in one fresh interpreter."""
+    import subprocess
+    import sys
+    mods = ["parallel", "parallel.tp", "pipeline.spmd_session",
+            "utils.profiling", "bin.ablate_block", "bin.ablate_dtype",
+            "bin.profile_wave", "bin.profile_tail",
+            "bin.analyze_wave_copies"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module('moss_speech_decoder_cosy_torch.' + m)"
+            "\n"
+            f"print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == "[]", out

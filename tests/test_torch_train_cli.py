@@ -117,7 +117,10 @@ def test_train_entry_runs_and_resumes(model, shards, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--tp", "--world_size"])
 def test_parallel_training_raises(flag, shards, tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+    """Two ranks asked for in one process with no process group to join
+    (no ``--dist_address``, no torchrun): the trainer raises instead of
+    training alone.  Two real ranks: ``tests/test_torch_distributed.py``."""
+    with pytest.raises(ValueError, match="divide|process group|address"):
         T.main(_args("lm_dpo", shards, tmp_path, flag, "2"))
 
 
