@@ -2120,7 +2120,7 @@ class TeeEngine:
         stream = await self.engine.open(**kw)
 
         class Tee:
-            push, finish = stream.push, stream.finish
+            push, finish, rid = stream.push, stream.finish, stream.rid
 
             async def __aiter__(self):
                 async for c in stream:
@@ -2153,8 +2153,10 @@ async def http_request(engine, params) -> dict:
 
 
 async def timed_request(decode_stream, engine, params) -> dict:
-    """One ``decode_stream`` request: status, body, and the host walls of
-    its first byte and its end from its start."""
+    """One ``decode_stream`` request: status, body, the host walls of its
+    first byte and its end from its start, and the seconds its body's
+    format encoder took (its ``engine.encode`` spans)."""
+    from moss_speech_decoder_cosy_torch.utils.profiling import TELEMETRY
     t0 = time.perf_counter()
     status, headers, body = await decode_stream(engine, params)
     chunks, first = [], None
@@ -2162,9 +2164,13 @@ async def timed_request(decode_stream, engine, params) -> dict:
         if first is None:
             first = time.perf_counter() - t0
         chunks.append(data)
+    rid = getattr(body, "rid", None)
+    encode_s = None if rid is None else sum(
+        s.duration_s for s in TELEMETRY.spans("engine.encode")
+        if s.rid == rid)
     return dict(status=status, headers=headers, body=b"".join(chunks),
                 ttfb_s=first, done_s=time.perf_counter() - t0,
-                encode_s=getattr(body, "encode_s", None))
+                encode_s=encode_s)
 
 
 def emitted_samples(dec, n_tokens: int, prompt_tokens: int) -> int:
@@ -3205,14 +3211,15 @@ def asr_phase(torch) -> dict:
             res, wall = timed(lambda: asr.transcribe(ids, **kw))
             rec[mode] = dict(wall_s=wall, s_per_segment=wall / n_seg,
                              items=len(res))
-        replays0 = asr.steps.steps.replays
+        replays0 = sum(asr.steps.steps.replays.values())
         walls = {}
         for mode, s in (("graphed", asr.steps), ("eager", eager)):
             runs = [timed(lambda: kinds["greedy"](s))[1] for _ in range(3)]
             walls[mode] = statistics.median(runs)
         rec["step_ms"] = {k: 1e3 * w / steps for k, w in walls.items()}
         rec["decode_wall_s"] = walls
-        rec["graph_replays"] = asr.steps.steps.replays - replays0
+        rec["graph_replays"] = (sum(asr.steps.steps.replays.values())
+                                - replays0)
         rec["graphs"] = len(asr.steps.steps.graphs)
         rec["graphed_equals_eager"] = equal
         prof, wall, edges = profiled(lambda: kinds["greedy"](asr.steps))
@@ -4301,7 +4308,7 @@ def tools_phase(torch, fb, dev: str = "cuda", tool_args=()) -> dict:
         back = export.load_serialized(blob)(x2)
     part_s["aot_export"] = time.perf_counter() - t0
     out["aot"] = dict(graphs=len(call.graphs.graphs),
-                      replays=call.graphs.replays,
+                      replays=sum(call.graphs.replays.values()),
                       rel=float((got - want).abs().max()) / peak,
                       export_bytes=len(blob),
                       export_rel=float((back - want).abs().max()) / peak,

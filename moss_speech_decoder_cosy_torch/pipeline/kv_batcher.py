@@ -55,6 +55,17 @@ replayed once per chunk, takes the place of the JAX package's
 ``_voc_take_scan`` (a scan over a burst's chunks of one lane).  The host fetches
 the burst's valid flags once per pump and each lane's audio once per
 pump.
+
+Telemetry (``utils/profiling.TELEMETRY``): each pump is a span
+``batcher.pump`` with the children ``batcher.encode`` (the deferred
+prefills and encoder hops), ``batcher.wave`` (the tick replays and the
+flags fetch) and ``batcher.emit`` (the vocoder hops and audio copies; each
+lane's finalize tail a ``batcher.finalize`` inside it), each with its
+device time between CUDA events at its edges.  The counters
+``batcher.ticks``, ``batcher.rows_computed`` (S x 2 x lanes a tick) and
+``batcher.rows_useful`` (the rows whose ring write is enabled, counted
+from the host mirror) grow once per pump; a lane keeps the ticks run from
+its prefill to its first chunk handed out (``first_ticks``).
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ from ..models.flow.kv_stream import (
     wave_lanes_step, wave_lanes_step_kernel)
 from ..utils.flops import DispatchMeter
 from ..utils.graphs import StepGraphs
+from ..utils.profiling import TELEMETRY
 from .kv_session import KVVocState, estimator_kernel_limit, vocode_hop
 
 
@@ -108,6 +120,8 @@ class _Lane:
         self.w_host = 0                   # host mirror of the device w
         self.first_voc = True
         self.prefilled = False
+        self.tick0 = None                 # batcher ticks at the prefill
+        self.first_ticks = None           # ticks run to the first chunk
         self.ptok = self.pfeat = self.emb = None   # device tensors, at admit
 
 
@@ -398,6 +412,7 @@ class KVContinuousBatcher:
             ("spk",), lambda: spk_embedding(flow, st.emb))[0])
         self._base[lane] = base
         st.prefilled = True
+        st.tick0 = self.ticks
 
     @torch.inference_mode()
     def push(self, lane: int, tokens: np.ndarray) -> None:
@@ -455,7 +470,36 @@ class KVContinuousBatcher:
         {lane: wav float32 (1, samples)} for lanes that emitted audio, and
         frees the lanes whose stream ended (their last chunk includes the
         finalize tail)."""
-        self._encode_available()
+        with TELEMETRY.span("batcher.pump"):
+            return self._pump(max_iters)
+
+    def _useful_rows(self, live, ak: np.ndarray, n_ticks: int) -> int:
+        """The rows of the next ``n_ticks`` ticks whose ring write is
+        enabled (the kernel's per-row write flag), from the host mirror:
+        at tick index w an advancing lane (w < avail) writes its steps s
+        with 0 <= s < S and 0 <= w - s < k_total, min(S, w + 1) -
+        max(0, w - k_total + 1) steps, two CFG rows each."""
+        s_steps = self.s_steps
+
+        def upto(n, k):   # the steps written over tick indices 0 .. n - 1
+            m = min(n, s_steps)
+            tail = max(0, n - k)
+            return (m * (m + 1) // 2 + (n - m) * s_steps
+                    - tail * (tail + 1) // 2)
+
+        rows, avail = 0, ak[0].tolist()
+        for lane, st in live:
+            w0 = st.w_host
+            w1 = min(w0 + n_ticks, avail[lane])
+            if w1 > w0:
+                k = st.k_total if st.finished else w1   # no tail before w1
+                rows += upto(w1, k) - upto(w0, k)
+        return 2 * rows
+
+    def _pump(self, max_iters: int) -> Dict[int, np.ndarray]:
+        tel, dev = TELEMETRY, self.dev
+        with tel.span("batcher.encode", device=dev):
+            self._encode_available()
         ak = np.zeros((2, self.lanes), np.int64)
         ak[1] = 1 << 30
         live = [(lane, st) for lane, st in enumerate(self._lanes)
@@ -471,37 +515,48 @@ class KVContinuousBatcher:
         # device rule w += (w < avail)
         n_ticks = min(max_iters, max(int(ak[0, lane]) - st.w_host
                                      for lane, st in live))
+        if n_ticks and tel.enabled:
+            tel.count("batcher.ticks", n_ticks)
+            tel.count("batcher.rows_computed",
+                      self.s_steps * 2 * self.lanes * n_ticks)
+            tel.count("batcher.rows_useful",
+                      self._useful_rows(live, ak, n_ticks))
         for lane, st in live:
             st.w_host = min(st.w_host + n_ticks, int(ak[0, lane]))
         self._ak.copy_(torch.from_numpy(ak))
         oks_np = np.zeros((0, self.lanes), bool)
-        if n_ticks:
-            if self._burst_out is None or \
-                    self._burst_out[0].shape[0] < max_iters:
-                self._burst_out = (
-                    torch.zeros((max_iters, self.lanes, self.cf, self.n_mel),
-                                device=self.dev),
-                    torch.zeros((max_iters, self.lanes), dtype=torch.bool,
-                                device=self.dev))
-                self._steps.graphs.pop(("tick",), None)  # new buffers
-            self._tick.zero_()
-            for _ in range(n_ticks):
-                self._steps.run(("tick",), self._tick_impl)
-            self.ticks += n_ticks
-            oks_np = self._burst_out[1][:n_ticks].cpu().numpy()
+        with tel.span("batcher.wave", device=dev):
+            if n_ticks:
+                if self._burst_out is None or \
+                        self._burst_out[0].shape[0] < max_iters:
+                    self._burst_out = (
+                        torch.zeros((max_iters, self.lanes, self.cf,
+                                     self.n_mel), device=self.dev),
+                        torch.zeros((max_iters, self.lanes),
+                                    dtype=torch.bool, device=self.dev))
+                    self._steps.graphs.pop(("tick",), None)  # new buffers
+                self._tick.zero_()
+                for _ in range(n_ticks):
+                    self._steps.run(("tick",), self._tick_impl)
+                self.ticks += n_ticks
+                oks_np = self._burst_out[1][:n_ticks].cpu().numpy()
         mels = self._burst_out[0] if n_ticks else None
         out: Dict[int, np.ndarray] = {}
-        for lane, st in enumerate(self._lanes):
-            if not st.active:
-                continue
-            segs = []
-            for t in np.nonzero(oks_np[:, lane])[0]:
-                segs.append(self._emit(lane, st, mels[t, lane][None]))
-            if st.finished and st.w_emitted >= st.k_total:
-                segs.extend(self._finalize_lane(lane, st))
-                st.active = False
-            if segs:
-                out[lane] = torch.cat(segs, dim=1).cpu().numpy()
+        with tel.span("batcher.emit", device=dev):
+            for lane, st in enumerate(self._lanes):
+                if not st.active:
+                    continue
+                segs = []
+                for t in np.nonzero(oks_np[:, lane])[0]:
+                    segs.append(self._emit(lane, st, mels[t, lane][None]))
+                if st.finished and st.w_emitted >= st.k_total:
+                    with tel.span("batcher.finalize", device=dev):
+                        segs.extend(self._finalize_lane(lane, st))
+                    st.active = False
+                if segs:
+                    out[lane] = torch.cat(segs, dim=1).cpu().numpy()
+                    if st.first_ticks is None:
+                        st.first_ticks = self.ticks - st.tick0
         return out
 
     def _emit(self, lane: int, st: _Lane, mel: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,16 @@
   the batcher's state only under the engine lock; ONE pump task advances
   all lanes and fans the wav chunks out to per-request asyncio queues, and
   sleeps while ``KVContinuousBatcher.has_work()`` says a burst would advance
-  nothing.
+  nothing.  It records into the telemetry store
+  (``utils/profiling.TELEMETRY``): a request id per ``open``, each request's
+  stamps (``open``, ``admitted``, ``pushed``, ``finished``, ``first_chunk``,
+  ``last_chunk``; its ``lane`` and ``first_ticks``), the spans
+  ``engine.open`` (children ``engine.lane_wait``, ``engine.admit``),
+  ``engine.push`` and ``engine.finish`` (child ``engine.lock_wait``: the
+  wait for the engine lock; the rest is the call's own time), the body's
+  ``engine.encode``, and ``engine.pump_gap``: the pump loop's time outside
+  ``pump`` while a stream is open.  The spans held across an ``await`` open
+  no region in a profiler's trace.
 - ``plan_lanes``: the device-memory plan of the est ring pool: full rings,
   else int8 rings, else fewer lanes.
 - ``decode_stream``: one ``POST /decode_stream`` request with no transport:
@@ -23,6 +32,7 @@
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import json
 import logging
 import time
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 
 from ..models.flow.kv_stream import est_cache_bytes, init_kv_cache
+from ..utils.profiling import TELEMETRY
 from . import protocol
 from .ws_server import aiohttp_module
 
@@ -39,22 +50,31 @@ from .ws_server import aiohttp_module
 class AudioStream:
     """One admitted request: async push / finish, and async iteration over
     its wav chunks (float32 ``(1, samples)``; it ends when the engine
-    drains the lane)."""
+    drains the lane).  ``rid``: its id in the telemetry store."""
 
-    def __init__(self, engine: "AudioBatchEngine", lane: int):
+    def __init__(self, engine: "AudioBatchEngine", lane: int,
+                 rid: Optional[int] = None):
         self._engine = engine
         self.lane = lane
+        self.rid = rid
         self._q: asyncio.Queue = asyncio.Queue()
         self.finished = False
+        self._handed = False            # a chunk was put on the queue
 
     async def push(self, tokens) -> None:
-        await self._engine._call(self._engine.batcher.push, self.lane,
-                                 np.asarray(tokens))
+        with TELEMETRY.span("engine.push", rid=self.rid, annotated=False):
+            await self._engine._call(self._engine.batcher.push, self.lane,
+                                     np.asarray(tokens), rid=self.rid)
+        TELEMETRY.stamp(self.rid, "pushed")
         self._engine._kick()
 
     async def finish(self) -> None:
         self.finished = True
-        await self._engine._call(self._engine.batcher.finish, self.lane)
+        with TELEMETRY.span("engine.finish", rid=self.rid,
+                            annotated=False):
+            await self._engine._call(self._engine.batcher.finish, self.lane,
+                                     rid=self.rid)
+        TELEMETRY.stamp(self.rid, "finished")
         self._engine._kick()
 
     def __aiter__(self) -> AsyncIterator[np.ndarray]:
@@ -142,11 +162,13 @@ class AudioBatchEngine:
         self._pump_task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
 
-    async def _call(self, fn, *args):
+    async def _call(self, fn, *args, rid: Optional[int] = None):
         """Runs a (device-blocking) batcher call in the default executor
         under the engine lock, so it never races the pump."""
         loop = asyncio.get_running_loop()
+        t = time.perf_counter()
         async with self._lock:
+            TELEMETRY.add("engine.lock_wait", t, time.perf_counter(), rid)
             return await loop.run_in_executor(None, lambda: fn(*args))
 
     def _kick(self) -> None:
@@ -156,6 +178,21 @@ class AudioBatchEngine:
                    embedding=None) -> AudioStream:
         """Admits a stream (awaits a free lane).  A missing prompt piece
         defaults to empty, a missing speaker embedding to zeros."""
+        rid = TELEMETRY.request()
+        with TELEMETRY.span("engine.open", rid=rid, annotated=False):
+            stream = await self._admit(rid, prompt_token, prompt_feat,
+                                       embedding)
+        TELEMETRY.stamp(rid, "admitted")
+        TELEMETRY.note(rid, lane=stream.lane)
+        if self._pump_task is None or self._pump_task.done():
+            # a context of its own: the loop's spans have no request parent
+            self._pump_task = asyncio.get_running_loop().create_task(
+                self._pump_loop(), context=contextvars.Context())
+        self._kick()
+        return stream
+
+    async def _admit(self, rid, prompt_token, prompt_feat,
+                     embedding) -> AudioStream:
         d = self.decoder
         if prompt_token is None:
             prompt_token = np.zeros((1, 0), np.int32)
@@ -165,33 +202,40 @@ class AudioBatchEngine:
         if embedding is None:
             embedding = np.zeros((1, d.flow_cfg.spk_embed_dim), np.float32)
         loop = asyncio.get_running_loop()
+        t = time.perf_counter()
         while True:
             async with self._lock:
                 if self.batcher.free_lanes > 0:
-                    lane = await loop.run_in_executor(
-                        None, lambda: self.batcher.admit(
-                            np.asarray(prompt_token, np.int32),
-                            np.asarray(prompt_feat, np.float32),
-                            np.asarray(embedding, np.float32)))
-                    stream = AudioStream(self, lane)
+                    TELEMETRY.add("engine.lane_wait", t, time.perf_counter(),
+                                  rid)
+                    with TELEMETRY.span("engine.admit", rid=rid,
+                                        annotated=False):
+                        lane = await loop.run_in_executor(
+                            None, lambda: self.batcher.admit(
+                                np.asarray(prompt_token, np.int32),
+                                np.asarray(prompt_feat, np.float32),
+                                np.asarray(embedding, np.float32)))
+                    stream = AudioStream(self, lane, rid)
                     self._streams[lane] = stream
-                    break
+                    return stream
             await asyncio.sleep(0.01)           # pool full: wait for a lane
-        if self._pump_task is None or self._pump_task.done():
-            self._pump_task = asyncio.ensure_future(self._pump_loop())
-        self._kick()
-        return stream
+
+    def _pump_timed(self):
+        """One pump (in the executor): (chunks, start, end)."""
+        t = time.perf_counter()
+        out = self.batcher.pump(max_iters=self.pump_iters)
+        return out, t, time.perf_counter()
 
     async def _pump_loop(self):
         loop = asyncio.get_running_loop()
+        t_gap = time.perf_counter()     # the end of the last pump
         try:
             while self._streams:
                 async with self._lock:
                     out = None
                     if self.batcher.has_work():
-                        out = await loop.run_in_executor(
-                            None, lambda: self.batcher.pump(
-                                max_iters=self.pump_iters))
+                        out, t_pump, t_end = await loop.run_in_executor(
+                            None, self._pump_timed)
                 if out is None:
                     # nothing a burst could advance: wait for push / finish
                     self._wake.clear()
@@ -201,10 +245,18 @@ class AudioBatchEngine:
                     except asyncio.TimeoutError:
                         pass
                     continue
+                TELEMETRY.add("engine.pump_gap", t_gap, t_pump)
+                t_gap = t_end
                 for lane, chunk in out.items():
                     s = self._streams.get(lane)
                     if s is not None:
                         s._q.put_nowait(chunk)
+                        if not s._handed:
+                            s._handed = True
+                            TELEMETRY.stamp(s.rid, "first_chunk")
+                            TELEMETRY.note(s.rid, first_ticks=self.batcher.
+                                           _lanes[lane].first_ticks)
+                        TELEMETRY.stamp(s.rid, "last_chunk")
                 # the lanes pump() freed have drained
                 for lane in list(self._streams):
                     if not self.batcher._lanes[lane].active:
@@ -217,6 +269,7 @@ class AudioBatchEngine:
             self._streams.clear()
             raise
         finally:
+            TELEMETRY.add("engine.pump_gap", t_gap, time.perf_counter())
             self._pump_task = None
 
 
@@ -225,19 +278,19 @@ FORMATS = {"pcm16": "audio/L16", "oggopus": "audio/ogg"}
 
 class AudioBody:
     """The body of one ``decode_stream`` response: async iteration over the
-    encoded bytes.  ``encode_s`` sums the host seconds the format's encoder
-    took on the event loop (the Ogg Opus encoder, or the pcm16 packing)."""
+    encoded bytes.  Each call of the format's encoder on the event loop (the
+    Ogg Opus encoder, or the pcm16 packing) is a span ``engine.encode`` of
+    request ``rid`` in the telemetry store."""
 
-    def __init__(self, chunks: AsyncIterator[np.ndarray], writer=None):
+    def __init__(self, chunks: AsyncIterator[np.ndarray], writer=None,
+                 rid: Optional[int] = None):
         self._chunks = chunks
         self._writer = writer
-        self.encode_s = 0.0
+        self.rid = rid
 
     def _encode(self, fn, *a) -> bytes:
-        t0 = time.perf_counter()
-        data = fn(*a)
-        self.encode_s += time.perf_counter() - t0
-        return data
+        with TELEMETRY.span("engine.encode", rid=self.rid):
+            return fn(*a)
 
     async def __aiter__(self):
         async for chunk in self._chunks:
@@ -291,7 +344,8 @@ async def decode_stream(engine: "AudioBatchEngine", params: dict
     await stream.push(np.asarray(params["tokens"], np.int32))
     await stream.finish()
     return 200, {"Content-Type": FORMATS[fmt], "X-Sample-Rate": str(sr),
-                 "Cache-Control": "no-cache"}, AudioBody(stream, writer)
+                 "Cache-Control": "no-cache"}, AudioBody(stream, writer,
+                                                    stream.rid)
 
 
 class AudioBatcherHTTPServer:

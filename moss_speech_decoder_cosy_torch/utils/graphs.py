@@ -7,6 +7,7 @@ shows it holds every kernel of the work it traced."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -16,6 +17,7 @@ import torch
 from ..ops.fused_block import launch_fused_tf_group
 from ..ops.fused_conformer import launch_fused_conformer_group
 from .flops import DispatchMeter
+from .profiling import TELEMETRY
 
 # the wrappers whose launch counts a replayed graph adds to
 _COUNTERS = (launch_fused_tf_group, launch_fused_conformer_group)
@@ -34,6 +36,15 @@ def _raw_events(prof):
     return prof.profiler.kineto_results.events()
 
 
+def _device_work(e) -> bool:
+    """A device-side event that is work: not the device-side copy of a
+    ``record_function`` region (the telemetry store's spans open one while
+    a profiler records), which spans the kernels it encloses."""
+    from torch.autograd import DeviceType
+    return e.device_type() == DeviceType.CUDA and not (
+        hasattr(e, "is_user_annotation") and e.is_user_annotation())
+
+
 def trace_tables(prof) -> Tuple[Dict[str, list], Dict[str, int]]:
     """({name: [count, device seconds]} of the device-side events with a
     duration (kernels, copies, fills; the markers left out), {name: count}
@@ -45,7 +56,7 @@ def trace_tables(prof) -> Tuple[Dict[str, list], Dict[str, int]]:
     for e in _raw_events(prof):
         name = e.name()
         if e.device_type() == DeviceType.CUDA:
-            if MARKER not in name and e.duration_ns() > 0:
+            if _device_work(e) and MARKER not in name and e.duration_ns() > 0:
                 k = kernels.setdefault(name, [0, 0.0])
                 k[0] += 1
                 k[1] += e.duration_ns() * 1e-9
@@ -65,7 +76,6 @@ def profiled_window():
     to its last kernel) and ``edges`` (whether a marker was traced before
     the block's first kernel, and one after its last; with both, every
     kernel the block ran is in the trace)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def markers():
@@ -87,7 +97,7 @@ def profiled_window():
         markers()
     work, marks = [], []
     for e in _raw_events(prof):
-        if e.device_type() == DeviceType.CUDA:
+        if _device_work(e):
             (marks if MARKER in e.name() else work).append(e.start_ns())
     rec["profile"] = prof
     if not work:
@@ -117,7 +127,13 @@ class StepGraphs:
     a FLOP tally and every call is counted.  Every graph is
     captured into one memory pool, so their temporaries share memory: a step
     writes its results into persistent buffers (``fn`` returns nothing) and
-    the graphs replay one at a time on one stream."""
+    the graphs replay one at a time on one stream.
+
+    ``captures`` and ``replays`` count each key's captures and replays
+    (without graphs ``captures`` counts each key's first call, the call
+    that would capture); each replay is a span ``graphs.<key[0]>`` of the
+    telemetry store (``utils/profiling.TELEMETRY``), the host's side of the
+    launch."""
 
     def __init__(self, device: torch.device, enabled: bool,
                  meter: Optional[DispatchMeter] = None):
@@ -125,7 +141,8 @@ class StepGraphs:
         self.enabled = bool(enabled) and device.type == "cuda"
         self.meter = meter
         self.graphs: Dict[tuple, tuple] = {}   # key -> (graph, launches)
-        self.replays = 0                       # graph replays so far
+        self.captures: Dict[tuple, int] = collections.Counter()
+        self.replays: Dict[tuple, int] = collections.Counter()
         self._stream = None
         self._pool = None
 
@@ -135,15 +152,18 @@ class StepGraphs:
             if ran:                    # the key's first metered call: eager
                 return
         if not self.enabled:
+            if key not in self.captures:
+                self.captures[key] = 1
             fn()
             return
         got = self.graphs.get(key)
         if got is None:
             self.graphs[key] = self._capture(fn)
+            self.captures[key] += 1
             return
         graph, launched = got
-        graph.replay()
-        self.replays += 1
+        TELEMETRY.call(f"graphs.{key[0]}", graph.replay)
+        self.replays[key] += 1
         for counter, n in launched:
             counter.launches += n
 

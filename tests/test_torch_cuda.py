@@ -1012,6 +1012,8 @@ def test_boot_warmup_batcher_then_no_new_capture(card):
         np.zeros((1, cfg.spk_embed_dim), np.float32))
     boot_warmup_batcher(b, prompt=prompt, verbose=False)
     before = _graph_ids(b)
+    captures = dict(b._steps.captures)
+    assert set(captures) == set(before)
     assert {("tick",), ("enc",), ("voc",)} <= set(before)
     assert len([k for k in before if k[0] == "fin"]) == b.hop
     rng = np.random.RandomState(1)
@@ -1028,7 +1030,37 @@ def test_boot_warmup_batcher_then_no_new_capture(card):
         while b._lanes[lane].active:
             got += sum(v.shape[1] for v in b.pump(max_iters=8).values())
         assert got > 0
-    assert _graph_ids(b) == before
+    assert _graph_ids(b) == before and dict(b._steps.captures) == captures
+    assert b._steps.replays[("tick",)] > 0
+
+
+def test_telemetry_device_spans_resolve_lazily(card):
+    """A span with ``device`` times its work between CUDA events, resolved
+    without a synchronize once the work has passed (or on a wait), and
+    records no event inside a graph capture."""
+    from moss_speech_decoder_cosy_torch.utils.profiling import LatencyStats
+    st = LatencyStats()
+    torch.cuda.synchronize()
+    with st.span("slow", device=card):
+        torch.cuda._sleep(50_000_000)
+    st.resolve()
+    assert st.spans("slow")[0].device_ms is None    # still running
+    st.resolve(wait=True)
+    assert st.spans("slow")[0].device_ms > 1.0
+    x = torch.zeros(8, device=card)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        x.add_(1)
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph, stream=stream):
+        with st.span("captured", device=card):
+            x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    st.resolve(wait=True)
+    assert st.spans("captured")[0].device_ms is None
+    assert float(x[0]) == 2.0
 
 
 class _TeeEngine:
@@ -1044,7 +1076,7 @@ class _TeeEngine:
         stream = await self.engine.open(**kw)
 
         class Tee:
-            push, finish = stream.push, stream.finish
+            push, finish, rid = stream.push, stream.finish, stream.rid
 
             async def __aiter__(self):
                 async for c in stream:
@@ -1286,7 +1318,8 @@ def test_asr_graphed_decodes_equal_eager(card, dtype):
     steps = asr.steps.steps
     assert len(steps.graphs) == 3 and not eager.steps.graphs
     # 3 segments x 4 decodes x 15 steps, the 3 first calls capturing
-    assert steps.replays == 3 * 4 * 15 - 3
+    assert sum(steps.replays.values()) == 3 * 4 * 15 - 3
+    assert sum(steps.captures.values()) == 3
     got = asr.transcribe(ids, temperatures=(0.0, 0.7))
     assert len(got) == 3 and all(g.dtype == np.int32 for g in got)
 
@@ -1403,7 +1436,7 @@ def test_aot_compile_replays_equal_eager(card):
             assert float((call(x) - want).abs().max()) <= \
                 1e-6 * float(want.abs().max())
     assert list(call.graphs.graphs) == [("aot",)]
-    assert call.graphs.replays == 2
+    assert call.graphs.replays == {("aot",): 2}
     with pytest.raises(ValueError, match="compiled for"):
         call(torch.zeros(1, 9, 32, device=card))
 

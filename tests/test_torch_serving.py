@@ -66,6 +66,7 @@ from moss_speech_decoder_cosy_torch.serving import web_demo as TWD
 from moss_speech_decoder_cosy_torch.serving import ws_server as TWS
 from moss_speech_decoder_cosy_torch.tokenizer import config as TTC
 from moss_speech_decoder_cosy_torch.utils import config as TC
+from moss_speech_decoder_cosy_torch.utils.profiling import TELEMETRY
 from moss_speech_decoder_cosy_torch.weights import (
     flow_state_from_jax, hift_state_from_jax, tokenizer_state_from_jax)
 
@@ -339,7 +340,10 @@ def test_decode_stream_core(decoders):
 
     status, headers, body, data, chunks, bad, bad_body = asyncio.run(run())
     assert status == 200 and headers["Content-Type"] == "audio/L16"
-    assert headers["X-Sample-Rate"] == "24000" and body.encode_s > 0
+    assert headers["X-Sample-Rate"] == "24000"
+    encode = [sp for sp in TELEMETRY.spans("engine.encode")
+              if sp.rid == body.rid]
+    assert body.rid is not None and sum(sp.duration_s for sp in encode) > 0
     got = np.frombuffer(data, "<i2")
     want = (np.clip(np.concatenate(chunks, axis=1)[0], -1, 1)
             * 32767.0).astype("<i2")
