@@ -292,11 +292,11 @@ class AudioDecoder:
         streams are admitted and finished at any time.  ``kernel`` as in
         ``kv_stream_decoder`` (the per-row write mode of
         ``fused_tf_group``); ``graphs`` (on a CUDA device) replays the
-        wavefront tick, the encoder hop, the steady vocoder hop and the
-        finalize hop as CUDA graphs.  ``fused=False`` runs the concat dataflow
-        (the unfused engine); ``ring_quant`` int8 lane rings on the concat
-        dataflow, so ``fused`` defaults to ``not ring_quant`` and
-        ``fused=True`` with it raises."""
+        wavefront tick, the encoder hop, the first and the batched steady
+        vocoder hops and the finalize hop as CUDA graphs.  ``fused=False``
+        runs the concat dataflow (the unfused engine); ``ring_quant`` int8
+        lane rings on the concat dataflow, so ``fused`` defaults to ``not
+        ring_quant`` and ``fused=True`` with it raises."""
         if fused is None:
             fused = not ring_quant
         from .kv_batcher import KVContinuousBatcher

@@ -39,22 +39,35 @@ the ticks in which some lane advances, at most ``max_iters``: a tick in
 which no lane advances changes nothing, and the JAX package's burst of
 ``max_iters`` ticks gives the same state and audio.
 
-On CUDA (``graphs=True``, the default) four steps replay as CUDA graphs
+On CUDA (``graphs=True``, the default) five steps replay as CUDA graphs
 (``utils/graphs.StepGraphs``), each reading its per-call values from device
 tensors: one wavefront tick (``avail`` and ``k_total`` uploaded once per
 pump, the tick index counted on the device, each tick's exit mel and
 valid flag written into persistent ``(max_iters, lanes, cf, n_mel)`` and
 ``(max_iters, lanes)`` buffers), one lane's encoder hop (its lane index a
-device scalar), one lane's steady vocoder hop (its lane index a device
-scalar, its mel copied into a persistent input) and a stream's finalize
-hop (one graph per tail length, over the lane's caches sliced into a
-persistent scratch cache, its token count a device scalar).  The prefill,
-the admit-scatter, the lane slice, the lane clear and a stream's first and
-last vocoder hops run eagerly, once per stream.  The steady vocoder hop,
-replayed once per chunk, takes the place of the JAX package's
-``_voc_take_scan`` (a scan over a burst's chunks of one lane).  The host fetches
-the burst's valid flags once per pump and each lane's audio once per
-pump.
+device scalar), a stream's first vocoder hop (batch 1, its lane index a
+device scalar, its mel copied into a persistent input), one batched
+steady vocoder hop over every lane and a stream's finalize hop (one graph
+per tail length, over the lane's caches sliced into a persistent scratch
+cache, its token count a device scalar).  The prefill, the admit-scatter,
+the lane slice, the lane clear and a stream's last vocoder hop run
+eagerly, once per stream.
+
+The emit phase is tick-major.  For each tick of the burst in which some
+lane hands out a steady chunk, one replay of the vocoder hop runs every
+lane as a row of ``vocode_hop`` (the NSF draws shared, as the rows of a
+lockstep session share them): it reads the tick's mels from the burst
+buffer at a device tick index, writes the wav rows into a persistent
+``(max_iters, lanes, cf * u)`` buffer, and updates the vocoder caches of
+the lanes that emit a steady chunk at that tick, the other rows' caches
+left bit for bit as they were (a per-(tick, lane) mask built from the
+valid flags, uploaded with the ticks once per pump).  A stream's first
+chunk takes the first hop at its tick instead, and its finalize
+tail runs after its last steady chunk, so each lane's audio is the same
+sequence of hops as one lane vocoded alone.  These replays, at most one
+per tick, take the place of the JAX package's ``_voc_take_scan`` (a scan
+over a burst's chunks of one lane).  The host fetches the burst's valid
+flags once per pump and the burst's steady audio in one copy per pump.
 
 Telemetry (``utils/profiling.TELEMETRY``): each pump is a span
 ``batcher.pump`` with the children ``batcher.encode`` (the deferred
@@ -62,10 +75,12 @@ prefills and encoder hops), ``batcher.wave`` (the tick replays and the
 flags fetch) and ``batcher.emit`` (the vocoder hops and audio copies; each
 lane's finalize tail a ``batcher.finalize`` inside it), each with its
 device time between CUDA events at its edges.  The counters
-``batcher.ticks``, ``batcher.rows_computed`` (S x 2 x lanes a tick) and
+``batcher.ticks``, ``batcher.rows_computed`` (S x 2 x lanes a tick),
 ``batcher.rows_useful`` (the rows whose ring write is enabled, counted
-from the host mirror) grow once per pump; a lane keeps the ticks run from
-its prefill to its first chunk handed out (``first_ticks``).
+from the host mirror), ``batcher.voc_replays`` (batched steady vocoder
+hops) and ``batcher.voc_rows`` (steady lane-chunks vocoded by them) grow
+once per pump; a lane keeps the ticks run from its prefill to its first
+chunk handed out (``first_ticks``).
 """
 
 from __future__ import annotations
@@ -139,10 +154,11 @@ class KVContinuousBatcher:
     when ``fused_block.kernel_limit`` accepts the down, mid and up groups at
     the pool's ring (on the CPU its wrapper runs the plain version);
     ``kernel=True`` raises a ValueError naming the limit where it does not.
-    ``graphs`` replays the wavefront tick, the encoder hop, the steady
-    vocoder hop and the finalize hop as CUDA graphs on a CUDA device.  ``ticks`` counts the
-    wavefront ticks run.  ``fused=False`` runs the concat dataflow;
-    ``ring_quant=True`` (which needs it) keeps the lane rings in int8.
+    ``graphs`` replays the wavefront tick, the encoder hop, a stream's
+    first vocoder hop, the batched steady vocoder hop and the finalize hop
+    as CUDA graphs on a CUDA device.  ``ticks`` counts the wavefront ticks
+    run.  ``fused=False`` runs the concat dataflow; ``ring_quant=True``
+    (which needs it) keeps the lane rings in int8.
     ``meter`` (``utils/flops.py``), once enabled, counts the graphed steps
     and the eager calls; ``measured_flops()`` sums their FLOPs."""
 
@@ -254,18 +270,32 @@ class KVContinuousBatcher:
                                     device=dev)
         self._fin_ntok = longs()
         self._fin_out: Dict[int, torch.Tensor] = {}   # tail -> mel
-        # per-lane vocoder caches, and the steady vocoder hop's operands
+        # per-lane vocoder caches, and the batched steady vocoder hop's
+        # operands: every lane's mel, its audio, the lanes whose caches it
+        # updates
         self._voc_pool = KVVocState(
             torch.zeros((lanes, self.mel_cache_len, n_mel), device=dev),
             torch.zeros((lanes, self.scl, 1), device=dev),
             torch.zeros((lanes, self.scl), device=dev))
-        self._voc_in = torch.zeros((1, cf, n_mel), device=dev)
+        self._voc_in = torch.zeros((lanes, cf, n_mel), device=dev)
         u = self.dec.hift_cfg.total_upsample
-        self._voc_out = torch.zeros((1, cf * u), device=dev)
-        self._voc_draws = None
-        self._lane_idx = longs(1)           # the lane of an enc / voc step
+        self._voc_out = torch.zeros((lanes, cf * u), device=dev)
+        self._voc_keep = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+        # a stream's first vocoder hop: one lane's mel and audio
+        self._first_in = torch.zeros((1, cf, n_mel), device=dev)
+        self._first_out = torch.zeros((1, cf * u - self.scl), device=dev)
+        self._voc_draws = self._first_draws = None    # made at use
+        self._all_lanes = torch.arange(lanes, device=dev)
+        # the lane of an encoder hop or a first vocoder hop (entry 0), the
+        # rows of a steady vocoder hop (every lane)
+        self._lane_idx = longs(lanes)
         self._tick = longs(1)               # the tick of a burst
-        self._burst_out = None              # (mels, oks), made at use
+        self._voc_k = longs(1)              # the vocoder replay of a burst
+        # made at use, with max_iters rows: (mels, oks) of the ticks; the
+        # steady audio of the ticks; a row per vocoder replay: its tick,
+        # then its lanes' cache-update flags
+        self._burst_out = self._voc_wav = self._voc_plan = None
+        self._emit_t = 0                    # the tick being handed out
         self.ticks = 0
 
     def _lane_view(self, pool: torch.Tensor, lane: int) -> torch.Tensor:
@@ -308,7 +338,7 @@ class KVContinuousBatcher:
         """One encoder hop of the lane at ``_lane_idx`` (the JAX package's
         ``_enc_hops_impl`` body): its next chunk and lookahead at its device
         token count, its encoder caches, mu into its chunk slot."""
-        lane = self._lane_idx
+        lane = self._lane_idx[:1]
         enc = {k: v.index_select(0, lane)[0] for k, v in self._enc.items()}
         n_tok = self._n_tok.index_select(0, lane).reshape(())
         off = n_tok - self._plen.index_select(0, lane).reshape(())
@@ -326,8 +356,8 @@ class KVContinuousBatcher:
         self._n_tok.index_copy_(0, lane, (n_tok + self.hop).reshape(1))
 
     def _voc_state(self, lane) -> KVVocState:
-        """The vocoder caches of ``lane`` (a host int or a (1,) device
-        index)."""
+        """The vocoder caches of ``lane`` (a host int), or of the lanes a
+        device index tensor lists."""
         pools = _voc_fields(self._voc_pool)
         if torch.is_tensor(lane):
             return KVVocState(*(a.index_select(0, lane) for a in pools))
@@ -340,15 +370,54 @@ class KVContinuousBatcher:
                           finalize, draws)
 
     def _voc_step_impl(self) -> None:
-        """One steady vocoder hop of the lane at ``_lane_idx`` over the mel
-        in ``_voc_in``: the audio into ``_voc_out``, the lane's caches
-        updated."""
+        """One steady vocoder hop of the lanes at ``_lane_idx`` (every lane,
+        one row each) over their mels in ``_voc_in``: the audio into
+        ``_voc_out``, the caches of the lanes ``_voc_keep`` flags updated,
+        the other lanes' caches left as they were."""
         lane = self._lane_idx
-        wav, new = self._vocode(self._voc_in, self._voc_state(lane), False,
-                                False, self._voc_draws)
+        old = self._voc_state(lane)
+        wav, new = self._vocode(self._voc_in, old, False, False,
+                                self._voc_draws)
         self._voc_out.copy_(wav)
+        for pool, was, v in zip(_voc_fields(self._voc_pool), _voc_fields(old),
+                                _voc_fields(new)):
+            keep = self._voc_keep.view((-1,) + (1,) * (v.dim() - 1))
+            pool.index_copy_(0, lane, torch.where(keep, v.to(pool.dtype), was))
+
+    def _voc_first_impl(self) -> None:
+        """A stream's first vocoder hop (no caches, no cross-fade) over the
+        chunk in ``_first_in``: the audio into ``_first_out``, the caches of
+        the lane at ``_lane_idx[0]`` set."""
+        lane = self._lane_idx[:1]
+        wav, new = self._vocode(self._first_in, None, True, False,
+                                self._first_draws)
+        self._first_out.copy_(wav)
         for pool, v in zip(_voc_fields(self._voc_pool), _voc_fields(new)):
             pool.index_copy_(0, lane, v.to(pool.dtype))
+
+    def _make_draws(self) -> None:
+        """The NSF draws of the first and the steady vocoder hops (HiFT's
+        own, for their lengths), made once: a graph reads them."""
+        if self._voc_draws is None:
+            h, u = self.dec.hift, self.dec.hift_cfg.total_upsample
+            harmonics = h.cfg.nb_harmonics + 1
+            self._first_draws = h.draws(harmonics, self.cf * u, self.dev)
+            self._voc_draws = h.draws(
+                harmonics, (self.mel_cache_len + self.cf) * u, self.dev)
+
+    def _voc_hop_impl(self) -> None:
+        """The burst's next batched steady vocoder hop (replay ``_voc_k`` of
+        the pump, counted on the device): its row of ``_voc_plan`` names
+        the tick, whose mels ``_voc_in`` takes from the burst buffer, and
+        the lanes whose caches the hop updates; ``_voc_step_impl``; its
+        audio into the tick's row of ``_voc_wav``; then ``_voc_k`` += 1."""
+        plan = self._voc_plan.index_select(0, self._voc_k)[0]
+        tick = plan[:1]
+        self._voc_in.copy_(self._burst_out[0].index_select(0, tick)[0])
+        self._voc_keep.copy_(plan[1:] != 0)
+        self._voc_step_impl()
+        self._voc_wav.index_copy_(0, tick, self._voc_out[None])
+        self._voc_k.add_(1)
 
     # ----------------------------------------------------------- lifecycle
     @torch.inference_mode()
@@ -473,6 +542,20 @@ class KVContinuousBatcher:
         with TELEMETRY.span("batcher.pump"):
             return self._pump(max_iters)
 
+    def _alloc_burst(self, max_iters: int) -> None:
+        """The burst's buffers for ``max_iters`` ticks; the graphs that
+        read the old ones are dropped."""
+        dev, lanes = self.dev, self.lanes
+        self._burst_out = (
+            torch.zeros((max_iters, lanes, self.cf, self.n_mel), device=dev),
+            torch.zeros((max_iters, lanes), dtype=torch.bool, device=dev))
+        self._voc_wav = torch.zeros((max_iters,) + tuple(self._voc_out.shape),
+                                    device=dev)
+        self._voc_plan = torch.zeros((max_iters, 1 + lanes), dtype=torch.long,
+                                     device=dev)
+        for key in (("tick",), ("voc",)):
+            self._steps.graphs.pop(key, None)
+
     def _useful_rows(self, live, ak: np.ndarray, n_ticks: int) -> int:
         """The rows of the next ``n_ticks`` ticks whose ring write is
         enabled (the kernel's per-row write flag), from the host mirror:
@@ -529,56 +612,83 @@ class KVContinuousBatcher:
             if n_ticks:
                 if self._burst_out is None or \
                         self._burst_out[0].shape[0] < max_iters:
-                    self._burst_out = (
-                        torch.zeros((max_iters, self.lanes, self.cf,
-                                     self.n_mel), device=self.dev),
-                        torch.zeros((max_iters, self.lanes),
-                                    dtype=torch.bool, device=self.dev))
-                    self._steps.graphs.pop(("tick",), None)  # new buffers
+                    self._alloc_burst(max_iters)
                 self._tick.zero_()
                 for _ in range(n_ticks):
                     self._steps.run(("tick",), self._tick_impl)
                 self.ticks += n_ticks
                 oks_np = self._burst_out[1][:n_ticks].cpu().numpy()
-        mels = self._burst_out[0] if n_ticks else None
         out: Dict[int, np.ndarray] = {}
         with tel.span("batcher.emit", device=dev):
+            # each lane's segments in order: the wav of its first hop, or
+            # the tick of a steady chunk (a row of the burst's audio)
+            segs: Dict[int, list] = {}
+            steady = np.zeros(oks_np.shape, bool)
+            for t, lane in zip(*np.nonzero(oks_np)):        # tick-major
+                t, lane = int(t), int(lane)
+                st = self._lanes[lane]
+                if not st.active:
+                    continue
+                self._emit_t = t
+                wav = self._emit(lane, st, self._burst_out[0][t, lane][None])
+                steady[t, lane] = wav is None
+                segs.setdefault(lane, []).append(t if wav is None else wav)
+            burst = self._vocode_burst(steady) if steady.any() else None
             for lane, st in enumerate(self._lanes):
                 if not st.active:
                     continue
-                segs = []
-                for t in np.nonzero(oks_np[:, lane])[0]:
-                    segs.append(self._emit(lane, st, mels[t, lane][None]))
+                parts = [burst[s, lane][None] if isinstance(s, int)
+                         else s.cpu().numpy() for s in segs.get(lane, ())]
                 if st.finished and st.w_emitted >= st.k_total:
                     with tel.span("batcher.finalize", device=dev):
-                        segs.extend(self._finalize_lane(lane, st))
+                        parts.extend(w.cpu().numpy() for w in
+                                     self._finalize_lane(lane, st))
                     st.active = False
-                if segs:
-                    out[lane] = torch.cat(segs, dim=1).cpu().numpy()
+                if parts:
+                    out[lane] = np.concatenate(parts, axis=1)
                     if st.first_ticks is None:
                         st.first_ticks = self.ticks - st.tick0
         return out
 
-    def _emit(self, lane: int, st: _Lane, mel: torch.Tensor) -> torch.Tensor:
-        """Vocodes one wavefront chunk of the lane: the stream's first
-        eagerly, a steady one through the (graphed) vocoder step."""
+    def _emit(self, lane: int, st: _Lane,
+              mel: torch.Tensor) -> Optional[torch.Tensor]:
+        """Vocodes one wavefront chunk of the lane, handed out at tick
+        ``_emit_t`` of the burst: the stream's first through the (graphed)
+        first hop (returns its wav); a steady one is staged for the tick's
+        batched hop (returns None), which reads it from its slot of the
+        burst buffer, where the wavefront wrote it (a chunk handed in from
+        elsewhere is copied there)."""
         st.w_emitted += 1
         if st.first_voc:
             st.first_voc = False
-            wav, new = self.meter.call(
-                ("voc_first",), lambda: self._vocode(mel, None, True, False))
-            for pool, v in zip(_voc_fields(self._voc_state(lane)),
-                               _voc_fields(new)):
-                pool.copy_(v)
-            return wav
-        if self._voc_draws is None:
-            h = self.dec.hift
-            n = (self.mel_cache_len + self.cf) * self.dec.hift_cfg.total_upsample
-            self._voc_draws = h.draws(h.cfg.nb_harmonics + 1, n, self.dev)
-        self._voc_in.copy_(mel)
-        self._lane_idx.fill_(lane)
-        self._steps.run(("voc",), self._voc_step_impl)
-        return self._voc_out.clone()
+            self._make_draws()
+            self._first_in.copy_(mel)
+            self._lane_idx.fill_(lane)
+            self._steps.run(("voc_first",), self._voc_first_impl)
+            return self._first_out.clone()
+        slot = self._burst_out[0][self._emit_t, lane]
+        if mel.data_ptr() != slot.data_ptr():
+            slot.copy_(mel.reshape(slot.shape))
+        return None
+
+    def _vocode_burst(self, steady: np.ndarray) -> np.ndarray:
+        """The burst's steady chunks, ``steady`` (ticks, lanes) flags from
+        the host mirror: one batched vocoder hop per tick that has one (the
+        plan uploaded once), then the audio of the burst's ticks in one
+        copy, (ticks, lanes, samples) float32 on the host."""
+        self._make_draws()
+        ticks = np.nonzero(steady.any(axis=1))[0]
+        plan = np.zeros(tuple(self._voc_plan.shape), np.int64)
+        plan[:len(ticks), 0] = ticks
+        plan[:len(ticks), 1:] = steady[ticks]
+        self._voc_plan.copy_(torch.from_numpy(plan))
+        self._voc_k.zero_()
+        self._lane_idx.copy_(self._all_lanes)
+        for _ in ticks:
+            self._steps.run(("voc",), self._voc_hop_impl)
+        TELEMETRY.count("batcher.voc_replays", len(ticks))
+        TELEMETRY.count("batcher.voc_rows", int(steady.sum()))
+        return self._voc_wav[:steady.shape[0]].cpu().numpy()
 
     def _fin_hop_impl(self, tail: int) -> None:
         """The finalize hop of ``tail`` tokens (the JAX package's

@@ -82,9 +82,9 @@ def boot_warmup_batcher(batcher, prompt=None, pump_iters: int = 8,
     """Warms the continuous batcher (``pipeline/kv_batcher.py``) that will
     serve: the lane prefill with the prompt geometry real requests use, the
     promptless admit, the encoder hop, the wavefront tick at ``pump_iters``
-    (the engine's), the steady vocoder hop and, with ``warm_tails``, one
-    finalize hop per possible tail length (tail = lookahead + (n -
-    lookahead) % hop).  On the card each of those steps is captured as a
+    (the engine's), the first and the batched steady vocoder hops and,
+    with ``warm_tails``, one finalize hop per possible tail length (tail =
+    lookahead + (n - lookahead) % hop).  On the card each of those steps is captured as a
     CUDA graph here, so requests after it only replay.
 
     Warm the instance that will serve: graphs belong to their batcher."""

@@ -1034,6 +1034,93 @@ def test_boot_warmup_batcher_then_no_new_capture(card):
     assert b._steps.replays[("tick",)] > 0
 
 
+# the batched steady vocoder hop against lane-by-lane hops in bf16: eight
+# bf16 ulps of the peak (2 ** -5); the two differ only where a convolution
+# rounds differently at another batch
+BF16_LANES_TOL = 2.0 ** -5
+
+
+def test_batched_vocoder_hop_matches_per_lane_bf16(card):
+    """bf16 lanes on the card, graphed: three staggered streams (the second
+    admitted after the first pump, the third after the second), each
+    lane's audio from the batched steady vocoder hop against the same
+    chunks' mels vocoded lane by lane with ``vocode_hop`` at batch 1,
+    within ``BF16_LANES_TOL`` of the peak."""
+    from moss_speech_decoder_cosy_torch.pipeline import AudioDecoder
+    from moss_speech_decoder_cosy_torch.pipeline.kv_session import (
+        vocode_hop)
+    from moss_speech_decoder_cosy_torch.utils import config as C
+    from moss_speech_decoder_cosy_torch.weights import seeded_states
+
+    flow_cfg, hift_cfg = C.tiny_flow_config(), C.tiny_hift_config()
+    flow_state, hift_state = seeded_states(flow_cfg, hift_cfg)
+    hift_state = dict(hift_state, **{
+        "conv_post.g": hift_state["conv_post.g"] * 100.0})
+    dec = AudioDecoder(flow_cfg, hift_cfg, flow_state, hift_state,
+                       C.PipelineConfig(block_size=3, mel_cache_len=2,
+                                        max_token_len=9),
+                       compute_dtype=torch.bfloat16, device=card)
+    b = dec.kv_batcher(n_lanes=3, ring_tokens=6, token_cap=64)
+    assert b._graphs and b.dt == torch.bfloat16
+    hops, fin_lane = {}, [None]
+    emit, vocode, finalize = b._emit, b._vocode, b._finalize_lane
+
+    def rec_emit(lane, st, mel):
+        hops.setdefault(lane, []).append(
+            ("first" if st.first_voc else "steady", mel.clone()))
+        return emit(lane, st, mel)
+
+    def rec_finalize(lane, st):
+        fin_lane[0] = lane
+        return finalize(lane, st)
+
+    def rec_vocode(mel, voc, first, fin, draws=None):
+        if fin:
+            hops[fin_lane[0]].append(("fin", mel.clone()))
+        return vocode(mel, voc, first, fin, draws)
+
+    b._emit, b._finalize_lane, b._vocode = rec_emit, rec_finalize, rec_vocode
+    rng = np.random.RandomState(13)
+    streams = [(rng.randn(1, flow_cfg.spk_embed_dim).astype(np.float32),
+                rng.randint(0, flow_cfg.vocab_size, (1, n)))
+               for n in (27, 21, 15)]
+    got = {}
+
+    def pump():
+        for lane, wav in b.pump(max_iters=4).items():
+            got.setdefault(lane, []).append(wav)
+
+    lanes = []
+    for i, (emb, toks) in enumerate(streams):
+        lanes.append(b.admit(np.zeros((1, 0), np.int32),
+                             np.zeros((1, 0, b.n_mel), np.float32), emb))
+        b.push(lanes[-1], toks)
+        if i:
+            b.finish(lanes[i - 1])
+        pump()
+    b.finish(lanes[-1])
+    while b.free_lanes < 3:
+        pump()
+    assert b._steps.replays[("voc",)] > 0
+    steady = sum(k == "steady" for h in hops.values() for k, _ in h)
+    assert steady > b._steps.replays[("voc",)] + b._steps.captures[("voc",)]
+    for lane in lanes:
+        wavs, voc = [], None
+        for kind, mel in hops[lane]:
+            with torch.inference_mode():
+                wav, voc = vocode_hop(
+                    dec.hift, b._fade_in, b._fade_out, b.mel_cache_len,
+                    b.dt, mel, voc, kind == "first", kind == "fin",
+                    b._voc_draws if kind == "steady" else None)
+            wavs.append(wav)
+        want = torch.cat(wavs, dim=1).cpu().numpy()
+        have = np.concatenate(got[lane], axis=1)
+        peak = float(np.abs(want).max())
+        err = float(np.abs(have - want).max())
+        assert have.shape == want.shape and peak > 0.01
+        assert err <= BF16_LANES_TOL * peak, (lane, err, peak)
+
+
 def test_telemetry_device_spans_resolve_lazily(card):
     """A span with ``device`` times its work between CUDA events, resolved
     without a synchronize once the work has passed (or on a wait), and

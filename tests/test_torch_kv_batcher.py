@@ -26,6 +26,11 @@ port's NSF source gets the JAX draws.
   rings (int8 values equal, scales and the rest within 2e-5) and the
   staggered protocol against the JAX batcher with ``ring_quant=True``,
   within 2e-5.
+- The batched steady vocoder hop: three staggered lanes, each lane's audio
+  against its chunks' mels vocoded lane by lane with ``vocode_hop`` within
+  2e-5, the caches of the lanes a hop does not update bit for bit
+  unchanged, and the ``batcher.voc_replays`` / ``batcher.voc_rows``
+  counters.
 - The dispatch meter: a second identical run doubles the dispatches and
   the FLOPs (the JAX package's ``test_dispatch_meter_aggregate_flops``).
 - The kernel gate.
@@ -330,6 +335,124 @@ def test_lane_recycled_after_drain_starts_clean(setup):
     chunks = {}
     _drain(fresh, lane, chunks)
     np.testing.assert_array_equal(runs[1], np.concatenate(chunks[lane], 1))
+
+
+# ------------------------------------------------- the batched vocoder hop
+def test_batched_steady_hop_matches_per_lane_hops(setup):
+    """Three staggered lanes, so that one pump holds a tick where only some
+    lanes emit, a stream's first hop beside another lane's steady hop in
+    the same tick, and a finalize: each lane's audio equals its
+    chunks' mels vocoded lane by lane with ``vocode_hop`` at batch 1 (to
+    f32 rounding), every batched hop leaves the caches of the lanes it
+    does not update bit for bit as they were, and ``batcher.voc_replays`` /
+    ``batcher.voc_rows`` count the hops and the steady chunks that ran."""
+    from moss_speech_decoder_cosy_torch.pipeline.kv_batcher import (
+        _voc_fields)
+    from moss_speech_decoder_cosy_torch.pipeline.kv_session import (
+        vocode_hop)
+    from moss_speech_decoder_cosy_torch.utils.profiling import TELEMETRY
+    A, _, C = setup["streams"]
+    # 6 chunks: its steady hops run on through the pump of C's first
+    B = _mk_stream(setup["cfg"], np.random.RandomState(11), 2, 15)
+    b = setup["tdec"].kv_batcher(n_lanes=3, block_size=HOP,
+                                 ring_tokens=RING, token_cap=64)
+    hops = {}          # lane -> [(kind, mel)] in the order the lane ran them
+    events = []        # (pump, tick or None, lane, kind)
+    replays, pump_no, fin_lane = [], [0], [None]
+    emit, vocode, step = b._emit, b._vocode, b._voc_step_impl
+    finalize = b._finalize_lane
+
+    def rec_emit(lane, st, mel):
+        kind = "first" if st.first_voc else "steady"
+        hops.setdefault(lane, []).append((kind, mel.clone()))
+        events.append((pump_no[0], b._emit_t, lane, kind))
+        return emit(lane, st, mel)
+
+    def rec_finalize(lane, st):
+        fin_lane[0] = lane
+        return finalize(lane, st)
+
+    def rec_vocode(mel, voc, first, fin, draws=None):
+        if fin:
+            hops[fin_lane[0]].append(("fin", mel.clone()))
+            events.append((pump_no[0], None, fin_lane[0], "fin"))
+        return vocode(mel, voc, first, fin, draws)
+
+    def checked_step():
+        before = [a.clone() for a in _voc_fields(b._voc_pool)]
+        step()
+        keep = b._voc_keep.clone()
+        assert keep.any()
+        for a, was in zip(_voc_fields(b._voc_pool), before):
+            assert torch.equal(a[~keep], was[~keep])
+        replays.append((pump_no[0], keep))
+
+    b._emit, b._vocode, b._voc_step_impl = rec_emit, rec_vocode, checked_step
+    b._finalize_lane = rec_finalize
+    got = {}
+
+    def pump():
+        pump_no[0] += 1
+        for lane, wav in b.pump(max_iters=4).items():
+            got.setdefault(lane, []).append(wav)
+
+    TELEMETRY.clear()
+    enabled = TELEMETRY.enabled
+    TELEMETRY.enabled = True
+    try:
+        la = b.admit(*A[:3])
+        b.push(la, A[3])
+        pump()
+        lb = b.admit(*B[:3])
+        b.push(lb, B[3])
+        b.finish(la)
+        pump()
+        lc = b.admit(*C[:3])
+        b.push(lc, C[3])
+        b.finish(lb)
+        b.finish(lc)
+        while b.free_lanes < 3:
+            pump()
+        counters = dict(TELEMETRY.counters)
+    finally:
+        TELEMETRY.enabled = enabled
+
+    # one pump holds all four cases
+    def has_all(p):
+        ticks = {}
+        for q, t, lane, kind in events:
+            if q == p and t is not None:
+                ticks.setdefault(t, {})[lane] = kind
+        live = {lane for q, _, lane, _ in events if q == p}
+        return (any(k == "fin" for q, _, _, k in events if q == p)
+                and any(set(d) < live and "steady" in d.values()
+                        for d in ticks.values())
+                and any("first" in d.values() and "steady" in d.values()
+                        for d in ticks.values()))
+    assert any(has_all(p) for p in range(1, pump_no[0] + 1))
+
+    fade_in, fade_out = b._fade_in, b._fade_out
+    for lane in (la, lb, lc):
+        wavs, voc = [], None
+        for kind, mel in hops[lane]:
+            with torch.inference_mode():
+                wav, voc = vocode_hop(
+                    b.dec.hift, fade_in, fade_out, b.mel_cache_len, b.dt,
+                    mel, voc, kind == "first", kind == "fin",
+                    b._voc_draws if kind == "steady" else None)
+            wavs.append(wav)
+        want = torch.cat(wavs, dim=1).numpy()
+        have = np.concatenate(got[lane], axis=1)
+        assert have.shape == want.shape and np.abs(want).max() > 0.05
+        np.testing.assert_allclose(have, want, atol=TOL, rtol=0)
+
+    n_steady = sum(kind == "steady" for q, _, _, kind in events)
+    assert counters["batcher.voc_replays"] == len(replays)
+    assert counters["batcher.voc_rows"] == n_steady == sum(
+        int(k.sum()) for _, k in replays)
+    per_pump = [sum(q == p for q, _ in replays)
+                for p in range(1, pump_no[0] + 1)]
+    assert max(per_pump) <= 4 and len(replays) < n_steady
 
 
 # ------------------------------------------------------- gate and options
