@@ -7,11 +7,12 @@ reference as the check compares the program.
 
 For each seed: the weights and the traffic of that seed, a sample drawn as a
 run draws it (the longest and ``sample - 1`` others, here from the first
-``--first`` requests, which a run's window finishes), each request decoded
-by the reference in float32 and in the control's precision (the cell's
-``check.control``), and the check's readings of the pair.  Prints one JSON
-line per seed; the benchmark's runs never run this.  A cell's limits sit
-between the program's readings over a dozen seeds and these.
+``--first`` requests, which a run's window finishes), each request's
+reference output (the configuration's family, ``families/``) in float32 and
+in the control's precision (the cell's ``check.control``), and the check's
+readings of the pair.  Prints one JSON line per seed; the benchmark's runs
+never run this.  A cell's limits sit between the program's readings over a
+dozen seeds and these.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ if str(REPO) not in sys.path:
 
 def control_readings(cell, seed: int, device, precision: str = None,
                      first: int = 64) -> dict:
-    from port_bench.harness import check, weights
+    from port_bench.harness import check
     from port_bench.harness.traffic import Traffic
     precision = precision or cell.cell["check"]["control"]
     traffic = Traffic(cell.traffic, seed)
@@ -37,21 +38,15 @@ def control_readings(cell, seed: int, device, precision: str = None,
     lengths = {r.index: r.n_tokens for r in reqs}
     sample = check.choose(list(lengths), lengths, cell.cell["check"]["sample"],
                           seed)
-    ref = cell.reference()
-    fw, hw = weights.model_states(cell.config, seed, device)
+    fam = cell.family()
+    states = fam.states(cell, seed, device)
     pairs = []
     for i in sample:
-        r = reqs[i]
-        want = ref.decode(cell.config, fw, hw, r.tokens, r.speaker, device)
-        got = ref.decode(cell.config, fw, hw, r.tokens, r.speaker, device,
-                         precision=precision)
-        if cell.cell["check"].get("pcm16"):
-            want, got = check.pcm16(want), check.pcm16(got)
+        want = fam.reference_output(cell, reqs[i], states, device)
+        got = fam.reference_output(cell, reqs[i], states, device,
+                                   precision=precision)
         pairs.append((got, want))
-    sr, hop = cell.config["hift"]["sampling_rate"], check.frame_hop(
-        cell.config)
-    readings = check.compare(pairs, sr, hop)
-    each = check.per_request(pairs, sr, hop)
+    readings, each = fam.compare(cell, pairs)
     ok, _ = check.verdict(readings, cell.cell["check"]["limits"])
     return {"seed": seed, "precision": precision, "readings": readings,
             "passes_check": ok,

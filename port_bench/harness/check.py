@@ -1,11 +1,13 @@
-"""How ``correct`` is decided: the served waveforms against the plain
+"""How ``correct`` is decided: the served outputs against the plain
 reference.
 
 Once the window has closed and the program is freed, a sample of the
 requests the program finished is drawn from the seed, the longest among
-them.  The reference decodes each from the same tokens and speaker vector
-with the same weights (drawn again from the seed), and the numbers compared
-are:
+them (``choose``), and each compared number is held to its limit
+(``verdict``).  What is compared is the configuration's family's
+(``families/<family>.py``).  For the decoder family the reference decodes
+each request from the same tokens and speaker vector with the same weights
+(drawn again from the seed), and the numbers compared are:
 
 - ``wav_gap``: ||served - reference|| / ||reference|| over all the sampled
   audio (a served pcm16 body read back as int16 / 32767, against the

@@ -12,7 +12,13 @@ files only:
   (``traffic.py``);
 - ``drivers/<driver>.py``: the entry driver (a ``Driver`` class);
 - ``reference/<config>.py``: the plain reference of the configuration;
+- ``families/<family>.py``: the check's model-specific steps (the seeded
+  weights, the reference output of a served request, the readings), named
+  by the configuration's ``family`` key, ``decoder`` where it names none;
 - ``metrics/<metric>.py``: one per-layer metric's reader (``read(run)``).
+
+Every directory is looked up under the cell's ``root`` (``port_bench/``);
+a test fixture laid out the same way elsewhere passes its own.
 """
 
 from __future__ import annotations
@@ -40,9 +46,14 @@ def _name(kind: str, value) -> str:
     return value
 
 
+def _missing(path: Path) -> SpecError:
+    shown = path.relative_to(REPO) if path.is_relative_to(REPO) else path
+    return SpecError(f"missing file {shown}")
+
+
 def _json(path: Path) -> dict:
     if not path.is_file():
-        raise SpecError(f"missing file {path.relative_to(REPO)}")
+        raise _missing(path)
     with open(path) as f:
         return json.load(f)
 
@@ -50,7 +61,7 @@ def _json(path: Path) -> dict:
 def load_module(path: Path, label: str) -> ModuleType:
     """The Python file at ``path`` as a module (names may hold dots)."""
     if not path.is_file():
-        raise SpecError(f"missing file {path.relative_to(REPO)}")
+        raise _missing(path)
     safe = "port_bench_" + re.sub(r"[^A-Za-z0-9_]", "_", label)
     spec = importlib.util.spec_from_file_location(safe, path)
     mod = importlib.util.module_from_spec(spec)
@@ -68,6 +79,7 @@ class Cell:
     traffic: dict               # traffic/<traffic>.json
     end_to_end: List[dict]      # the end-to-end metrics this cell reports
     per_layer: List[dict]       # the per-layer metrics this cell reports
+    root: Path = ROOT           # the directory the files below are under
 
     @property
     def chips(self) -> int:
@@ -75,16 +87,23 @@ class Cell:
 
     def driver(self) -> ModuleType:
         name = _name("driver", self.cell["driver"])
-        return load_module(ROOT / "drivers" / f"{name}.py", f"driver_{name}")
+        return load_module(self.root / "drivers" / f"{name}.py",
+                           f"driver_{name}")
 
     def reference(self) -> ModuleType:
         name = _name("config", self.entry["config"])
-        return load_module(ROOT / "reference" / f"{name}.py", f"ref_{name}")
+        return load_module(self.root / "reference" / f"{name}.py",
+                           f"ref_{name}")
+
+    def family(self) -> ModuleType:
+        name = _name("family", self.config.get("family", "decoder"))
+        return load_module(self.root / "families" / f"{name}.py",
+                           f"family_{name}")
 
     def readers(self) -> Dict[str, ModuleType]:
-        return {m["name"]: load_module(ROOT / "metrics" / f"{m['name']}.py",
-                                       f"metric_{m['name']}")
-                for m in self.per_layer}
+        return {m["name"]: load_module(
+            self.root / "metrics" / f"{m['name']}.py", f"metric_{m['name']}")
+            for m in self.per_layer}
 
 
 def benchmark(path: Path = REPO / "BENCHMARK.json") -> dict:
@@ -95,9 +114,10 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-def resolve(workload: str, bench: dict = None) -> Cell:
-    """The cell named ``workload``; raises ``SpecError`` for an unknown name
-    or a missing file."""
+def resolve(workload: str, bench: dict = None, root: Path = ROOT) -> Cell:
+    """The cell named ``workload`` of ``bench`` (``BENCHMARK.json``), its
+    files under ``root``; raises ``SpecError`` for an unknown name or a
+    missing file."""
     bench = bench if bench is not None else benchmark()
     _name("workload", workload)
     entries = {w["name"]: w for w in bench["workloads"]}
@@ -111,12 +131,12 @@ def resolve(workload: str, bench: dict = None) -> Cell:
         raise SpecError(f"workload {workload!r} names unknown config "
                         f"{cname!r}")
     config = _json(REPO / configs[cname]["file"])
-    traffic = _json(ROOT / "traffic" / f"{_name('traffic', entry['traffic'])}"
+    traffic = _json(root / "traffic" / f"{_name('traffic', entry['traffic'])}"
                     ".json")
-    cell = _json(ROOT / "workloads" / f"{workload}.json")
+    cell = _json(root / "workloads" / f"{workload}.json")
     if cell.get("config") != cname or cell.get("traffic") != entry["traffic"]:
         raise SpecError(f"workloads/{workload}.json disagrees with "
                         f"BENCHMARK.json on its config or traffic")
     e2e = [m for m in bench["end_to_end"] if _reports(m, workload)]
     layer = [m for m in bench["per_layer"] if _reports(m, workload)]
-    return Cell(workload, entry, config, cell, traffic, e2e, layer)
+    return Cell(workload, entry, config, cell, traffic, e2e, layer, root)

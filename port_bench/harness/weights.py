@@ -38,7 +38,8 @@ def _plan(module: nn.Module) -> List[Tuple[str, tuple, str, float]]:
             key = pre + name
             if name == "bias":
                 plan.append((key, shape, "zeros", 0.0))
-            elif kind_name in ("LayerNorm", "GroupNorm") or name == "alpha":
+            elif kind_name in ("LayerNorm", "GroupNorm", "RMSNorm") \
+                    or name == "alpha":
                 plan.append((key, shape, "ones", 0.0))
             elif name in ("pos_bias_u", "pos_bias_v"):
                 plan.append((key, shape, "uniform",

@@ -12,6 +12,11 @@ the request.
 - ``request_rtf_p95``: the 95th percentile, over the same requests, of the
   time from sending it to its last audio over its audio seconds.
 
+Audio is counted in a driver's units at its ``sample_rate``: samples at the
+vocoder's rate for a driver that serves waveforms; a driver that serves
+speech tokens counts each token as 1/12.5 s of audio (``sample_rate`` 12.5,
+the speech-token rate), so the three metrics keep their definitions.
+
 A request that failed, or had not finished when the drain after the window
 ended, misses both tails: it counts as infinitely late.  Percentiles are the
 nearest rank: the value at rank ceil(0.95 n).
@@ -89,7 +94,7 @@ class Served:
     """A finished request's inputs and the audio its client received."""
     tokens: object              # (n,) int32
     speaker: object             # (speaker_dim,) float32
-    wav: object                 # (samples,) float32
+    output: object              # (samples,) float32: the waveform
 
 
 @dataclasses.dataclass

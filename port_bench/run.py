@@ -5,10 +5,11 @@
 
 Set-up (the program built, its weights drawn on the card from the seed,
 every shape the cell uses warmed), then a window of ``--seconds`` of the
-cell's traffic, then the check of the served audio against the plain
-reference.  ``--trace 0`` reports the cell's end-to-end metrics,
-``--trace 1`` its per-layer metrics, read in the same kind of run with a
-slice of the window under the profiler.  Exits non-zero and prints no result
+cell's traffic, then the check of the served outputs against the plain
+reference, through the configuration's family (``families/``).
+``--trace 0`` reports the cell's end-to-end metrics, ``--trace 1`` its
+per-layer metrics, read in the same kind of run with a slice of the window
+under the profiler.  Exits non-zero and prints no result
 without the card(s) the cell asks for, or when JAX or the JAX package is
 loaded.  The last lines on standard error are the numbers compared with
 their limits.
@@ -52,7 +53,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     """One run of ``cell`` on ``device``: the result line's dict."""
     import torch
     from port_bench.harness import check as check_mod
-    from port_bench.harness import weights, window
+    from port_bench.harness import window
 
     drv = cell.driver().Driver(cell, seed, torch.device(device), trace)
     cuda = drv.device.type == "cuda"
@@ -76,18 +77,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
 
     sample = check_mod.choose(list(served), lengths,
                               cell.cell["check"]["sample"], seed)
-    ref = cell.reference()
-    flow_w, hift_w = weights.model_states(cell.config, seed, device)
-    pcm16 = cell.cell["check"].get("pcm16", False)
-    pairs = [(served[i].wav, ref.decode(cell.config, flow_w, hift_w,
-                                        served[i].tokens, served[i].speaker,
-                                        device)) for i in sample]
-    if pcm16:
-        pairs = [(s, check_mod.pcm16(r)) for s, r in pairs]
-    sr, hop = cell.config["hift"]["sampling_rate"], check_mod.frame_hop(
-        cell.config)
-    readings = check_mod.compare(pairs, sr, hop)
-    each = check_mod.per_request(pairs, sr, hop)
+    fam = cell.family()
+    states = fam.states(cell, seed, device)
+    pairs = [(served[i].output,
+              fam.reference_output(cell, served[i], states, device))
+             for i in sample]
+    readings, each = fam.compare(cell, pairs)
     t_checked = time.perf_counter()
     ok, compared = check_mod.verdict(readings, cell.cell["check"]["limits"])
     correct = bool(ok and summ["failed"] == 0 and len(sample) > 0)

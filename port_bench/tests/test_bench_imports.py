@@ -34,7 +34,10 @@ def test_no_module_imports_jax():
 
 
 def test_reference_imports_nothing_of_the_port():
-    for f in sorted((ROOT / "reference").rglob("*.py")):
+    files = sorted((ROOT / "reference").rglob("*.py")) + sorted(
+        ROOT.glob("tests/*/reference/*.py"))
+    assert any("tests" in f.parts for f in files)
+    for f in files:
         tops = set(_imports(f))
         assert PORT not in tops and not tops & JAX, f
         assert tops <= {"__future__", "math", "typing", "contextlib",

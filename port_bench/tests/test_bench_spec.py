@@ -1,6 +1,7 @@
 """The harness finds every configuration, cell, traffic mix, driver,
-reference and metric reader by name, refuses unknown names, and
-``BENCHMARK.json`` keeps the contract's shape."""
+reference, family and metric reader by name, refuses unknown names, and
+``BENCHMARK.json`` keeps the contract's shape; each over the listed cells
+and over them with the speech-LM fixture added (``bench_root``)."""
 
 import json
 import re
@@ -14,44 +15,54 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 
 
 @pytest.fixture(scope="module")
-def bench():
-    return spec.benchmark()
+def bench(bench_root):
+    return bench_root[0]
 
 
-def test_every_cell_resolves(bench):
+@pytest.fixture(scope="module")
+def root(bench_root):
+    return bench_root[1]
+
+
+def test_every_cell_resolves(bench, root):
     for w in bench["workloads"]:
-        cell = spec.resolve(w["name"], bench)
+        cell = spec.resolve(w["name"], bench, root)
         assert cell.chips == w["chips"]
         assert hasattr(cell.driver(), "Driver")
-        assert hasattr(cell.reference(), "decode")
+        assert cell.reference().__file__ == str(
+            root / "reference" / f"{w['config']}.py")
+        fam = cell.family()
+        assert all(callable(getattr(fam, f, None)) for f in (
+            "states", "reference_output", "compare"))
         readers = cell.readers()
         assert readers and all(hasattr(r, "read") for r in readers.values())
         assert any(m["name"] == "setup_s" for m in cell.end_to_end)
 
 
 @pytest.mark.parametrize("name", ["no_such_cell", "bad name", "../x", ""])
-def test_unknown_names_refused(bench, name):
+def test_unknown_names_refused(bench, root, name):
     with pytest.raises(spec.SpecError):
-        spec.resolve(name, bench)
+        spec.resolve(name, bench, root)
 
 
-def test_missing_files_refused(bench, tmp_path):
-    b = json.loads(json.dumps(bench))
-    b["workloads"][0]["traffic"] = "no_such_traffic"
-    with pytest.raises(spec.SpecError):
-        spec.resolve(b["workloads"][0]["name"], b)
-    b = json.loads(json.dumps(bench))
-    b["workloads"][0]["config"] = "no_such_config"
-    with pytest.raises(spec.SpecError):
-        spec.resolve(b["workloads"][0]["name"], b)
+def test_missing_files_refused(bench, root):
+    for w in range(len(bench["workloads"])):
+        b = json.loads(json.dumps(bench))
+        b["workloads"][w]["traffic"] = "no_such_traffic"
+        with pytest.raises(spec.SpecError):
+            spec.resolve(b["workloads"][w]["name"], b, root)
+        b = json.loads(json.dumps(bench))
+        b["workloads"][w]["config"] = "no_such_config"
+        with pytest.raises(spec.SpecError):
+            spec.resolve(b["workloads"][w]["name"], b, root)
 
 
-def test_readers_declare_their_metric(bench):
+def test_readers_declare_their_metric(bench, root):
     """A reader declares its layer, the metric it moves, and the cells in
     which it finds something to read; ``BENCHMARK.json`` reports it in
     some of those."""
     for m in bench["per_layer"]:
-        mod = spec.load_module(spec.ROOT / "metrics" / f"{m['name']}.py",
+        mod = spec.load_module(root / "metrics" / f"{m['name']}.py",
                                m["name"])
         assert mod.LAYER == m["layer"]
         assert mod.MOVES == m["moves"]
@@ -87,8 +98,8 @@ def test_contract_shape(bench):
     assert len(json.dumps(bench)) < 64 * 1024
 
 
-def test_cell_files_agree(bench):
+def test_cell_files_agree(bench, root):
     for w in bench["workloads"]:
-        cell = spec.resolve(w["name"], bench)
+        cell = spec.resolve(w["name"], bench, root)
         assert cell.cell["why"] == w["why"]
         assert "length_gap" in cell.cell["check"]["limits"]
